@@ -1,0 +1,175 @@
+"""Layer building blocks and weight initializers (NCHW).
+
+Counterpart of deepprior_tpu/models/layers.py, with the reference layer
+library's semantics (src/net/):
+- convolutions use 'valid' padding
+- ConvPoolLayer adds the bias after max-pooling, which for a per-channel
+  bias equals conv(bias) -> pool -> activation, the order used here
+- pooling floors odd sizes
+- He/Xavier initialization, drawn from an explicit ``torch.Generator``
+- dropout p_drop = 0.3 (inverted dropout; identity in eval mode)
+
+Parameters stay float32; ``dtype`` is the compute type (bf16 on the card).
+"""
+
+from __future__ import annotations
+
+import inspect
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# reference dropoutlayer.py default p = 0.3 (drop probability)
+DROPOUT_RATE = 0.3
+
+
+def prelu(x, c):
+    """Parametric ReLU, the canonical 2-arg activation for the learned-
+    parameter mechanism (reference hiddenlayer.py:146-151)."""
+    return torch.where(x >= 0, x, c * x)
+
+
+def takes_learned_param(fn: Optional[Callable]) -> bool:
+    """True when ``fn(x, c)`` expects a trainable parameter: exactly two
+    required positional arguments (the JAX package's narrowing of the
+    reference's ``len(getargspec(activation).args) == 2`` dispatch)."""
+    if fn is None:
+        return False
+    try:
+        params = [
+            p
+            for p in inspect.signature(fn).parameters.values()
+            if p.default is inspect.Parameter.empty
+            and p.kind
+            in (
+                inspect.Parameter.POSITIONAL_ONLY,
+                inspect.Parameter.POSITIONAL_OR_KEYWORD,
+            )
+        ]
+    except (TypeError, ValueError):
+        return False
+    return len(params) == 2
+
+
+def he_init_(weight: torch.Tensor, fan_in: int, generator=None):
+    """variance_scaling(2.0, 'fan_in', 'normal')."""
+    with torch.no_grad():
+        return weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+def xavier_init_(weight: torch.Tensor, fan_in: int, fan_out: int, generator=None):
+    """variance_scaling(1.0, 'fan_avg', 'uniform')."""
+    limit = math.sqrt(3.0 * 2.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return weight.uniform_(-limit, limit, generator=generator)
+
+
+class ConvPool(nn.Module):
+    """conv(valid) -> floor max-pool -> activation: the reference
+    ConvPoolLayer (convpoollayer.py:39-305).
+
+    packed=True is accepted and changes nothing: the JAX package's packed
+    form is a TPU matrix-unit layout of the same parameters."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        features: int,
+        kernel: Tuple[int, int],
+        pool: Tuple[int, int],
+        activation: Optional[Callable] = torch.relu,
+        dtype: torch.dtype = torch.float32,
+        packed: bool = False,
+    ):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, features, kernel)
+        self.pool = tuple(pool)
+        self.activation = activation
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None):
+        kh, kw = self.conv.kernel_size
+        he_init_(self.conv.weight, self.conv.in_channels * kh * kw, generator)
+        nn.init.zeros_(self.conv.bias)
+
+    def forward(self, x):
+        x = F.conv2d(
+            x.to(self.dtype),
+            self.conv.weight.to(self.dtype),
+            self.conv.bias.to(self.dtype),
+        )
+        if self.pool != (1, 1):
+            x = F.max_pool2d(x, self.pool, self.pool)
+        if self.activation is not None:
+            x = self.activation(x)
+        return x
+
+
+class MLPHead(nn.Module):
+    """FC(hidden) - drop - FC(hidden) - drop - [FC(embedding)] - FC(out):
+    the regression head of PoseRegNet (reference poseregnet.py:100-143).
+
+    A 2-arg ``activation`` (e.g. ``prelu``) gives each hidden layer a
+    trainable per-unit ``c{idx}`` initialised to 0.5 (hiddenlayer.py:40-169).
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        out_dim: int,
+        hidden: int = 1024,
+        dropout: bool = True,
+        embedding: Optional[int] = None,
+        activation: Optional[Callable] = torch.relu,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        widths = [in_features, hidden, hidden]
+        if embedding is not None:
+            widths.append(embedding)
+        widths.append(out_dim)
+        self.dense = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])
+        )
+        self.activation = activation
+        self.learned = takes_learned_param(activation)
+        if self.learned:
+            self.c0 = nn.Parameter(torch.full((hidden,), 0.5))
+            self.c1 = nn.Parameter(torch.full((hidden,), 0.5))
+        self.drop = nn.Dropout(DROPOUT_RATE) if dropout else nn.Identity()
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None):
+        for i, lin in enumerate(self.dense):
+            if i < 2:
+                he_init_(lin.weight, lin.in_features, generator)
+            else:
+                xavier_init_(lin.weight, lin.in_features, lin.out_features, generator)
+            nn.init.zeros_(lin.bias)
+        if self.learned:
+            nn.init.constant_(self.c0, 0.5)
+            nn.init.constant_(self.c1, 0.5)
+
+    def _linear(self, i, x):
+        lin = self.dense[i]
+        return F.linear(
+            x.to(self.dtype), lin.weight.to(self.dtype), lin.bias.to(self.dtype)
+        )
+
+    def _activate(self, x, idx: int):
+        if self.activation is None:
+            return x
+        if self.learned:
+            return self.activation(x, getattr(self, f"c{idx}"))
+        return self.activation(x)
+
+    def forward(self, x):
+        x = x.reshape(x.shape[0], -1)
+        x = self.drop(self._activate(self._linear(0, x), 0))
+        x = self.drop(self._activate(self._linear(1, x), 1))
+        for i in range(2, len(self.dense)):
+            x = self._linear(i, x)
+        return x

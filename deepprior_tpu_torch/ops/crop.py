@@ -1,0 +1,238 @@
+"""The metric-cube hand crop, plain PyTorch: the serving subset of
+deepprior_tpu/ops/crop.py.
+
+This is the reference the CUDA kernel (ops/hopper_crop.py) is held
+against, and the path every CPU tensor takes.  Steps, as in the JAX module:
+
+  1. ``clamp_depth``     per-image depth clamp (handdetector.py:56-61)
+  2. ``com_to_bounds``   CoM + metric cube -> pixel bbox + z-range
+  3. ``_embed_geometry`` aspect-preserving resize + centre-embed geometry
+  4. ``crop3d``          nearest gather + zero pad + z-threshold + embed mask
+  5. ``normalize_crop``  depth -> [-1, 1] (or [0, 1])
+
+Exactness: every division here is IEEE float32 division of two tensors.
+On CUDA, PyTorch computes ``tensor / python_number`` as a multiply by the
+reciprocal and ``python_number / tensor`` as ``reciprocal(t) * n`` on
+every device; either can move a result by one ulp and flip a floor, so
+divisors are materialised with ``torch.full_like`` (``_div``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+# the ROADMAP entry that will bring the bilinear resize modes to the port
+_BILINEAR_TODO = (
+    "bilinear crop resize is not ported yet (ROADMAP.md Queue 2, K2 "
+    "'_sample_crop(bilinear=True)'); use resize='nearest'"
+)
+
+
+class CropConfig(NamedTuple):
+    """Static crop parameters."""
+
+    dsize: Tuple[int, int] = (128, 128)  # output (width, height)
+    min_depth_floor: float = 10.0  # reference handdetector.py:58
+    max_depth_ceil: float = 1500.0  # reference handdetector.py:57
+
+
+def _div(a, b) -> torch.Tensor:
+    """IEEE a / b with either side a Python number (see module doc)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full_like(a, b)
+    return a / b
+
+
+def depth_limits(dpt: torch.Tensor, cfg: CropConfig = CropConfig()):
+    """Per-image clamp limits (..., ) of (..., H, W) frames without
+    materialising the cleaned frame (one min/max pass)."""
+    dpt = torch.as_tensor(dpt, dtype=torch.float32)
+    lo, hi = torch.aminmax(dpt.flatten(-2), dim=-1)
+    max_d = torch.clamp(hi, max=cfg.max_depth_ceil)
+    min_d = torch.clamp(lo, min=cfg.min_depth_floor)
+    return min_d, max_d
+
+
+def clamp_depth(dpt: torch.Tensor, cfg: CropConfig = CropConfig()):
+    """Zero out-of-range depth, per image: max_depth = min(1500, max),
+    min_depth = max(10, min), pixels outside [min, max] -> 0.
+
+    Returns (cleaned dpt, min_depth, max_depth)."""
+    dpt = torch.as_tensor(dpt, dtype=torch.float32)
+    min_d, max_d = depth_limits(dpt, cfg)
+    keep = (dpt >= min_d[..., None, None]) & (dpt <= max_d[..., None, None])
+    return torch.where(keep, dpt, 0.0), min_d, max_d
+
+
+def com_to_bounds(com, cube, fx, fy, img_hw, min_depth=10.0, max_depth=1500.0):
+    """CoM (u, v, d) + metric cube (mm) -> crop bounds.
+
+    Returns (xstart, xend, ystart, yend, zstart, zend), float32 and
+    integer-valued for the first four.  floor(x + 0.5) rounding, and a
+    centred half-frame crop when com_z ~ 0 (``isclose`` with the same
+    default rtol/atol as ``jnp.isclose``).
+
+    com: (..., 3); cube: (..., 3) or (3,); img_hw: (H, W).
+    """
+    com = torch.as_tensor(com, dtype=torch.float32)
+    cube = torch.as_tensor(cube, dtype=torch.float32, device=com.device)
+    cube = cube.expand(com.shape)
+    h, w = img_hw
+    u, v, d = com[..., 0], com[..., 1], com[..., 2]
+    sx, sy, sz = cube[..., 0], cube[..., 1], cube[..., 2]
+
+    ill = torch.isclose(d, torch.zeros_like(d))
+    safe_d = torch.where(ill, 1.0, d)
+    ux = _div(u * safe_d, fx)  # metric x, y of the CoM
+    vy = _div(v * safe_d, fy)
+    xstart = torch.floor((ux - sx / 2.0) / safe_d * fx + 0.5)
+    xend = torch.floor((ux + sx / 2.0) / safe_d * fx + 0.5)
+    ystart = torch.floor((vy - sy / 2.0) / safe_d * fy + 0.5)
+    yend = torch.floor((vy + sy / 2.0) / safe_d * fy + 0.5)
+    zstart = d - sz / 2.0
+    zend = d + sz / 2.0
+
+    xstart = torch.where(ill, float(w // 4), xstart)
+    xend = torch.where(ill, float(w // 4 + w // 2), xend)
+    ystart = torch.where(ill, float(h // 4), ystart)
+    yend = torch.where(ill, float(h // 4 + h // 2), yend)
+    zstart = torch.where(ill, float(min_depth), zstart)
+    zend = torch.where(ill, float(max_depth), zend)
+    return xstart, xend, ystart, yend, zstart, zend
+
+
+def _exact_floor_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """floor(a / b) for integer-valued f32 a (|a| < 2^23) and b > 0, exact
+    under a multiply-by-reciprocal division: one correction step with
+    exact f32 integer products."""
+    q = torch.floor(a / b)
+    r = a - q * b  # exact: both products integer-valued < 2^24
+    q = q + (r >= b).to(q.dtype)
+    q = q - (r < 0).to(q.dtype)
+    return q
+
+
+def _embed_geometry(xstart, xend, ystart, yend, dsize):
+    """Aspect-preserving resize + centre-embed geometry (handdetector.py:
+    447-452, 468-477): the bbox (wb, hb) is resized by dsize/max(wb, hb),
+    the embedded size integer-floored, and centred on the dsize canvas.
+
+    Returns (scale, off_x, off_y, sz_w, sz_h)."""
+    dw, dh = dsize
+    wb = xend - xstart
+    hb = yend - ystart
+    wide = wb > hb
+    scale = torch.where(wide, _div(float(dw), wb), _div(float(dh), hb))
+    sz_w = torch.where(wide, float(dw), _exact_floor_div(wb * dh, hb))
+    sz_h = torch.where(wide, _exact_floor_div(hb * dw, wb), float(dh))
+    off_x = torch.floor(dw / 2.0 - sz_w / 2.0)
+    off_y = torch.floor(dh / 2.0 - sz_h / 2.0)
+    return scale, off_x, off_y, sz_w, sz_h
+
+
+def crop_transform(com, cube, fx, fy, img_hw, dsize=(128, 128)):
+    """3x3 affine M: full-frame pixel coords -> crop pixel coords
+    (handdetector.py:455-477).  Batched over leading axes; (..., 3, 3)."""
+    xstart, xend, ystart, yend, _, _ = com_to_bounds(com, cube, fx, fy, img_hw)
+    scale, off_x, off_y, _, _ = _embed_geometry(xstart, xend, ystart, yend, dsize)
+    return _transform_matrix(scale, xstart, ystart, off_x, off_y)
+
+
+def _transform_matrix(scale, xstart, ystart, off_x, off_y):
+    """M = centre offset @ diag(s, s, 1) @ translate(-xstart, -ystart)."""
+    zeros = torch.zeros_like(scale)
+    ones = torch.ones_like(scale)
+    row0 = torch.stack([scale, zeros, -scale * xstart + off_x], dim=-1)
+    row1 = torch.stack([zeros, scale, -scale * ystart + off_y], dim=-1)
+    row2 = torch.stack([zeros, zeros, ones], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def _check_resize(use_bilinear, resize):
+    if resize not in (None, "nearest", "linear", "nd_bilinear"):
+        raise ValueError(
+            f"unknown resize method {resize!r} (want 'nearest', "
+            f"'linear' or 'nd_bilinear')"
+        )
+    if resize in ("linear", "nd_bilinear") or (resize is None and use_bilinear):
+        raise NotImplementedError(_BILINEAR_TODO)
+
+
+def crop3d(dpt, com, cube, fx, fy, dsize=(128, 128), use_bilinear=False,
+           method="gather", resize=None):
+    """Batched fused cube crop: clamped depth (B, H, W) -> (B, dh, dw) mm
+    patches and M (B, 3, 3).  Nearest resampling through cv2.INTER_NEAREST's
+    floor(dst * scale) map; out-of-image pixels pad with 0; near pixels ->
+    zstart, far -> 0; outside the embedded region -> 0.
+
+    method: 'gather' or 'onehot'.  The JAX package pins the two as
+    bit-identical; here both are the same gather.
+    """
+    if method not in ("gather", "onehot"):
+        raise ValueError(f"unknown crop method {method!r}")
+    _check_resize(use_bilinear, resize)
+    dpt = torch.as_tensor(dpt, dtype=torch.float32)
+    com = torch.as_tensor(com, dtype=torch.float32, device=dpt.device)
+    cube = torch.as_tensor(cube, dtype=torch.float32, device=dpt.device)
+    cube = cube.expand(com.shape)
+    b, h, w = dpt.shape
+    dw, dh = dsize
+    xs, xe, ys, ye, zstart, zend = com_to_bounds(com, cube, fx, fy, (h, w))
+    scale, off_x, off_y, sz_w, sz_h = _embed_geometry(xs, xe, ys, ye, dsize)
+    wb, hb = xe - xs, ye - ys
+
+    def col(t):  # (B,) -> (B, 1, 1)
+        return t[:, None, None]
+
+    u = torch.arange(dw, dtype=torch.float32, device=dpt.device)[None, None, :]
+    v = torch.arange(dh, dtype=torch.float32, device=dpt.device)[None, :, None]
+    # the nearest map is separable: p depends on u only, q on v only
+    p = col(xs) + _exact_floor_div((u - col(off_x)) * col(wb), col(sz_w))
+    q = col(ys) + _exact_floor_div((v - col(off_y)) * col(hb), col(sz_h))
+    p, q = torch.broadcast_tensors(p, q)  # (B, dh, dw)
+    in_img = (p >= 0) & (p < w) & (q >= 0) & (q < h)
+    bi = torch.arange(b, device=dpt.device)[:, None, None]
+    d = dpt[bi, q.clamp(0, h - 1).long(), p.clamp(0, w - 1).long()]
+    d = torch.where(in_img, d, 0.0)
+
+    # z-threshold (handdetector.py:291-295): near -> zstart, far -> 0
+    d = torch.where((d < col(zstart)) & (d != 0.0), col(zstart), d)
+    d = torch.where(d > col(zend), 0.0, d)
+    in_embed = (
+        (u >= col(off_x)) & (u < col(off_x + sz_w))
+        & (v >= col(off_y)) & (v < col(off_y + sz_h))
+    )
+    d = torch.where(in_embed, d, 0.0)
+    return d, _transform_matrix(scale, xs, ys, off_x, off_y)
+
+
+def normalize_crop(crop_mm, com_z, cube_z, norm_zero_one=False):
+    """Depth (mm) crop -> network input.  [-1, 1]: background 0 -> +1,
+    (d - com_z) / (cube_z / 2); [0, 1]: (d - (com_z - cube_z/2)) / cube_z.
+    com_z/cube_z broadcast against crop_mm's leading axes."""
+    crop_mm = torch.as_tensor(crop_mm, dtype=torch.float32)
+    com_z = torch.as_tensor(com_z, dtype=torch.float32, device=crop_mm.device)
+    cube_z = torch.as_tensor(cube_z, dtype=torch.float32, device=crop_mm.device)
+    com_z, cube_z = com_z[..., None, None], cube_z[..., None, None]
+    d = torch.where(crop_mm == 0.0, com_z + cube_z / 2.0, crop_mm)
+    if norm_zero_one:
+        return (d - (com_z - cube_z / 2.0)) / cube_z
+    return (d - com_z) / (cube_z / 2.0)
+
+
+def normalized_crop(
+    dpt, com, cube, fx, fy, dsize=(128, 128), norm_zero_one=False,
+    use_bilinear=False, method="gather", resize=None,
+):
+    """Crop + normalize: the inference-time preprocessing of clamped
+    frames.  Returns (crop_norm (B, dh, dw), M (B, 3, 3))."""
+    crop, m = crop3d(dpt, com, cube, fx, fy, dsize, use_bilinear, method,
+                     resize=resize)
+    com = torch.as_tensor(com, dtype=torch.float32, device=crop.device)
+    cube = torch.as_tensor(cube, dtype=torch.float32, device=crop.device)
+    cube = cube.expand(com.shape)
+    return normalize_crop(crop, com[..., 2], cube[..., 2], norm_zero_one), m

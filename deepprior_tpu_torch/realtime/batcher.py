@@ -1,0 +1,247 @@
+"""Online serving front-end: transparent micro-batching over the fused
+estimator.
+
+Counterpart of deepprior_tpu/realtime/batcher.py.  Concurrent callers
+submit single frames and get Futures; a collector thread groups up to
+``max_batch`` requests (waiting at most ``max_wait_ms`` after the first
+arrival), pads the tail to ``max_batch`` by repeating the last request
+(the reference's tail-pad rule, netbase.py:287-307), runs the fused
+pipeline once, and resolves every caller's Future from one copy of the
+joints back to the host.
+
+A lone request pays up to ``max_wait_ms`` extra latency; under load the
+batch fills before the deadline.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+
+@dataclass
+class _Request:
+    depth: np.ndarray  # (H, W) raw mm
+    com: np.ndarray  # (3,) image coords
+    cube: Optional[np.ndarray]  # (3,) mm or None -> estimator default
+    mirror: bool
+    future: Future
+
+
+class MicroBatchServer:
+    """Groups concurrent single-frame requests into one device batch.
+
+    ``submit`` is thread-safe and returns a ``concurrent.futures.Future``
+    resolving to the (J, 3) joints in mm.  All requests of a batch run as
+    one pipeline call at the fixed ``max_batch`` shape; per-request
+    ``cube``/``mirror`` ride the pipeline's per-sample config.
+    """
+
+    def __init__(
+        self,
+        est: FusedEstimator,
+        max_batch: int = 64,
+        max_wait_ms: float = 2.0,
+        frame_shape: Optional[tuple] = None,
+    ):
+        """``frame_shape`` pins the accepted (H, W); by default it is the
+        estimator's camera resolution, so a stray request with another
+        shape fails its own caller with a ValueError instead of locking
+        the server to it."""
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.est = est
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_ms) / 1000.0
+        self._q: queue.Queue = queue.Queue()
+        self._running = True
+        if frame_shape is None:
+            cam = getattr(est, "camera", None)
+            if cam is not None:
+                frame_shape = (int(cam.height), int(cam.width))
+        # pinned (H, W); None only when the estimator carries no camera,
+        # in which case the shape commits on the first SUCCESSFUL batch
+        self._frame_shape: Optional[tuple] = (
+            tuple(frame_shape) if frame_shape is not None else None
+        )
+        self._tentative_shape: Optional[tuple] = None
+        # orders submit's {check _running, enqueue} against close's
+        # {clear _running, enqueue sentinel}, so no Future is left
+        # unresolved by a submit racing close
+        self._submit_lock = threading.Lock()
+        # realized occupancy = frames / (batches * max_batch)
+        self.stats = {"frames": 0, "batches": 0, "errors": 0}
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------------
+    def submit(
+        self,
+        depth: np.ndarray,
+        com: np.ndarray,
+        cube: Optional[np.ndarray] = None,
+        mirror: bool = False,
+    ) -> Future:
+        """Enqueue one frame; returns a Future of the (J, 3) mm joints."""
+        if not self._running:
+            raise RuntimeError("server is closed")
+        d = np.asarray(depth, np.float32)
+        c = np.asarray(com, np.float32)
+        if d.ndim != 2 or c.shape != (3,):
+            raise ValueError(
+                f"bad request shapes: depth {d.shape} (want (H, W)), "
+                f"com {c.shape} (want (3,))"
+            )
+        fut: Future = Future()
+        req = _Request(
+            depth=d,
+            com=c,
+            cube=None if cube is None else np.asarray(cube, np.float32),
+            mirror=bool(mirror),
+            future=fut,
+        )
+        with self._submit_lock:
+            if not self._running:
+                raise RuntimeError("server is closed")
+            # one frame resolution per batch: rejecting a stray one here
+            # fails only that caller
+            pin = self._frame_shape or self._tentative_shape
+            if pin is None:
+                self._tentative_shape = d.shape
+            elif d.shape != pin:
+                raise ValueError(
+                    f"frame shape {d.shape} does not match this server's "
+                    f"{pin}"
+                )
+            self._q.put(req)
+        return fut
+
+    def close(self):
+        """Drain outstanding requests, then stop the collector thread."""
+        with self._submit_lock:
+            if not self._running:
+                return
+            self._running = False
+            self._q.put(None)  # wake the collector
+        self._thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------------
+    def _collect(self):
+        """Block for the first request, then gather until the batch is
+        full or ``max_wait_ms`` passed.  Returns (requests, stop)."""
+        items = []
+        stop = False
+        try:
+            first = self._q.get(timeout=0.1)
+        except queue.Empty:
+            return items, stop
+        if first is None:
+            return items, True
+        items.append(first)
+        deadline = time.monotonic() + self.max_wait_s
+        while len(items) < self.max_batch:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            try:
+                nxt = self._q.get(timeout=left)
+            except queue.Empty:
+                break
+            if nxt is None:
+                stop = True
+                break
+            items.append(nxt)
+        return items, stop
+
+    def _loop(self):
+        while True:
+            items, stop = self._collect()
+            # one batch per frame shape: in the cameraless fallback a
+            # failed batch clears the tentative pin while same-shape
+            # requests may still be queued
+            groups: dict = {}
+            for r in items:
+                groups.setdefault(r.depth.shape, []).append(r)
+            for shape, grp in groups.items():
+                try:
+                    self._run_batch(grp)
+                    if self._frame_shape is None:
+                        # cameraless fallback: the shape is proven good
+                        with self._submit_lock:
+                            self._frame_shape = shape
+                            self._tentative_shape = None
+                except Exception as e:  # resolve callers, keep serving
+                    self.stats["errors"] += 1
+                    if self._frame_shape is None:
+                        with self._submit_lock:
+                            self._tentative_shape = None
+                    for r in grp:
+                        if not r.future.done():
+                            r.future.set_exception(e)
+            if stop:
+                # drain anything enqueued after the close() sentinel
+                while True:
+                    try:
+                        r = self._q.get_nowait()
+                    except queue.Empty:
+                        return
+                    if r is not None:
+                        r.future.set_exception(
+                            RuntimeError("server closed")
+                        )
+
+    def _run_batch(self, items):
+        n = len(items)
+        pad = self.max_batch - n
+        dev = self.est.device
+        # tail-pad by repeating the last request (netbase.py:290-296);
+        # padded rows are computed and discarded
+        depth = np.stack([r.depth for r in items] + [items[-1].depth] * pad)
+        com = np.stack([r.com for r in items] + [items[-1].com] * pad)
+        depth_t = torch.from_numpy(depth).to(dev)
+        com_t = torch.from_numpy(com).to(dev)
+        if any(r.cube is not None or r.mirror for r in items):
+            default_cube = self.est.cube.cpu().numpy()
+            cube = np.stack(
+                [default_cube if r.cube is None else r.cube for r in items]
+                + [default_cube] * pad
+            )
+            mirror = np.asarray([r.mirror for r in items] + [False] * pad, bool)
+            joints, _, _ = self.est(
+                depth_t, com_t,
+                cube=torch.from_numpy(cube).to(dev),
+                mirror=torch.from_numpy(mirror).to(dev),
+            )
+        else:
+            joints, _, _ = self.est(depth_t, com_t)
+        # one copy to the host resolves the whole batch
+        self._resolve(items, joints.cpu().numpy())
+
+    def _resolve(self, items, joints_np):
+        self.stats["frames"] += len(items)
+        self.stats["batches"] += 1
+        for i, r in enumerate(items):
+            r.future.set_result(joints_np[i])
+
+    # ------------------------------------------------------------------
+    def occupancy(self) -> float:
+        """Realized mean batch fill fraction (1.0 = every batch full)."""
+        b = self.stats["batches"]
+        if not b:
+            return 0.0
+        return self.stats["frames"] / (b * self.max_batch)

@@ -1,0 +1,59 @@
+"""Weight conversion from the JAX package's flax parameter trees."""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _nhwc_rows_to_nchw(kernel: np.ndarray, c: int) -> np.ndarray:
+    """Reorder a Dense kernel's input rows from flax's NHWC flatten order
+    ((h*W + w)*C + c) to the NCHW flatten order (c*H*W + h*W + w)."""
+    rows = kernel.shape[0]
+    hw = rows // c
+    side = math.isqrt(hw)
+    if c * side * side != rows:
+        raise ValueError(
+            f"first Dense has {rows} input rows, not C*H*H for C={c}"
+        )
+    return kernel.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(rows, -1)
+
+
+def poseregnet_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``PoseRegNet`` ``variables["params"]`` (numpy leaves) ->
+    ``state_dict`` of deepprior_tpu_torch.models.PoseRegNet.
+
+    Names: ConvPool_{0,1,2}/Conv_0/{kernel,bias},
+    MLPHead_0/Dense_{i}/{kernel,bias} and, for a learned-parameter
+    activation, MLPHead_0/c{0,1}.  Conv kernels go HWIO -> OIHW; Dense
+    kernels (in, out) -> (out, in), the first one's rows permuted from the
+    NHWC flatten order to the NCHW one.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr):
+        sd[name] = torch.tensor(np.asarray(arr, np.float32))  # a copy
+
+    n_conv = len([k for k in params if k.startswith("ConvPool_")])
+    for i in range(n_conv):
+        conv = params[f"ConvPool_{i}"]["Conv_0"]
+        put(f"convs.{i}.conv.weight", np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+        put(f"convs.{i}.conv.bias", conv["bias"])
+    last_c = np.asarray(params[f"ConvPool_{n_conv - 1}"]["Conv_0"]["kernel"]).shape[-1]
+
+    head = params["MLPHead_0"]
+    dense = sorted((k for k in head if k.startswith("Dense_")),
+                   key=lambda k: int(k.split("_")[1]))
+    for i, k in enumerate(dense):
+        kern = np.asarray(head[k]["kernel"])
+        if i == 0:
+            kern = _nhwc_rows_to_nchw(kern, last_c)
+        put(f"head.dense.{i}.weight", kern.T)
+        put(f"head.dense.{i}.bias", head[k]["bias"])
+    for c in ("c0", "c1"):
+        if c in head:
+            put(f"head.{c}", head[c])
+    return sd

@@ -1,0 +1,63 @@
+"""Guards for the port: it imports no jax and nothing of the JAX package,
+and a request for a CUDA device on a machine without one raises instead
+of running on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import deepprior_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "flax"
+             or m == "deepprior_tpu" or m.startswith("deepprior_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.abspath(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+        env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 14, proc.stdout  # every module of the package was imported
+    assert bad == "[]", f"the port pulled in {bad}"
+
+
+def test_cuda_request_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.ops.hopper_crop import hopper_normalized_crop
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=16))
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedEstimator(model, NYU_CAMERA, device="cuda")
+    # the model stayed where it was: nothing carried on on the CPU
+    assert next(model.parameters()).device.type == "cpu"
+
+    depth = np.zeros((1, 480, 640), np.float32)
+    com = np.array([[320.0, 240.0, 600.0]], np.float32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        hopper_normalized_crop(torch.as_tensor(depth, device="cuda"), com,
+                               (250.0,) * 3, NYU_CAMERA.fx, NYU_CAMERA.fy)
+    # a device the wrapper has no path for raises too
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        hopper_normalized_crop(torch.zeros((1, 480, 640), device="meta"), com,
+                               (250.0,) * 3, NYU_CAMERA.fx, NYU_CAMERA.fy)
