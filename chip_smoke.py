@@ -1,24 +1,36 @@
 """Smoke run of the PyTorch port (deepprior_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Builds the CUDA crop kernel from deepprior_tpu_torch/csrc/crop.cu, holds it
-bit for bit against its plain PyTorch version, drives the serving path
-(FusedEstimator with a full-width PoseRegNet, then MicroBatchServer) at
-B = 512 NYU frames, and times the kernel, the estimator and the server.
+Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the crop
+K1; warp.cu: the augmentation warps K4 and K5) and holds each bit for bit
+against its plain PyTorch version.  Then it drives the two main paths:
+serving (FusedEstimator with a full-width PoseRegNet, then
+MicroBatchServer) at B = 512 NYU frames, and training (the port's
+main_nyu_posereg_embedding: 12 steps at B = 128 through K4, then an epoch
+through K5), checks a training step on the card against the CPU, and
+times the kernels, the estimator, the server and the training step.
 Every phase raises on failure, so the exit code is 0 only when all passed.
 The last line is {"ok": true, "device": {...}}; the line before it
-carries the kernel's launches, error and times as JSON.
+carries each kernel's launches, error and times as JSON.
+
+--profile adds phase 11: torch.profiler over the train step and its
+stages (augment via K4, forward + backward, optimizer) at B = 128 and 512,
+printing host ms, device busy ms, busy share and launches per call, and
+the kernels that take the most device time and the most launches.
 
 Needs one CUDA card; without one it exits non-zero before any result.
 Imports nothing of jax or of the JAX package.
 """
 
+import argparse
 import json
+import math
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -44,8 +56,56 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def main():
+def profile_stage(label, fn, iters, log):
+    """torch.profiler over iters calls of fn() after 3 warm-up calls.
+
+    Logs the host ms per call (the profiler inflates it), the device busy
+    ms per call (the union of the intervals of the kernels and copies on
+    the card, so that nothing counts twice), its share of the host time,
+    the launches per call, and the kernels that take the most device time
+    and the most launches."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # kernels and copies; the device-side copies of user annotations
+    # (Optimizer.step#...) span other kernels and are left out
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3 / iters
+    by = {}
+    for e in evs:
+        c, t = by.get(e.name, (0, 0.0))
+        by[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
+    log(f"[11 profile] {label}: host {host_ms:.4f} ms/call (profiled), device "
+        f"busy {busy_ms:.4f} ms/call, busy share {busy_ms / host_ms:.3f}, "
+        f"launches/call {len(evs) / iters:.1f}")
+    for key, what in ((lambda kv: -kv[1][1], "time"), (lambda kv: -kv[1][0], "launches")):
+        for name, (c, t) in sorted(by.items(), key=key)[:8]:
+            log(f"    by {what}: {t / iters:.4f} ms/call x{c / iters:.1f} {name[:100]}")
+
+
+def main(argv=None):
+    import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile the train step and its stages (phase 11)")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -56,7 +116,7 @@ def main():
     from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_depth_frame
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
-    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.ops import hopper_crop, hopper_warp
     from deepprior_tpu_torch.ops._build import BUILD_LOG
     from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
     from deepprior_tpu_torch.prior import PCAPrior
@@ -82,12 +142,15 @@ def main():
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    hopper_crop.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, in parallel
+        for fut in [pool.submit(hopper_crop.build), pool.submit(hopper_warp.build)]:
+            fut.result()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in BUILD_LOG.get("crop.cu", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"[2 build] crop.cu built and loaded in {build_s:.3f} s "
-        f"({'cached' if not ptxas else '; '.join(ptxas)})")
+    for src in ("crop.cu", "warp.cu"):
+        ptxas = [ln.strip() for ln in BUILD_LOG.get(src, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"[2 build] {src} built and loaded ({build_s:.3f} s for both) "
+            f"({'cached' if not ptxas else '; '.join(ptxas)})")
 
     # ---------------------------------------------------------------- 3
     rng = np.random.default_rng(23455)
@@ -314,7 +377,7 @@ def main():
     log(f"[6 timing] {tag} server: {n_load} requests from {n_threads} threads "
         f"in {wall:.3f} s = {n_load / wall:.1f} requests/s (occupancy {occ:.3f})")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "normalized_crop",
         "route": "cuda",
         "source": "deepprior_tpu_torch/csrc/crop.cu",
@@ -324,10 +387,279 @@ def main():
         "ms": ms,
         "plain_ms": plain_ms,
         "kernel_only_ms": launch_ms,
-    }]}), flush=True)
+    }]
+    kernels += training_phases(dev, tag, log, profile=args.profile)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)
+
+
+def alternate(plain_fn, kernel_fn, iters):
+    """Mean ms of each, timed in the order plain, kernel, kernel, plain."""
+    t_plain, t_kernel = [], []
+    for fn, acc in ((plain_fn, t_plain), (kernel_fn, t_kernel),
+                    (kernel_fn, t_kernel), (plain_fn, t_plain)):
+        acc.append(time_ms(fn, iters=iters))
+    return float(np.mean(t_plain)), float(np.mean(t_kernel))
+
+
+def training_phases(dev, tag, log, profile=False):
+    """Phases 7-10: the warp kernels K4 and K5 against their plain
+    versions, the training main path, a training step on the card against
+    the CPU, and the training timings; with ``profile``, phase 11.  Returns
+    the kernels' JSON records."""
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_sequence
+    from deepprior_tpu_torch.geometry import rotation_matrix_2d
+    from deepprior_tpu_torch.mains import main_nyu_posereg_embedding
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.augment import (
+        NV_VAL, augment_batch, augment_geometry, sample_augment_params)
+    from deepprior_tpu_torch.ops.crop import com_to_bounds
+    from deepprior_tpu_torch.prior import fit_pose_prior
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+
+    cam = NYU_CAMERA
+    modes = ("com", "rot", "sc", "none")
+    gen = torch.Generator(dev).manual_seed(11)
+
+    # ---------------------------------------------------------------- 7
+    seq = make_sequence(cam, 128, seed=5)
+    host = {z1: TrainData.from_sequence(seq, norm_zero_one=z1) for z1 in (False, True)}
+    data = {z1: d.to(dev) for z1, d in host.items()}
+    b = data[False].n
+    mm = torch.from_numpy(np.stack([f.dpt for f in seq.data])).to(dev)
+    err = {"warp_patch": 0.0, "warp_norm": 0.0}
+    cases = []
+
+    def check4(label, patch, m_fwd, nv=NV_VAL, **knobs):
+        got = hw.hopper_warp_patch(patch, m_fwd, nv_val=nv, **knobs)
+        want = hw.warp_patch_plain(patch, hw.warp_patch_params(m_fwd), 0.0, nv)
+        torch.cuda.synchronize()
+        err["warp_patch"] = max(err["warp_patch"], (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {label}: kernel != plain on "
+                                 f"{int((got != want).sum())} pixels")
+        cases.append(f"K4 {label}")
+        return got
+
+    eye = torch.eye(3, device=dev).expand(b, 3, 3).contiguous()
+    if not torch.equal(check4("identity", mm, eye, nv=None), mm):
+        raise AssertionError("K4 identity changed its input")
+    scale = torch.rand(b, generator=gen, device=dev) * 0.2 + 0.9
+    shift = (torch.rand((b, 2), generator=gen, device=dev) - 0.5) * 10.0
+    sep = eye.clone()
+    sep[:, 0, 0] = sep[:, 1, 1] = scale
+    sep[:, :2, 2] = shift
+    check4("separable scale + translate", mm, sep)
+    ang = (torch.rand(b, generator=gen, device=dev) - 0.5) * 360.0
+    ang[:4] = torch.tensor([90.0, 180.0, -90.0, 270.0], device=dev)
+    center = torch.tensor([64.0, 64.0], device=dev).expand(b, 2)
+    check4("rotations incl. 90/180 deg", mm, rotation_matrix_2d(center, ang))
+    far = eye.clone()
+    far[:, 0, 2] = 500.0
+    if check4("out of frame", mm, far).abs().max().item() != 0.0:
+        raise AssertionError("K4 out of frame: not all border")
+    nv = mm.clone()
+    nv[torch.rand(nv.shape, generator=gen, device=dev) < 0.01] = NV_VAL
+    got = check4("NV markers", nv, rotation_matrix_2d(center, ang))
+    if (got == NV_VAL).any():
+        raise AssertionError("K4 let an NV marker through")
+    params = sample_augment_params(gen, b, len(modes))
+    for z1 in (False, True):
+        d = data[z1]
+        geo = augment_geometry(params, d.com, d.cube, d.m, cam, modes, (128, 128), z1)
+        img, premax = hw.unnormalize(d.crops, geo.norm)
+        ref = check4(f"B={b} synthetic crops, augment modes {'/'.join(modes)}, "
+                     f"norm_zero_one={z1}", img, geo.a_fwd)
+        if not torch.equal(hw.hopper_warp_patch(img, geo.a_fwd, nv_val=NV_VAL,
+                                                block_k=4), ref):
+            raise AssertionError("block_k=4 changed K4's output")
+        k5_params = hw.warp_norm_params(geo.a_fwd, geo.norm)
+        got = hw.warp(d.crops, k5_params, 0.0, NV_VAL, fused=True)
+        want = hw.warp_norm_plain(d.crops, k5_params, 0.0, NV_VAL)
+        unfused = hw.warp_norm_epilogue(ref, premax, geo.norm)
+        torch.cuda.synchronize()
+        err["warp_norm"] = max(err["warp_norm"], (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 norm_zero_one={z1}: kernel != plain on "
+                                 f"{int((got != want).sum())} pixels")
+        cases.append(f"K5 norm_zero_one={z1}")
+        n_diff = int((got != unfused).sum())
+        log(f"[7 warp kernels] K5 vs the unfused pipeline with K4, "
+            f"norm_zero_one={z1}: {n_diff} of {got.numel()} pixels differ")
+        if n_diff > 1e-4 * got.numel():
+            raise AssertionError(f"K5 differs from the unfused pipeline on {n_diff} pixels")
+    log(f"[7 warp kernels] {len(cases)} cases bit-exact (torch.equal): "
+        f"{'; '.join(cases)}; max |kernel - plain| K4 {err['warp_patch']}, "
+        f"K5 {err['warp_norm']}")
+
+    # ---------------------------------------------------------------- 8
+    def train_main(extra, epochs):
+        """The port's flagship entry point, as a user runs it."""
+        hw.LAUNCHES.update(warp_patch=0, warp_norm=0)
+        t0 = time.perf_counter()
+        _, results, hist = main_nyu_posereg_embedding.main([
+            "--synthetic", "--epochs", str(epochs), "--batch-size", "128",
+            "--nmax", "512", "--out", "eval/chip_smoke", "--device",
+            str(dev)] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(hw.LAUNCHES)
+        costs = np.asarray(hist["train_cost"])
+        if costs.shape != (4 * epochs,) or not np.isfinite(costs).all():
+            raise AssertionError(f"training costs {costs}")
+        for name, hpe in results.items():
+            if not (np.isfinite(hpe.getMeanError()) and np.isfinite(hpe.getMaxError())):
+                raise AssertionError(f"{name}: non-finite test error")
+        return counts, costs, results, wall
+
+    counts, costs, results, wall = train_main([], 3)
+    steps = costs.size
+    if counts != {"warp_patch": steps, "warp_norm": 0}:
+        raise AssertionError(f"12 unfused steps launched {counts}")
+    k4_launches = counts["warp_patch"]
+    log(f"[8 train main] main_nyu_posereg_embedding, synthetic NYU 640x480, nmax 512, "
+        f"B=128, {steps} steps, PoseRegNet hidden 1024 f32 + dropout, PCA 30 of "
+        f"50k sampled poses, reference ADAM, aug com/rot/none: launches {counts}, "
+        f"costs {costs[0]:.4f} -> {costs[-1]:.4f} (all finite), "
+        + ", ".join(f"{k} mean {v.getMeanError():.3f} mm max {v.getMaxError():.3f} mm"
+                    for k, v in results.items())
+        + f"; {wall:.1f} s with data and prior")
+    counts, costs, results, wall = train_main(["--aug-fuse-norm"], 1)
+    if counts != {"warp_patch": 0, "warp_norm": costs.size}:
+        raise AssertionError(f"fused epoch launched {counts}")
+    k5_launches = counts["warp_norm"]
+    log(f"[8 train main] one epoch with --aug-fuse-norm: launches {counts}, "
+        f"costs {', '.join(f'{c:.4f}' for c in costs)}")
+
+    # ---------------------------------------------------------------- 9
+    d = host[False]
+    pri = fit_pose_prior(cam, np.random.default_rng(0), d.gt3d_crop, d.com,
+                         d.cube, num_poses=5000)
+    net_cfg = PoseRegNetConfig(num_joints=1, n_dims=30, hidden=1024, dropout=False)
+    sd = PoseRegNet(net_cfg, generator=torch.Generator().manual_seed(1)).state_dict()
+    cfg = TrainConfig(batch_size=b, aug_modes=modes, model_has_dropout=False)
+    cpu_params = sample_augment_params(torch.Generator().manual_seed(9), b, len(modes))
+    dev_params = [t.to(dev) for t in cpu_params]
+    out = {}
+    for where, prm in (("cpu", cpu_params), (dev, dev_params)):
+        tr = Trainer(PoseRegNet(net_cfg), cfg, cam, prior=pri, device=where)
+        st = tr.init_state(state_dict=sd)
+        batch = d.to(where).take(torch.arange(b, device=where))
+        crops = augment_batch(None, batch["crops"], batch["gt3d_crop"], batch["com"],
+                              batch["cube"], batch["m"], cam, aug_modes=modes,
+                              use_pallas=True, params=prm)[0]
+        losses = []
+        for _ in range(2):  # the second loss sees the first update
+            st, loss = tr._train_step_core(st, batch, prm, None, 1e-4)
+            losses.append(float(loss))
+        out[str(where)] = (crops.cpu(), losses)
+    (c_cpu, l_cpu), (c_dev, l_dev) = out["cpu"], out[str(dev)]
+    frac = float((c_cpu != c_dev).float().mean())
+    rel = max(abs(a - c) / abs(c) for a, c in zip(l_dev, l_cpu))
+    if frac >= 1e-4 or rel > 1e-3:
+        raise AssertionError(f"card vs CPU: crops differ on {frac} of pixels, "
+                             f"losses {l_dev} vs {l_cpu}")
+    log(f"[9 card vs cpu] B={b}, hidden 1024, no dropout, same weights and aug "
+        f"draws: crops differ on {frac} of pixels (kernel vs plain K4); losses "
+        f"card {l_dev} cpu {l_cpu}, max rel |d| {rel:.2e}")
+
+    # --------------------------------------------------------------- 10
+    timings = {}
+    for bsz in (128, 512):
+        rep = bsz // b
+        dd = TrainData(*(t.repeat((rep,) + (1,) * (t.dim() - 1)) for t in data[False]))
+        tr = Trainer(PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=1024)),
+                     TrainConfig(batch_size=bsz), cam, prior=pri, device=dev)
+        st = tr.init_state()
+        idx = torch.randperm(dd.n, generator=gen, device=dev)[:bsz]
+        batch = dd.take(idx)
+        aug_gen = torch.Generator(dev).manual_seed(1)
+        drop_gen = torch.Generator(dev).manual_seed(2)
+        aug = lambda **kw: augment_batch(  # noqa: E731
+            aug_gen, batch["crops"], batch["gt3d_crop"], batch["com"], batch["cube"],
+            batch["m"], cam, **kw)
+        step_ms = time_ms(lambda: tr._train_step_core(st, dd.take(idx), aug_gen,
+                                                      drop_gen, 1e-4), iters=20)
+        aug_plain, aug_k4 = alternate(lambda: aug(use_pallas=False),
+                                      lambda: aug(use_pallas=True), 20)
+        geo = augment_geometry(sample_augment_params(gen, bsz, 3), batch["com"],
+                               batch["cube"], batch["m"], cam, ("com", "rot", "none"),
+                               (128, 128))
+        img, _ = hw.unnormalize(batch["crops"], geo.norm)
+        p6 = hw.warp_patch_params(geo.a_fwd)
+        k5_params = hw.warp_norm_params(geo.a_fwd, geo.norm)
+        k4_plain, k4 = alternate(lambda: hw.warp_patch_plain(img, p6, 0.0, NV_VAL),
+                                 lambda: hw.launch_warp(img, p6, 0.0, NV_VAL), 50)
+        wrap_plain, wrap_k4 = alternate(
+            lambda: hw.warp_patch_plain(img, hw.warp_patch_params(geo.a_fwd), 0.0, NV_VAL),
+            lambda: hw.hopper_warp_patch(img, geo.a_fwd, nv_val=NV_VAL), 50)
+        k5_plain, k5 = alternate(
+            lambda: hw.warp_norm_plain(batch["crops"], k5_params, 0.0, NV_VAL),
+            lambda: hw.launch_warp(batch["crops"], k5_params, 0.0, NV_VAL, fused=True),
+            50)
+        # K5's wrapper from the per-sample scalars, as augment_batch has them
+        _, _, _, _, zs, ze = com_to_bounds(geo.new_com, batch["cube"], cam.fx,
+                                           cam.fy, (cam.height, cam.width))
+        norm_args = (geo.a_fwd, batch["com"][:, 2], batch["cube"][:, 2],
+                     geo.is_mode["com"] | geo.is_mode["sc"], zs, ze,
+                     geo.new_com[:, 2], geo.new_cube[:, 2])
+        wrap5_plain, wrap_k5 = alternate(
+            lambda: hw.warp_norm_plain(
+                batch["crops"],
+                hw.warp_norm_params(geo.a_fwd, hw.norm_params(*norm_args[1:])),
+                0.0, NV_VAL),
+            lambda: hw.hopper_warp_norm(batch["crops"], *norm_args, nv_val=NV_VAL), 50)
+        crops, labels = aug()[:2]
+        y = tr._targets(labels)
+        model, opt = st.model, st.optimizer
+        model.train()
+
+        def fwd_bwd():
+            opt.zero_grad(set_to_none=True)
+            loss = torch.sum(torch.square(model(crops[:, None], generator=drop_gen) - y),
+                             dim=1).mean()
+            loss.backward()
+
+        fb_ms = time_ms(fwd_bwd, iters=20)
+        opt_ms = time_ms(opt.step, iters=20)
+        timings[bsz] = dict(wrap_k4=wrap_k4, wrap_plain=wrap_plain, k4=k4,
+                            wrap_k5=wrap_k5, wrap5_plain=wrap5_plain, k5=k5)
+        log(f"[10 timing] {tag} train step B={bsz}: {step_ms:.4f} ms = "
+            f"{bsz / (step_ms / 1e3):.1f} samples/s; augment via K4 {aug_k4:.4f} ms "
+            f"vs via the gather warp {aug_plain:.4f} ms; K4 alone {k4:.4f} ms vs "
+            f"plain K4 {k4_plain:.4f} ms (with params: {wrap_k4:.4f} vs "
+            f"{wrap_plain:.4f} ms); K5 alone {k5:.4f} ms vs plain unfused "
+            f"{k5_plain:.4f} ms (with params: {wrap_k5:.4f} vs {wrap5_plain:.4f} "
+            f"ms); forward + backward {fb_ms:.4f} ms; optimizer "
+            f"{opt_ms:.4f} ms")
+        if profile:
+            for label, fn in (
+                    ("train step", lambda: tr._train_step_core(
+                        st, dd.take(idx), aug_gen, drop_gen, 1e-4)),
+                    ("augment via K4", lambda: aug(use_pallas=True)),
+                    ("forward + backward", fwd_bwd),
+                    ("optimizer", opt.step)):
+                profile_stage(f"{tag} {label} B={bsz}", fn, 10, log)
+
+    t = timings[128]
+    return [
+        {"name": "warp_patch", "route": "cuda",
+         "source": "deepprior_tpu_torch/csrc/warp.cu",
+         "replaces": "deepprior_tpu/ops/pallas_warp.py:293",
+         "launches": k4_launches, "max_abs_err": err["warp_patch"],
+         "ms": t["wrap_k4"], "plain_ms": t["wrap_plain"], "kernel_only_ms": t["k4"]},
+        {"name": "warp_norm", "route": "cuda",
+         "source": "deepprior_tpu_torch/csrc/warp.cu",
+         "replaces": "deepprior_tpu/ops/pallas_warp.py:150",
+         "launches": k5_launches, "max_abs_err": err["warp_norm"],
+         "ms": t["wrap_k5"], "plain_ms": t["wrap5_plain"], "kernel_only_ms": t["k5"]},
+    ]
 
 
 if __name__ == "__main__":

@@ -4,13 +4,21 @@ The module paths mirror the JAX package's, so each counterpart is found at
 the same place under the other package name:
 
 - ``camera``            pinhole camera models (``Camera``, dataset presets)
-- ``data.synthetic``    numpy hand-frame generator
-- ``ops.crop``          clamp + metric-cube crop + normalize (plain PyTorch)
-- ``ops.hopper_crop``   the same crop as a hand-written CUDA kernel
+- ``geometry``          2D point transforms, 3x3 inverse and compose
+- ``data``              frame containers and the synthetic hand sequences
+- ``ops.crop``          clamp + metric-cube crop + normalize, and the gather
+                        warp of cropped patches (plain PyTorch)
+- ``ops.hopper_crop``   the crop as a hand-written CUDA kernel (K1)
+- ``ops.hopper_warp``   the augmentation warps as hand-written CUDA
+                        kernels (K4, K5)
+- ``ops.augment``       training-time augmentation on the device
 - ``models``            PoseRegNet as NCHW ``nn.Module``s
-- ``prior``             the PCA pose-prior decode
+- ``prior``             the PCA pose prior: its fit and its decode
+- ``train``             reference optimizers, epoch indexing, the trainer
+- ``eval``              the hand-pose metric suite
 - ``realtime``          the fused frame -> joints estimator and its
                         micro-batching server
+- ``mains``             the entry points (``python -m``)
 - ``utils.convert``     flax parameter trees -> PyTorch ``state_dict``s
 
 The package imports torch and numpy only, never jax.
@@ -24,7 +32,8 @@ def __getattr__(name):
     import importlib
 
     if name in (
-        "camera", "data", "models", "ops", "prior", "realtime", "utils",
+        "camera", "data", "eval", "geometry", "mains", "models", "ops",
+        "prior", "realtime", "train", "utils",
     ):
         return importlib.import_module(f"deepprior_tpu_torch.{name}")
     raise AttributeError(name)

@@ -42,6 +42,22 @@ class Camera(NamedTuple):
             y = (v - self.uy) * d / torch.full_like(d, self.fy)
         return torch.stack([x, y, d], dim=-1)
 
+    def three_d_to_img(self, xyz: torch.Tensor) -> torch.Tensor:
+        """Project metric (..., 3) -> image coords (u, v, d); z == 0 maps
+        to the principal point with d = 0 (reference importers.py:104-119)."""
+        xyz = torch.as_tensor(xyz, dtype=torch.float32)
+        x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+        at_zero = z == 0.0
+        safe_z = torch.where(at_zero, 1.0, z)
+        u = x / safe_z * self.fx + self.ux
+        if self.flip_y:
+            v = self.uy - y / safe_z * self.fy
+        else:
+            v = y / safe_z * self.fy + self.uy
+        u = torch.where(at_zero, self.ux, u)
+        v = torch.where(at_zero, self.uy, v)
+        return torch.stack([u, v, z], dim=-1)
+
     # numpy twins for host-side code (the synthetic generator)
     def img_to_3d_np(self, uvd):
         uvd = np.asarray(uvd, np.float32)

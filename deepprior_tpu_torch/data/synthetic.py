@@ -1,9 +1,10 @@
-"""Synthetic depth frames of a parametric hand (numpy).
+"""Synthetic depth frames of a parametric hand.
 
-The frame part of deepprior_tpu/data/synthetic.py: a palm sphere and
-finger capsules rendered into a depth map.  ``make_depth_frame`` draws from
-``rng`` in the same order as the JAX package's ``make_frame``, so one seed
-gives the same raw frame and CoM in both packages.
+Counterpart of deepprior_tpu/data/synthetic.py: a palm sphere and finger
+capsules rendered into a depth map (numpy), cropped like an importer.
+``make_depth_frame`` and ``make_frame`` draw from ``rng`` in the same
+order as the JAX package's ``make_frame``, so one seed gives the same
+frames in both packages.
 """
 
 from __future__ import annotations
@@ -11,8 +12,12 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from deepprior_tpu_torch.camera import Camera
+from deepprior_tpu_torch.data.basetypes import DepthFrame, ImageSequence
+from deepprior_tpu_torch.geometry import transform_points_2d_np
+from deepprior_tpu_torch.ops.crop import clamp_depth, crop3d
 
 
 def synthetic_hand(
@@ -128,6 +133,24 @@ def render_depth(
     return dpt
 
 
+def _render_frame(camera, rng, num_joints, com_depth_range):
+    """Draw a hand and render it: (dpt_full (H, W), com3d (3,), pose3d
+    (J, 3) CoM-centred), drawing from ``rng`` in the JAX ``make_frame``'s
+    order."""
+    d = rng.uniform(*com_depth_range)
+    margin = 90.0
+    u = rng.uniform(margin, camera.width - margin)
+    v = rng.uniform(margin, camera.height - margin)
+    com3d = camera.img_to_3d_np(np.array([u, v, d], np.float32))
+    pose3d, fill_pts, fill_radii = synthetic_hand(rng, num_joints)
+
+    all_pts = np.concatenate([pose3d, fill_pts], axis=0)
+    all_radii = np.concatenate(
+        [np.full(len(pose3d), 14.0, np.float32), fill_radii]
+    )
+    return render_depth(camera, com3d, all_pts, all_radii), com3d, pose3d
+
+
 def make_depth_frame(
     camera: Camera,
     rng: np.random.Generator,
@@ -141,18 +164,75 @@ def make_depth_frame(
     ``make_frame(camera, rng, num_joints, com_depth_range=...)`` with
     docom=False, for the same rng state.
     """
-    d = rng.uniform(*com_depth_range)
-    margin = 90.0
-    u = rng.uniform(margin, camera.width - margin)
-    v = rng.uniform(margin, camera.height - margin)
-    com3d = camera.img_to_3d_np(np.array([u, v, d], np.float32))
-    pose3d, fill_pts, fill_radii = synthetic_hand(rng, num_joints)
-
-    all_pts = np.concatenate([pose3d, fill_pts], axis=0)
-    all_radii = np.concatenate(
-        [np.full(len(pose3d), 14.0, np.float32), fill_radii]
-    )
-    dpt_full = render_depth(camera, com3d, all_pts, all_radii)
+    dpt_full, com3d, pose3d = _render_frame(camera, rng, num_joints,
+                                            com_depth_range)
     # the crop centre is joint 0 (the palm) projected back to the image
     gtorig = camera.three_d_to_img_np(pose3d + com3d[None, :])
     return dpt_full, np.asarray(gtorig[0], np.float32)
+
+
+def make_frame(
+    camera: Camera,
+    rng: np.random.Generator,
+    num_joints: int = 14,
+    cube: Tuple[float, float, float] = (250.0, 250.0, 250.0),
+    com_depth_range: Tuple[float, float] = (500.0, 900.0),
+    dsize: Tuple[int, int] = (128, 128),
+    docom: bool = False,
+) -> DepthFrame:
+    """One synthetic frame: render, crop and annotate like an importer.
+
+    The JAX ``make_frame``'s frame for the same rng state: the crop is
+    the port's clamp_depth + crop3d on a one-frame CPU tensor, which
+    equals the numpy ``HandCropper.crop_area_3d`` the JAX package uses
+    bit for bit (tests/test_torch_crop.py)."""
+    if docom:
+        raise NotImplementedError(
+            "make_frame(docom=True) needs the CoM refinement, not ported "
+            "yet (ROADMAP.md Queue 1 item 16, ops/com.py)"
+        )
+    dpt_full, com3d, pose3d = _render_frame(camera, rng, num_joints,
+                                            com_depth_range)
+    gt3d_orig = pose3d + com3d[None, :]
+    gtorig = camera.three_d_to_img_np(gt3d_orig)
+    com_used = np.asarray(gtorig[0], np.float32).copy()
+    clamped, _, _ = clamp_depth(torch.from_numpy(dpt_full)[None])
+    crop, m = crop3d(clamped, torch.from_numpy(com_used)[None], cube,
+                     camera.fx, camera.fy, dsize)
+    m = m[0].numpy()
+    com3d_used = camera.img_to_3d_np(com_used)
+    gtcrop = transform_points_2d_np(gtorig, m)
+    return DepthFrame(
+        dpt=crop[0].numpy(),
+        gtorig=gtorig.astype(np.float32),
+        gtcrop=gtcrop.astype(np.float32),
+        T=m.astype(np.float32),
+        gt3Dorig=gt3d_orig.astype(np.float32),
+        gt3Dcrop=(gt3d_orig - com3d_used[None, :]).astype(np.float32),
+        com=com_used,
+        fileName=f"synthetic_{num_joints}j",
+        extraData={"dpt_full": dpt_full},
+    )
+
+
+def make_sequence(
+    camera: Camera,
+    num_frames: int,
+    num_joints: int = 14,
+    cube: Tuple[float, float, float] = (250.0, 250.0, 250.0),
+    seed: int = 23455,
+    name: str = "train",
+    docom: bool = False,
+    keep_full: bool = False,
+) -> ImageSequence:
+    """A synthetic ImageSequence shaped like an importer's output: the JAX
+    ``make_sequence``'s frames for the same seed (without its on-disk
+    cache)."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for _ in range(num_frames):
+        f = make_frame(camera, rng, num_joints, cube, docom=docom)
+        if not keep_full:
+            f = f._replace(extraData=None)
+        frames.append(f)
+    return ImageSequence(name=name, data=frames, config={"cube": cube})

@@ -7,7 +7,8 @@ library's semantics (src/net/):
   bias equals conv(bias) -> pool -> activation, the order used here
 - pooling floors odd sizes
 - He/Xavier initialization, drawn from an explicit ``torch.Generator``
-- dropout p_drop = 0.3 (inverted dropout; identity in eval mode)
+- dropout p_drop = 0.3 (inverted dropout with masks from an explicit
+  ``torch.Generator``; identity in eval mode)
 
 Parameters stay float32; ``dtype`` is the compute type (bf16 on the card).
 """
@@ -139,7 +140,7 @@ class MLPHead(nn.Module):
         if self.learned:
             self.c0 = nn.Parameter(torch.full((hidden,), 0.5))
             self.c1 = nn.Parameter(torch.full((hidden,), 0.5))
-        self.drop = nn.Dropout(DROPOUT_RATE) if dropout else nn.Identity()
+        self.dropout = dropout
         self.dtype = dtype
 
     def reset_parameters(self, generator=None):
@@ -166,10 +167,25 @@ class MLPHead(nn.Module):
             return self.activation(x, getattr(self, f"c{idx}"))
         return self.activation(x)
 
-    def forward(self, x):
+    def _drop(self, x, generator):
+        """Inverted dropout in training mode, as flax's nn.Dropout computes
+        it: keep with probability 1 - rate (a Bernoulli mask drawn from
+        ``generator``, or PyTorch's default generator when None), and
+        divide the kept units by 1 - rate."""
+        if not (self.dropout and self.training):
+            return x
+        keep_prob = 1.0 - DROPOUT_RATE
+        keep = torch.empty_like(x).bernoulli_(keep_prob, generator=generator)
+        # the divisor is a tensor made on x's device: on CUDA, x /
+        # python_float is a multiply by the reciprocal
+        divisor = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+        return torch.where(keep.bool(), x / divisor, 0.0)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x: (B, ...) features; generator draws the dropout masks."""
         x = x.reshape(x.shape[0], -1)
-        x = self.drop(self._activate(self._linear(0, x), 0))
-        x = self.drop(self._activate(self._linear(1, x), 1))
+        x = self._drop(self._activate(self._linear(0, x), 0), generator)
+        x = self._drop(self._activate(self._linear(1, x), 1), generator)
         for i in range(2, len(self.dense)):
             x = self._linear(i, x)
         return x

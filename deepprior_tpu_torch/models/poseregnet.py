@@ -82,8 +82,9 @@ class PoseRegNet(nn.Module):
             conv.reset_parameters(generator)
         self.head.reset_parameters(generator)
 
-    def forward(self, x):
-        """x: (B, 1, H, W) normalized depth crop -> (B, out_dim) float32."""
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x: (B, 1, H, W) normalized depth crop -> (B, out_dim) float32.
+        In training mode ``generator`` draws the dropout masks."""
         for conv in self.convs:
             x = conv(x)
-        return self.head(x).to(torch.float32)
+        return self.head(x, generator=generator).to(torch.float32)

@@ -1,5 +1,5 @@
-"""The metric-cube hand crop, plain PyTorch: the serving subset of
-deepprior_tpu/ops/crop.py.
+"""The metric-cube hand crop, plain PyTorch: the serving and training
+subset of deepprior_tpu/ops/crop.py.
 
 This is the reference the CUDA kernel (ops/hopper_crop.py) is held
 against, and the path every CPU tensor takes.  Steps, as in the JAX module:
@@ -9,6 +9,8 @@ against, and the path every CPU tensor takes.  Steps, as in the JAX module:
   3. ``_embed_geometry`` aspect-preserving resize + centre-embed geometry
   4. ``crop3d``          nearest gather + zero pad + z-threshold + embed mask
   5. ``normalize_crop``  depth -> [-1, 1] (or [0, 1])
+
+and ``warp_patch``, the augmentation's gather warp of a cropped patch.
 
 Exactness: every division here is IEEE float32 division of two tensors.
 On CUDA, PyTorch computes ``tensor / python_number`` as a multiply by the
@@ -21,7 +23,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+from deepprior_tpu_torch.geometry import inv3x3
 
 # the ROADMAP entry that will bring the bilinear resize modes to the port
 _BILINEAR_TODO = (
@@ -236,3 +241,69 @@ def normalized_crop(
     cube = torch.as_tensor(cube, dtype=torch.float32, device=crop.device)
     cube = cube.expand(com.shape)
     return normalize_crop(crop, com[..., 2], cube[..., 2], norm_zero_one), m
+
+
+def nv_threshold(nv_val: float) -> float:
+    """The NV mask's bound |v - nv| <= 1e-5 |nv| + 1e-8 (jnp.isclose's
+    default tolerances) as the one float32 value every warp compares with."""
+    return float(np.float32(1e-5 * abs(nv_val) + 1e-8))
+
+
+def _gather_patch(img: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+                  border: float) -> torch.Tensor:
+    """img (B, H, W) at integer-valued float rows q and columns p
+    (B, oh, ow); out-of-patch taps read ``border``."""
+    b, h, w = img.shape
+    inb = (p >= 0) & (p < w) & (q >= 0) & (q < h)
+    flat = (q.clamp(0, h - 1).long() * w + p.clamp(0, w - 1).long()).reshape(b, -1)
+    val = torch.gather(img.reshape(b, -1), 1, flat).reshape(q.shape)
+    return torch.where(inb, val, border)
+
+
+def warp_patch(patch, m_fwd, out_hw=None, border=0.0, nv_val=None,
+               use_bilinear=False):
+    """Warp cropped patches by forward 3x3 transforms: out(dst) =
+    patch(m_fwd^-1 . dst), the gather warp of deepprior_tpu/ops/crop.py
+    (cv2.warpPerspective in recropHand, handdetector.py:782-793).
+
+    Nearest samples at floor(x + 0.5) (cv2's warp rounding); 'linear'
+    (use_bilinear) blends the four taps.  Taps outside the patch read
+    ``border``; values within jnp.isclose of ``nv_val`` become ``border``.
+    Unlike the warp kernel (ops/hopper_warp.py) this divides by the
+    projective sz, as the JAX gather does.
+
+    patch: (..., H, W); m_fwd: (..., 3, 3) batched like patch.
+    """
+    patch = torch.as_tensor(patch, dtype=torch.float32)
+    m_fwd = torch.as_tensor(m_fwd, dtype=torch.float32, device=patch.device)
+    batch_shape = patch.shape[:-2]
+    h, w = patch.shape[-2:]
+    oh, ow = out_hw if out_hw is not None else (h, w)
+    img = patch.reshape((-1, h, w))
+    m_inv = inv3x3(m_fwd.reshape((-1, 3, 3)))
+    u = torch.arange(ow, dtype=torch.float32, device=patch.device)[None, None, :]
+    v = torch.arange(oh, dtype=torch.float32, device=patch.device)[None, :, None]
+
+    def row(i):
+        return (m_inv[:, i, 0, None, None] * u + m_inv[:, i, 1, None, None] * v
+                + m_inv[:, i, 2, None, None])
+
+    sx, sy, sz = row(0), row(1), row(2)
+    x = sx / sz
+    y = sy / sz
+    if use_bilinear:
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx_, fy_ = x - x0, y - y0
+        out = (
+            _gather_patch(img, y0, x0, border) * (1 - fx_) * (1 - fy_)
+            + _gather_patch(img, y0, x0 + 1, border) * fx_ * (1 - fy_)
+            + _gather_patch(img, y0 + 1, x0, border) * (1 - fx_) * fy_
+            + _gather_patch(img, y0 + 1, x0 + 1, border) * fx_ * fy_
+        )
+    else:
+        out = _gather_patch(img, torch.floor(y + 0.5), torch.floor(x + 0.5),
+                            border)
+    if nv_val is not None:
+        out = torch.where((out - nv_val).abs() <= nv_threshold(nv_val),
+                          border, out)
+    return out.reshape(batch_shape + (oh, ow))

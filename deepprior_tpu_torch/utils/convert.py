@@ -57,3 +57,10 @@ def poseregnet_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.T
         if c in head:
             put(f"head.{c}", head[c])
     return sd
+
+
+def train_state_from_flax(trainer, params: Dict[str, Any]):
+    """A port ``TrainState`` that starts from a flax ``PoseRegNet``'s
+    parameters (e.g. the JAX ``TrainState.params``), with the fresh
+    optimizer state the JAX ``init_state`` gives: zero moments, count 1."""
+    return trainer.init_state(state_dict=poseregnet_state_dict_from_flax(params))

@@ -22,6 +22,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "flax"
              or m == "deepprior_tpu" or m.startswith("deepprior_tpu."))
 print(len(names), bad)
+print(" ".join(names))
 """
 
 
@@ -33,9 +34,14 @@ def test_port_imports_no_jax():
         env=env, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 14, proc.stdout  # every module of the package was imported
+    first, names = proc.stdout.strip().splitlines()
+    n, bad = first.split(" ", 1)
+    assert int(n) >= 29, proc.stdout  # every module of the package was imported
     assert bad == "[]", f"the port pulled in {bad}"
+    for mod in ("geometry", "data.basetypes", "ops.augment", "ops.hopper_warp",
+                "train.optimizer", "train.prefetch", "train.trainer",
+                "eval.metrics", "mains.common", "mains.main_nyu_posereg_embedding"):
+        assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 
 def test_cuda_request_raises_without_a_card():
@@ -57,6 +63,11 @@ def test_cuda_request_raises_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         hopper_normalized_crop(torch.as_tensor(depth, device="cuda"), com,
                                (250.0,) * 3, NYU_CAMERA.fx, NYU_CAMERA.fy)
+    from deepprior_tpu_torch.ops.hopper_warp import hopper_warp_patch
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        hopper_warp_patch(torch.zeros((1, 32, 32), device="cuda"),
+                          torch.eye(3)[None])
     # a device the wrapper has no path for raises too
     with pytest.raises(ValueError, match="cpu or cuda"):
         hopper_normalized_crop(torch.zeros((1, 480, 640), device="meta"), com,
