@@ -2,17 +2,21 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the crop
-K1; warp.cu: the augmentation warps K4 and K5) and holds each bit for bit
-against its plain PyTorch version.  Then it drives the two main paths:
-serving (FusedEstimator with a full-width PoseRegNet, then
-MicroBatchServer) at B = 512 NYU frames, and training (the port's
-main_nyu_posereg_embedding: 12 steps at B = 128 through K4, then an epoch
-through K5), checks a training step on the card against the CPU, and
-times the kernels, the estimator, the server and the training step.
-Every phase raises on failure, so the exit code is 0 only when all passed.
-The last line is {"ok": true, "device": {...}}; the line before it
-carries each kernel's launches, error and times as JSON.
+Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the
+nearest crop K1 and the cv2-linear crop K2; warp.cu: the augmentation
+warps K4 and K5) and holds each bit for bit against its plain PyTorch
+version.  Then it drives the main paths: serving (FusedEstimator with a
+full-width PoseRegNet, then MicroBatchServer) at B = 512 NYU frames,
+training (the port's main_nyu_posereg_embedding: 12 steps at B = 128
+through K4, then an epoch through K5) with a training step on the card
+against the CPU, and realtime serving (phases 12-15: the 'linear'
+estimator through K2 at B = 512, detection and CoM refinement on the card
+at B = 64, the RealtimeHandposePipeline with a full-width ScaleNet CoM
+refiner over a synthetic camera, and the demo main; phase 16 times
+them).  It times the kernels, the estimators, the server, the training
+step, the detection and the pipeline.  Every phase raises on failure, so the exit code is 0 only
+when all passed.  The last line is {"ok": true, "device": {...}}; the
+line before it carries each kernel's launches, error and times as JSON.
 
 --profile adds phase 11: torch.profiler over the train step and its
 stages (augment via K4, forward + backward, optimizer) at B = 128 and 512,
@@ -24,6 +28,7 @@ Imports nothing of jax or of the JAX package.
 """
 
 import argparse
+import copy
 import json
 import math
 import subprocess
@@ -243,12 +248,13 @@ def main(argv=None):
     mirror = torch.arange(batch, device=dev) % 2 == 0
     calls = (dict(), dict(cube=cube_d, mirror=mirror, invx=True))
 
-    hopper_crop.LAUNCHES = 0
+    hopper_crop.LAUNCHES.update(normalized_crop=0, normalized_crop_linear=0)
     outs = [est(depth_d, com_d, **kw) for kw in calls]
     torch.cuda.synchronize()
-    launches = hopper_crop.LAUNCHES
-    if launches != len(calls):
-        raise AssertionError(f"main path launched the kernel {launches} times")
+    launches = hopper_crop.LAUNCHES["normalized_crop"]
+    if dict(hopper_crop.LAUNCHES) != {"normalized_crop": len(calls),
+                                      "normalized_crop_linear": 0}:
+        raise AssertionError(f"main path launched {hopper_crop.LAUNCHES}")
 
     for kw, (joints, com3d, crops) in zip(calls, outs):
         pj, pc3, pcr = plain_est(depth_d, com_d, **kw)
@@ -389,6 +395,7 @@ def main(argv=None):
         "kernel_only_ms": launch_ms,
     }]
     kernels += training_phases(dev, tag, log, profile=args.profile)
+    kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -660,6 +667,330 @@ def training_phases(dev, tag, log, profile=False):
          "launches": k5_launches, "max_abs_err": err["warp_norm"],
          "ms": t["wrap_k5"], "plain_ms": t["wrap5_plain"], "kernel_only_ms": t["k5"]},
     ]
+
+
+
+def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
+    """Phases 12-16: K2 against its plain version, the 'linear' estimator
+    through K2 at B = 512, detection and refinement on the card at B = 64,
+    the realtime pipeline and the demo main, and their timings.  ``model``
+    is the full-width bf16 PoseRegNet of phase 4.  Returns K2's JSON
+    record."""
+    import os
+
+    import torch
+
+    from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
+    from deepprior_tpu_torch.data.detector_np import HandCropper
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.models import PoseRegNet, ScaleNet, ScaleNetConfig
+    from deepprior_tpu_torch.ops import com as tcom
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
+    from deepprior_tpu_torch.ops.refine_cnn import CNNComRefiner
+    from deepprior_tpu_torch.realtime.camera import SyntheticDevice
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.realtime.pipeline import (
+        HAND_RIGHT, STATE_RUN, RealtimeHandposePipeline)
+    from deepprior_tpu_torch.train.trainer import float32_compute
+
+    cam = NYU_CAMERA
+    cube = (250.0, 250.0, 250.0)
+    rng = np.random.default_rng(31)
+    counts = hopper_crop.LAUNCHES
+
+    def frames(c, n):
+        pairs = [make_depth_frame(c, rng) for _ in range(n)]
+        depth = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+        com = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+        return depth, com
+
+    def reset():
+        counts.update(normalized_crop=0, normalized_crop_linear=0)
+
+    # --------------------------------------------------------------- 12
+    max_err = 0.0
+    cases = []
+
+    def check(label, c, raw, com, cb, fuse_clamp, zero_one=False, **knobs):
+        """K2 vs the plain 'linear' crop on identical GPU inputs; bit-exact."""
+        nonlocal max_err
+        got, m_got = hopper_crop.hopper_normalized_crop(
+            raw, com, cb, c.fx, c.fy, norm_zero_one=zero_one,
+            fuse_clamp=fuse_clamp, use_bilinear=True, **knobs)
+        src = clamp_depth(raw)[0] if fuse_clamp else raw
+        want, m_want = normalized_crop(src, com, cb, c.fx, c.fy,
+                                       norm_zero_one=zero_one, resize="linear")
+        torch.cuda.synchronize()
+        max_err = max(max_err, (got - want).abs().max().item())
+        if not (torch.equal(got, want) and torch.equal(m_got, m_want)):
+            raise AssertionError(f"K2 {label}: kernel != plain on "
+                                 f"{int((got != want).sum())} pixels")
+        cases.append(label)
+        return got
+
+    raw, com = frames(cam, 64)
+    clamped = clamp_depth(raw)[0]
+    ref = check("nyu64 clamped", cam, clamped, com, cube, False)
+    noisy = raw.clone()
+    mask = torch.rand(noisy.shape, generator=torch.Generator(dev).manual_seed(5),
+                      device=dev) < 0.01
+    noisy[mask] = 1600.0 + 900.0 * torch.rand(int(mask.sum()), device=dev)
+    check("nyu64 1% at 1600-2500 mm, fuse_clamp", cam, noisy, com, cube, True)
+    check("nyu64 raw, fuse_clamp", cam, raw, com, cube, True)
+    check("cube 900", cam, raw, com, (900.0,) * 3, True)
+    per_sample = torch.from_numpy(
+        rng.uniform(150.0, 450.0, (64, 3)).astype(np.float32)).to(dev)
+    check("per-sample cube", cam, raw, com, per_sample, True)
+    com_d0 = com.clone()
+    com_d0[::4, 2] = 0.0
+    check("d = 0 centred fallback", cam, raw, com_d0, cube, True)
+    com_b = com.clone()
+    edge = torch.from_numpy(rng.uniform(0.0, 20.0, 64).astype(np.float32)).to(dev)
+    com_b[0::4, 0] = edge[0::4]
+    com_b[1::4, 0] = cam.width - 1 - edge[1::4]
+    com_b[2::4, 1] = edge[2::4]
+    com_b[3::4, 1] = cam.height - 1 - edge[3::4]
+    check("CoMs within 20 px of each border", cam, raw, com_b, cube, True)
+    check("norm_zero_one", cam, raw, com, cube, True, zero_one=True)
+    icvl, com_i = frames(ICVL_CAMERA, 32)
+    check("icvl32 320x240", ICVL_CAMERA, icvl, com_i, cube, True)
+    check("icvl32 norm_zero_one", ICVL_CAMERA, icvl, com_i, cube, True, zero_one=True)
+    knobbed = check("block_k/win_rows/win_cols", cam, clamped, com, cube, False,
+                    win_rows=304, win_cols=640, block_k=4)
+    if not torch.equal(knobbed, ref):
+        raise AssertionError("block_k/win_rows/win_cols changed K2's output")
+    near = hopper_crop.hopper_normalized_crop(clamped, com, cube, cam.fx, cam.fy)[0]
+    if (near - ref).abs().max().item() < 1e-3:
+        raise AssertionError("K2 did not interpolate (equals the nearest crop)")
+    log(f"[12 K2 vs plain] {len(cases)} cases bit-exact (torch.equal), "
+        f"max |kernel - plain| = {max_err}")
+
+    # --------------------------------------------------------------- 13
+    n_unique = 16
+    est = FusedEstimator(model, cam, prior=prior, resize="linear", device=dev)
+    plain_est = FusedEstimator(model, cam, prior=prior, resize="linear",
+                               crop_method="gather", device=dev)
+    depth_u, com_u = frames(cam, n_unique)
+    depth_d = depth_u.repeat(batch // n_unique, 1, 1)
+    com_d = com_u.repeat(batch // n_unique, 1)
+    cube_d = torch.from_numpy(
+        rng.uniform(200.0, 350.0, (batch, 1)).repeat(3, 1).astype(np.float32)).to(dev)
+    mirror = torch.arange(batch, device=dev) % 2 == 0
+    calls = (dict(), dict(cube=cube_d, mirror=mirror, invx=True))
+    reset()
+    outs = [est(depth_d, com_d, **kw) for kw in calls]
+    torch.cuda.synchronize()
+    launches = dict(counts)
+    if launches != {"normalized_crop": 0, "normalized_crop_linear": len(calls)}:
+        raise AssertionError(f"linear main path launched {launches}")
+    for kw, (joints, _, crops) in zip(calls, outs):
+        pj, _, pcr = plain_est(depth_d, com_d, **kw)
+        if joints.shape != (batch, 14, 3) or not torch.isfinite(joints).all():
+            raise AssertionError(f"joints {tuple(joints.shape)} not finite/shaped")
+        max_err = max(max_err, (crops - pcr).abs().max().item())
+        if not torch.equal(crops, pcr):
+            raise AssertionError("linear estimator crops: K2 != plain gather")
+        jerr = (joints - pj).abs().max().item()
+        if jerr > 1e-3:
+            raise AssertionError(f"linear joints differ from the plain path by {jerr} mm")
+    cpu_model = PoseRegNet(model.cfg._replace(dtype=torch.float32))
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_est = FusedEstimator(cpu_model, cam, prior=prior, resize="linear", device="cpu")
+    ccr = cpu_est(depth_u.cpu(), com_u.cpu())[2]
+    if not torch.equal(outs[0][2][:n_unique].cpu(), ccr):
+        raise AssertionError("linear GPU crops differ from the CPU crops")
+    k2_launches = launches["normalized_crop_linear"]
+    log(f"[13 linear main path] FusedEstimator(resize='linear') B={batch} NYU "
+        f"640x480, PoseRegNet hidden=1024 bf16, PCA (30, 42): launches {launches}, "
+        f"joints finite, crops == plain gather, joints |d| <= 1e-3 mm, crops == CPU")
+
+    # --------------------------------------------------------------- 14
+    b64 = n_det
+    # b64 distinct frames, every one also detected on the CPU
+    depth_6, com_6 = frames(cam, b64)
+    cpu_6 = depth_6.cpu()
+    dc6, dmin6, dmax6 = clamp_depth(depth_6)
+    det_dev = tcom.detect_closest(dc6, cube, cam.fx, cam.fy, min_depth=dmin6,
+                                  max_depth=dmax6)
+    dcc, dminc, dmaxc = clamp_depth(cpu_6)
+    det_cpu = tcom.detect_closest(dcc, cube, cam.fx, cam.fy, min_depth=dminc,
+                                  max_depth=dmaxc)
+    full_dev = tcom.detect(depth_6, cube, cam.fx, cam.fy)
+    full_cpu = tcom.detect(cpu_6, cube, cam.fx, cam.fy)
+    com_err = max((det_dev.cpu() - det_cpu).abs().max().item(),
+                  (full_dev.cpu() - full_cpu).abs().max().item())
+    if com_err > 0.5:
+        raise AssertionError(f"CoMs on the card differ from the CPU's by {com_err}")
+    modes = (("detect, K1", dict(detect=True), "normalized_crop"),
+             ("refine_iters=3 + linear, K2", dict(refine_iters=3, resize="linear"),
+              "normalized_crop_linear"))
+    for label, kw, kernel in modes:
+        e = FusedEstimator(model, cam, prior=prior, device=dev, **kw)
+        pe = FusedEstimator(model, cam, prior=prior, device=dev, crop_method="gather", **kw)
+        ce = FusedEstimator(cpu_model, cam, prior=prior, device="cpu", **kw)
+        reset()
+        joints, c3, crops = e(depth_6, com_6)
+        torch.cuda.synchronize()
+        got = dict(counts)
+        if got[kernel] != 1 or sum(got.values()) != 1:
+            raise AssertionError(f"{label}: launched {got}")
+        pj, pc3, pcr = pe(depth_6, com_6)
+        if not (torch.equal(crops, pcr) and torch.equal(c3, pc3)):
+            raise AssertionError(f"{label}: crops or CoMs != the plain path's")
+        cerr = (c3.cpu() - ce(cpu_6, com_6.cpu())[1]).abs().max().item()
+        if cerr > 0.5 or not torch.isfinite(joints).all():
+            raise AssertionError(f"{label}: CoM vs CPU {cerr} mm")
+        com_err = max(com_err, cerr)
+        log(f"[14 detection] {label} B={b64}: launches {got}, crops and CoMs == "
+            f"plain path, com3d vs CPU max |d| {cerr} mm")
+    log(f"[14 detection] detect_closest and detect (slice scan) on the card at "
+        f"B={b64} distinct frames vs the CPU on all of them: max |d| {com_err} "
+        f"px/mm (bound 0.5)")
+
+    # --------------------------------------------------------------- 15
+    scalenet = ScaleNet(ScaleNetConfig(num_joints=1, n_dims=3, hidden=1024),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    refiner = CNNComRefiner(scalenet, cam)
+    # the f32 refiner on the card against a CPU copy, on phase 14's frames
+    # and detected CoMs; a TF32 run of the same net shows what a leak of
+    # TF32 into the refiner would cost
+    cpu_scalenet = copy.deepcopy(scalenet).cpu()
+    ref_err = (refiner(dc6, det_dev, cube).cpu()
+               - CNNComRefiner(cpu_scalenet, cam)(dcc, det_dev.cpu(), cube)
+               ).abs().max().item()
+    crops6 = hopper_crop.hopper_normalized_crop(dc6, det_dev, cube, cam.fx, cam.fy)[0]
+    with torch.inference_mode():
+        off_cpu = cpu_scalenet(crops6.cpu()[:, None])
+        with float32_compute():
+            off_f32 = scalenet(crops6[:, None]).cpu()
+        backends = torch.backends.cudnn, torch.backends.cuda.matmul
+        saved = [b.allow_tf32 for b in backends]
+        for b in backends:
+            b.allow_tf32 = True
+        try:
+            off_tf32 = scalenet(crops6[:, None]).cpu()
+        finally:
+            for b, v in zip(backends, saved):
+                b.allow_tf32 = v
+    f32_mm = (off_f32 - off_cpu).abs().max().item() * cube[2] / 2.0
+    tf32_mm = (off_tf32 - off_cpu).abs().max().item() * cube[2] / 2.0
+    if ref_err > 0.5 or not f32_mm < tf32_mm:
+        raise AssertionError(f"ScaleNet refiner on the card vs CPU: {ref_err} px/mm, "
+                             f"offset {f32_mm} mm (TF32 run: {tf32_mm} mm)")
+    log(f"[15 refiner] CNNComRefiner (ScaleNet hidden 1024 f32) on the card vs a CPU "
+        f"copy, B={b64}: refined CoMs max |d| {ref_err} px/mm (bound 0.5); offsets "
+        f"max |d| {f32_mm} mm, vs {tf32_mm} mm with TF32 allowed")
+    cfg = {"fx": cam.fx, "fy": cam.fy, "cube": cube}
+    pipe = RealtimeHandposePipeline(est, cfg, com_refiner=refiner)
+    reset()
+    pipe.process_key("i")
+    t0 = time.perf_counter()
+    single = pipe.process_video(SyntheticDevice(cam, seed=0), max_frames=100)
+    single_s = time.perf_counter() - t0
+    if pipe.state != STATE_RUN or pipe.config["cube"][0] == cube[0]:
+        raise AssertionError(f"INIT calibration: state {pipe.state}, cube {pipe.config['cube']}")
+    single_fps = pipe.fps()
+    pipe.process_key("h")
+    pipe.process_key("t")
+    t0 = time.perf_counter()
+    threaded = pipe.process_video_threaded(SyntheticDevice(cam, seed=1), max_frames=100)
+    threaded_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pipe_launches = dict(counts)
+    if not (pipe.hand == HAND_RIGHT and pipe.tracking):
+        raise AssertionError("the 'h'/'t' keys did not take")
+    for res in (single, threaded):
+        if not res or not all(np.isfinite(r["joints3d"]).all() and r["joints3d"].shape == (14, 3)
+                              for r in res):
+            raise AssertionError(f"pipeline results: {len(res)}, non-finite or misshaped")
+    if min(pipe_launches.values()) == 0:
+        raise AssertionError(f"pipeline launched {pipe_launches}")
+    log(f"[15 pipeline] {len(single)} of 100 frames single-loop ('i': INIT -> RUN, "
+        f"cube {tuple(round(float(c), 2) for c in pipe.config['cube'])}), {len(threaded)} "
+        f"threaded ('h' right hand, 't' tracking), ScaleNet hidden 1024 f32 refiner, "
+        f"estimator resize='linear': launches {pipe_launches}")
+    # device detection against the host HandCropper path on the same frames
+    dev_pipe = RealtimeHandposePipeline(est, dict(cfg))
+    host_pipe = RealtimeHandposePipeline(est, dict(cfg), use_device_detect=False)
+    camdev = SyntheticDevice(cam, seed=2)
+    camdev.start()
+    host_err, det_ms, host_ms, pose_ms = 0.0, [], [], []
+    for i in range(20):
+        dev_pipe.tracking = host_pipe.tracking = i >= 10
+        frame = camdev.getDepth()[1]
+        t0 = time.perf_counter()
+        cd, _ = dev_pipe.detect(frame)
+        det_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ch, _ = host_pipe.detect(frame)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        pipe.estimate_pose(frame, cd)
+        pose_ms.append((time.perf_counter() - t0) * 1e3)
+        host_err = max(host_err, float(np.abs(cd - ch).max()))
+    if host_err > 0.5:
+        raise AssertionError(f"device detection vs host HandCropper: {host_err}")
+    log(f"[15 pipeline] device detection vs the host HandCropper path, 20 frames "
+        f"(10 detect, 10 tracking): max |d| {host_err} px/mm (bound 0.5)")
+    demo = subprocess.run(
+        [sys.executable, "-m", "deepprior_tpu_torch.mains.demo_realtime",
+         "--frames", "50", "--comref"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))),
+    )
+    if demo.returncode != 0 or " frames on cuda" not in demo.stdout:
+        raise AssertionError(f"demo_realtime failed ({demo.returncode}):\n"
+                             f"{demo.stdout}\n{demo.stderr[-3000:]}")
+    log(f"[15 demo] python -m deepprior_tpu_torch.mains.demo_realtime --frames 50 "
+        f"--comref: {demo.stdout.strip().splitlines()[-1]}")
+
+    # ----------------------------------------------------------- timing
+    params, _ = hopper_crop.crop_params(depth_d, com_d, cube, cam.fx, cam.fy,
+                                        fuse_clamp=True)
+    plain_ms, ms = alternate(
+        lambda: normalized_crop(clamp_depth(depth_d)[0], com_d, cube, cam.fx, cam.fy,
+                                resize="linear"),
+        lambda: hopper_crop.hopper_normalized_crop(depth_d, com_d, cube, cam.fx, cam.fy,
+                                                   fuse_clamp=True, use_bilinear=True),
+        20)
+    k1_ms, k2_ms = alternate(
+        lambda: hopper_crop.launch_crop(depth_d, params, fuse_clamp=True),
+        lambda: hopper_crop.launch_crop(depth_d, params, fuse_clamp=True, linear=True),
+        50)
+    # the nearest estimator in turns with the linear one: the two differ by
+    # the kernel and its wrapper only, within one phase's host speed
+    near_est = FusedEstimator(model, cam, prior=prior, device=dev)
+    near_ms, est_ms = alternate(lambda: near_est(depth_d, com_d),
+                                lambda: est(depth_d, com_d), 20)
+
+    def host_ms_of(fn, n):
+        runs = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(runs[2:]))
+
+    det1 = host_ms_of(lambda: tcom.detect(depth_6[:1], cube, cam.fx, cam.fy), 12)
+    det64 = host_ms_of(lambda: tcom.detect(depth_6, cube, cam.fx, cam.fy), 7)
+    log(f"[16 timing] {tag} B={batch} NYU: K2 path {ms:.4f} ms vs plain clamp + "
+        f"linear crop {plain_ms:.4f} ms; K2 alone {k2_ms:.4f} ms vs K1 alone "
+        f"{k1_ms:.4f} ms; linear estimator {est_ms:.4f} ms/batch = "
+        f"{batch / (est_ms / 1e3):.1f} frames/s vs nearest {near_ms:.4f} ms/batch = "
+        f"{batch / (near_ms / 1e3):.1f} frames/s (in turns)")
+    log(f"[16 timing] {tag} detect (slice scan + refine) B=1 {det1:.4f} ms, "
+        f"B={b64} {det64:.4f} ms (median, host clock); pipeline single-loop "
+        f"{len(single) / single_s:.1f} frames/s (running fps {single_fps:.1f}), "
+        f"threaded {len(threaded) / threaded_s:.1f} frames/s; per frame (no "
+        f"refiner): device detect {np.median(det_ms):.4f} ms, host HandCropper detect "
+        f"{np.median(host_ms):.4f} ms, pose (batch 1, linear) {np.median(pose_ms):.4f} ms")
+    return {"name": "normalized_crop_linear", "route": "cuda",
+            "source": "deepprior_tpu_torch/csrc/crop.cu",
+            "replaces": "deepprior_tpu/ops/pallas_crop.py:417",
+            "launches": k2_launches, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "kernel_only_ms": k2_ms}
 
 
 if __name__ == "__main__":

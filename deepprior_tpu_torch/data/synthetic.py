@@ -93,6 +93,13 @@ def synthetic_hand(
     return pose, fill_pts, fill_radii
 
 
+def synthetic_hand_pose(
+    rng: np.random.Generator, num_joints: int = 14, spread_mm: float = 80.0
+) -> np.ndarray:
+    """CoM-centred pose of a random kinematic hand (labels only)."""
+    return synthetic_hand(rng, num_joints, spread_mm)[0]
+
+
 def render_depth(
     camera: Camera,
     com3d: np.ndarray,
@@ -185,21 +192,26 @@ def make_frame(
     The JAX ``make_frame``'s frame for the same rng state: the crop is
     the port's clamp_depth + crop3d on a one-frame CPU tensor, which
     equals the numpy ``HandCropper.crop_area_3d`` the JAX package uses
-    bit for bit (tests/test_torch_crop.py)."""
-    if docom:
-        raise NotImplementedError(
-            "make_frame(docom=True) needs the CoM refinement, not ported "
-            "yet (ROADMAP.md Queue 1 item 16, ops/com.py)"
-        )
+    bit for bit (tests/test_torch_crop.py).  ``docom`` recentres the CoM
+    inside the cube first, as the JAX package does, through the numpy
+    ``HandCropper`` (data/detector_np.py)."""
     dpt_full, com3d, pose3d = _render_frame(camera, rng, num_joints,
                                             com_depth_range)
     gt3d_orig = pose3d + com3d[None, :]
     gtorig = camera.three_d_to_img_np(gt3d_orig)
-    com_used = np.asarray(gtorig[0], np.float32).copy()
-    clamped, _, _ = clamp_depth(torch.from_numpy(dpt_full)[None])
-    crop, m = crop3d(clamped, torch.from_numpy(com_used)[None], cube,
-                     camera.fx, camera.fy, dsize)
-    m = m[0].numpy()
+    if docom:
+        from deepprior_tpu_torch.data.detector_np import HandCropper
+
+        crop, m, com_used = HandCropper(dpt_full, camera).crop_area_3d(
+            com=gtorig[0], size=cube, dsize=dsize, docom=True)
+        crop = torch.from_numpy(crop)[None]
+    else:
+        com_used = np.asarray(gtorig[0], np.float32).copy()
+        clamped, _, _ = clamp_depth(torch.from_numpy(dpt_full)[None])
+        crop, m = crop3d(clamped, torch.from_numpy(com_used)[None], cube,
+                         camera.fx, camera.fy, dsize)
+        m = m[0].numpy()
+    com_used = np.asarray(com_used, np.float32)
     com3d_used = camera.img_to_3d_np(com_used)
     gtcrop = transform_points_2d_np(gtorig, m)
     return DepthFrame(

@@ -3,7 +3,8 @@
 ``run_posereg_embedding`` is the flagship recipe (reference
 main_nyu_posereg_embedding.py:38-205) on synthetic data: frames -> PCA
 prior from sampled poses -> PoseRegNet 30-D embedding training with
-augmentation -> decode -> metrics -> results.json.
+augmentation -> decode -> metrics -> results.json.  ``load_serving_net``
+gives the serving entry points their model and prior.
 """
 
 from __future__ import annotations
@@ -27,7 +28,16 @@ _TODO = {
     "streamed": "--streamed needs fit_streamed (ROADMAP.md Queue 1 item 13)",
     "accept": "--accept needs the baseline loaders and plots (ROADMAP.md "
               "Queue 1 item 20)",
+    "checkpoint": "--checkpoint needs train/checkpoint.py (ROADMAP.md Queue 1 "
+                  "item 13)",
+    "ref_pickle": "reference .pkl weights need utils/refweights.py (ROADMAP.md "
+                  "Queue 1 item 14)",
 }
+
+
+def default_device() -> torch.device:
+    """cuda when a card is available, else cpu."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -118,7 +128,7 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
 
     check_ported(args)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device) if args.device else default_device()
     prefix = args.eval_prefix or f"{train_seq}_EMB_PCA{n_pca}"
     outdir = os.path.join(args.out, prefix)
     os.makedirs(outdir, exist_ok=True)
@@ -186,3 +196,33 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     with open(os.path.join(outdir, "results.json"), "w") as fh:
         json.dump(metrics, fh, indent=1)
     return state, results, hist
+
+
+def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
+                     device=None):
+    """Model and prior for the serving entry points: the random-weights
+    branch of the JAX ``load_serving_net`` (pipeline smoke mode).
+    PoseRegNet type 0 with a 30-D output (hidden 1024, float32, weights
+    from ``torch.Generator`` seed 0) and a random (30, 42) PCA prior from
+    numpy seed 0.  Trained weights (``checkpoint``, ``ref_pickle``) and
+    ResNet raise NotImplementedError naming their ROADMAP items.
+
+    Returns (model on ``device``, prior)."""
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.prior import PCAPrior
+
+    if ref_pickle:
+        raise NotImplementedError(_TODO["ref_pickle"])
+    if model_name == "resnet":
+        raise NotImplementedError(_TODO["resnet"])
+    if checkpoint:
+        raise NotImplementedError(_TODO["checkpoint"])
+    device = torch.device(device) if device else default_device()
+    model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
+                       generator=torch.Generator().manual_seed(0)).to(device)
+    rng = np.random.default_rng(0)
+    prior = PCAPrior(
+        components=rng.standard_normal((30, 42)).astype(np.float32) * 0.05,
+        mean=np.zeros(42, np.float32),
+    )
+    return model, prior

@@ -1,5 +1,6 @@
 """Model zoo (NCHW ``nn.Module``s)."""
 
 from deepprior_tpu_torch.models.poseregnet import PoseRegNet, PoseRegNetConfig
+from deepprior_tpu_torch.models.scalenet import ScaleNet, ScaleNetConfig
 
-__all__ = ["PoseRegNet", "PoseRegNetConfig"]
+__all__ = ["PoseRegNet", "PoseRegNetConfig", "ScaleNet", "ScaleNetConfig"]

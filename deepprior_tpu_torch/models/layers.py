@@ -96,14 +96,17 @@ class ConvPool(nn.Module):
         he_init_(self.conv.weight, self.conv.in_channels * kh * kw, generator)
         nn.init.zeros_(self.conv.bias)
 
-    def forward(self, x):
+    def forward(self, x, pool: Optional[Tuple[int, int]] = None):
+        """``pool`` overrides the layer's own pooling: ScaleNet's shared
+        towers run one set of weights under each scale's pooling."""
+        pool = self.pool if pool is None else tuple(pool)
         x = F.conv2d(
             x.to(self.dtype),
             self.conv.weight.to(self.dtype),
             self.conv.bias.to(self.dtype),
         )
-        if self.pool != (1, 1):
-            x = F.max_pool2d(x, self.pool, self.pool)
+        if pool != (1, 1):
+            x = F.max_pool2d(x, pool, pool)
         if self.activation is not None:
             x = self.activation(x)
         return x

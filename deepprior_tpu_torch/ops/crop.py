@@ -7,7 +7,9 @@ against, and the path every CPU tensor takes.  Steps, as in the JAX module:
   1. ``clamp_depth``     per-image depth clamp (handdetector.py:56-61)
   2. ``com_to_bounds``   CoM + metric cube -> pixel bbox + z-range
   3. ``_embed_geometry`` aspect-preserving resize + centre-embed geometry
-  4. ``crop3d``          nearest gather + zero pad + z-threshold + embed mask
+  4. ``crop3d``          gather + zero pad + z-threshold + embed mask, with
+                         the reference's three resize methods: nearest,
+                         cv2 'linear' and the ND-aware 'nd_bilinear'
   5. ``normalize_crop``  depth -> [-1, 1] (or [0, 1])
 
 and ``warp_patch``, the augmentation's gather warp of a cropped patch.
@@ -27,12 +29,10 @@ import numpy as np
 import torch
 
 from deepprior_tpu_torch.geometry import inv3x3
+from deepprior_tpu_torch.ops.resize import halfpixel_taps, nd_blend
 
-# the ROADMAP entry that will bring the bilinear resize modes to the port
-_BILINEAR_TODO = (
-    "bilinear crop resize is not ported yet (ROADMAP.md Queue 2, K2 "
-    "'_sample_crop(bilinear=True)'); use resize='nearest'"
-)
+# the reference ctor's resize-method switch (handdetector.py:57-69)
+RESIZE_METHODS = ("nearest", "linear", "nd_bilinear")
 
 
 class CropConfig(NamedTuple):
@@ -157,29 +157,41 @@ def _transform_matrix(scale, xstart, ystart, off_x, off_y):
     return torch.stack([row0, row1, row2], dim=-2)
 
 
-def _check_resize(use_bilinear, resize):
-    if resize not in (None, "nearest", "linear", "nd_bilinear"):
+def resize_mode(use_bilinear=False, resize=None) -> str:
+    """The resize method of a crop call: ``resize`` when given ('nearest'
+    = RESIZE_CV2_NN, 'linear' = RESIZE_CV2_LINEAR, 'nd_bilinear' =
+    RESIZE_BILINEAR), else the legacy flag (True -> 'linear')."""
+    if resize is None:
+        return "linear" if use_bilinear else "nearest"
+    if resize not in RESIZE_METHODS:
         raise ValueError(
             f"unknown resize method {resize!r} (want 'nearest', "
             f"'linear' or 'nd_bilinear')"
         )
-    if resize in ("linear", "nd_bilinear") or (resize is None and use_bilinear):
-        raise NotImplementedError(_BILINEAR_TODO)
+    return resize
 
 
 def crop3d(dpt, com, cube, fx, fy, dsize=(128, 128), use_bilinear=False,
            method="gather", resize=None):
     """Batched fused cube crop: clamped depth (B, H, W) -> (B, dh, dw) mm
-    patches and M (B, 3, 3).  Nearest resampling through cv2.INTER_NEAREST's
-    floor(dst * scale) map; out-of-image pixels pad with 0; near pixels ->
-    zstart, far -> 0; outside the embedded region -> 0.
+    patches and M (B, 3, 3).  Out-of-image pixels pad with 0; near pixels
+    -> zstart, far -> 0; outside the embedded region -> 0.
 
-    method: 'gather' or 'onehot'.  The JAX package pins the two as
-    bit-identical; here both are the same gather.
+    resize (``resize_mode``):
+      'nearest'      cv2.INTER_NEAREST's floor(dst * scale) map, then the
+                     z-threshold;
+      'linear'       cv2.INTER_LINEAR: half-pixel taps clamped to the
+                     patch, each tap z-thresholded BEFORE the blend (the
+                     reference's crop -> threshold -> resize order), the
+                     host twin's blend expression left to right, no
+                     post-blend threshold;
+      'nd_bilinear'  the same taps through the ND-aware ``nd_blend``.
+    method: 'gather' or 'onehot'.  The JAX package's one-hot form is a
+    TPU matrix-unit layout of the same crop; here both are this gather.
     """
     if method not in ("gather", "onehot"):
         raise ValueError(f"unknown crop method {method!r}")
-    _check_resize(use_bilinear, resize)
+    mode = resize_mode(use_bilinear, resize)
     dpt = torch.as_tensor(dpt, dtype=torch.float32)
     com = torch.as_tensor(com, dtype=torch.float32, device=dpt.device)
     cube = torch.as_tensor(cube, dtype=torch.float32, device=dpt.device)
@@ -195,18 +207,32 @@ def crop3d(dpt, com, cube, fx, fy, dsize=(128, 128), use_bilinear=False,
 
     u = torch.arange(dw, dtype=torch.float32, device=dpt.device)[None, None, :]
     v = torch.arange(dh, dtype=torch.float32, device=dpt.device)[None, :, None]
-    # the nearest map is separable: p depends on u only, q on v only
-    p = col(xs) + _exact_floor_div((u - col(off_x)) * col(wb), col(sz_w))
-    q = col(ys) + _exact_floor_div((v - col(off_y)) * col(hb), col(sz_h))
-    p, q = torch.broadcast_tensors(p, q)  # (B, dh, dw)
-    in_img = (p >= 0) & (p < w) & (q >= 0) & (q < h)
-    bi = torch.arange(b, device=dpt.device)[:, None, None]
-    d = dpt[bi, q.clamp(0, h - 1).long(), p.clamp(0, w - 1).long()]
-    d = torch.where(in_img, d, 0.0)
+    zs, ze = col(zstart), col(zend)
 
-    # z-threshold (handdetector.py:291-295): near -> zstart, far -> 0
-    d = torch.where((d < col(zstart)) & (d != 0.0), col(zstart), d)
-    d = torch.where(d > col(zend), 0.0, d)
+    def tap(q, p):
+        """Pixels (q, p), 0 outside the image, then z-thresholded
+        (handdetector.py:291-295): near -> zstart, far -> 0."""
+        d = _gather_patch(dpt, *torch.broadcast_tensors(q, p), 0.0)
+        d = torch.where((d < zs) & (d != 0.0), zs, d)
+        return torch.where(d > ze, 0.0, d)
+
+    if mode == "nearest":
+        # the nearest map is separable: p depends on u only, q on v only
+        p = col(xs) + _exact_floor_div((u - col(off_x)) * col(wb), col(sz_w))
+        q = col(ys) + _exact_floor_div((v - col(off_y)) * col(hb), col(sz_h))
+        d = tap(q, p)
+    else:
+        # each tap is thresholded before the blend (crop -> threshold -> resize)
+        # the embed region's taps, clamped to the patch (wb x hb at xs, ys)
+        x0, x1, fxw = halfpixel_taps(u, col(off_x), col(sz_w), col(wb), col(xs))
+        y0, y1, fyw = halfpixel_taps(v, col(off_y), col(sz_h), col(hb), col(ys))
+        d00, d01, d10, d11 = tap(y0, x0), tap(y0, x1), tap(y1, x0), tap(y1, x1)
+        if mode == "linear":
+            # the host twin's exact blend expression (resize_linear)
+            d = (d00 * (1 - fyw) * (1 - fxw) + d01 * (1 - fyw) * fxw
+                 + d10 * fyw * (1 - fxw) + d11 * fyw * fxw)
+        else:
+            d = nd_blend(d00, d01, d10, d11, fyw, fxw, nd_value=0.0)
     in_embed = (
         (u >= col(off_x)) & (u < col(off_x + sz_w))
         & (v >= col(off_y)) & (v < col(off_y + sz_h))

@@ -1,8 +1,10 @@
 """The fused clamp + cube crop + normalize as a hand-written CUDA kernel.
 
-Counterpart of deepprior_tpu/ops/pallas_crop.py::pallas_normalized_crop
-(nearest).  The kernel source is csrc/crop.cu; ops/_build.py compiles it
-with nvcc on first use and this module calls it through ctypes.
+Counterpart of deepprior_tpu/ops/pallas_crop.py::pallas_normalized_crop in
+its two resize modes: nearest (K1) and the cv2-linear crop of
+``use_bilinear=True`` (K2).  The kernel source is csrc/crop.cu;
+ops/_build.py compiles it with nvcc on first use and this module calls it
+through ctypes.
 
 The per-sample geometry (``com_to_bounds``, ``_embed_geometry``) and the
 per-image clamp limits (``depth_limits``) are computed in plain PyTorch
@@ -21,7 +23,6 @@ import functools
 import torch
 
 from deepprior_tpu_torch.ops.crop import (
-    _BILINEAR_TODO,
     _embed_geometry,
     _transform_matrix,
     clamp_depth,
@@ -30,9 +31,9 @@ from deepprior_tpu_torch.ops.crop import (
     normalized_crop,
 )
 
-# kernel launches since the last reset; chip_smoke.py reads it to show
-# that the main path went through the kernel
-LAUNCHES = 0
+# kernel launches since the last reset, per mode (K1 nearest, K2 linear);
+# chip_smoke.py reads them to show that a main path went through the kernel
+LAUNCHES = {"normalized_crop": 0, "normalized_crop_linear": 0}
 
 # columns of the params tensor, in the order of csrc/crop.cu's Param enum
 PARAM_NAMES = (
@@ -49,7 +50,7 @@ def build() -> ctypes.CDLL:
 
     lib = load_library("crop.cu")
     lib.dp_normalized_crop.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
     lib.dp_normalized_crop.restype = ctypes.c_int
     lib.dp_num_params.argtypes = []
@@ -89,10 +90,10 @@ def crop_params(dpt, com, cube, fx, fy, dsize=(128, 128), fuse_clamp=False):
 
 
 def launch_crop(dpt, params, dsize=(128, 128), fuse_clamp=False,
-                norm_zero_one=False):
+                norm_zero_one=False, linear=False):
     """Run the kernel on CUDA tensors: raw or clamped depth (B, H, W) and
-    ``crop_params`` (B, 14) -> normalized crops (B, dh, dw)."""
-    global LAUNCHES
+    ``crop_params`` (B, 14) -> normalized crops (B, dh, dw); the
+    cv2-linear crop (K2) when ``linear``, else nearest (K1)."""
     if dpt.device.type != "cuda" or params.device != dpt.device:
         raise ValueError(
             f"launch_crop needs dpt and params on one CUDA device, got "
@@ -119,13 +120,14 @@ def launch_crop(dpt, params, dsize=(128, 128), fuse_clamp=False,
         stream = torch.cuda.current_stream(dpt.device).cuda_stream
         err = lib.dp_normalized_crop(
             dpt.data_ptr(), params.data_ptr(), out.data_ptr(),
-            b, h, w, dh, dw, int(fuse_clamp), int(norm_zero_one), stream,
+            b, h, w, dh, dw, int(fuse_clamp), int(norm_zero_one), int(linear),
+            stream,
         )
     if err != 0:
         raise RuntimeError(
             f"crop kernel launch failed: {lib.dp_error_string(err).decode()}"
         )
-    LAUNCHES += 1
+    LAUNCHES["normalized_crop_linear" if linear else "normalized_crop"] += 1
     return out
 
 
@@ -148,19 +150,21 @@ def hopper_normalized_crop(
 
     dpt: (B, H, W) clamped depth, or raw depth with fuse_clamp=True (the
     kernel applies clamp_depth's per-image limits to the pixels it reads).
+    use_bilinear: the cv2-linear crop (K2, ``resize='linear'``), else
+    nearest (K1).
     com: (B, 3); cube: (3,) or (B, 3).
     win_rows, win_cols and block_k are the TPU kernel's banded-window and
     blocking knobs; accepted so callers carry over, and without effect.
     Returns (crop_norm (B, dh, dw), M (B, 3, 3)).
     """
-    if use_bilinear:
-        raise NotImplementedError(_BILINEAR_TODO)
     dpt = torch.as_tensor(dpt)
     if dpt.device.type == "cpu":
         if fuse_clamp:
             dpt, _, _ = clamp_depth(dpt)
-        return normalized_crop(dpt, com, cube, fx, fy, dsize, norm_zero_one)
+        return normalized_crop(dpt, com, cube, fx, fy, dsize, norm_zero_one,
+                               use_bilinear=use_bilinear)
     if dpt.device.type != "cuda":
         raise ValueError(f"hopper_normalized_crop runs on cpu or cuda, not {dpt.device}")
     params, m = crop_params(dpt, com, cube, fx, fy, dsize, fuse_clamp)
-    return launch_crop(dpt, params, dsize, fuse_clamp, norm_zero_one), m
+    return launch_crop(dpt, params, dsize, fuse_clamp, norm_zero_one,
+                       linear=use_bilinear), m

@@ -2,12 +2,16 @@
 
 Counterpart of deepprior_tpu/realtime/fused.py.  Per batch:
 
-  clamp -> cube crop + normalize -> PoseRegNet -> (optional PCA decode)
-  -> mirror / flip -> denormalize (pose * cube_z/2 + com3D)
+  clamp -> (optional CoM detection / iterative refinement) -> cube crop +
+  normalize -> PoseRegNet -> (optional PCA decode) -> mirror / flip ->
+  denormalize (pose * cube_z/2 + com3D)
 
-On a CUDA device the clamp, crop and normalize are one launch of the
-hand-written kernel (ops/hopper_crop.py).  On the CPU they are the plain
-PyTorch ops of ops/crop.py.  The pipeline runs eagerly.
+On a CUDA device the crop and normalize are one launch of the hand-written
+kernel (ops/hopper_crop.py): K1 for the nearest resize, K2 for 'linear',
+with the clamp fused into it when there is no detection, and on the
+clamped frame after it.  'nd_bilinear' has no kernel in either package and
+runs the plain crop.  On the CPU every step is the plain PyTorch of
+ops/crop.py and ops/com.py.  The pipeline runs eagerly.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from typing import Optional
 import torch
 
 from deepprior_tpu_torch.camera import Camera
-from deepprior_tpu_torch.ops.crop import _BILINEAR_TODO, clamp_depth, normalized_crop
+from deepprior_tpu_torch.ops.com import detect_closest, refine_com_iterative
+from deepprior_tpu_torch.ops.crop import RESIZE_METHODS, clamp_depth, normalized_crop
 from deepprior_tpu_torch.ops.hopper_crop import hopper_normalized_crop
 from deepprior_tpu_torch.prior import PCAPrior
 
@@ -36,6 +41,17 @@ class FusedEstimator:
     'hopper' name the kernel path; 'gather' and 'onehot' force the plain
     path.  min_depth_mm set the TPU kernel's window height and has no
     effect here.
+
+    detect: find the CoM on the device (``ops.com.detect_closest``) and
+    ignore the ``com`` passed in; refine_iters > 0: refine the passed CoM
+    that many times (``refine_com_iterative``).  Both run on the clamped
+    frames, with each image's clamp limits.
+
+    resize: the reference's resize-method switch (handdetector.py:57-69),
+    None/'nearest', 'linear' or 'nd_bilinear'.  One routing difference
+    from the JAX estimator: it sends 'linear' to its XLA one-hot crop,
+    while the kernel path here runs the cv2-linear kernel K2; both compute
+    the same crop to float32 round-off.
     """
 
     def __init__(
@@ -53,15 +69,8 @@ class FusedEstimator:
         resize: Optional[str] = None,
         device=None,
     ):
-        if resize not in (None, "nearest", "linear", "nd_bilinear"):
+        if resize is not None and resize not in RESIZE_METHODS:
             raise ValueError(f"unknown resize method {resize!r}")
-        if resize in ("linear", "nd_bilinear"):
-            raise NotImplementedError(_BILINEAR_TODO)
-        if detect or refine_iters:
-            raise NotImplementedError(
-                "CoM detection and refinement are not ported yet "
-                "(ROADMAP.md Queue 1, item 16: ops/com.py); pass com"
-            )
         if crop_method not in _CROP_METHODS:
             raise ValueError(f"unknown crop method {crop_method!r}")
         if device is None:
@@ -78,6 +87,9 @@ class FusedEstimator:
         self.prior = None if prior is None else prior.to(self.device)
         self.num_joints = num_joints
         self.dsize = tuple(dsize)
+        self.refine_iters = refine_iters
+        self.detect = detect
+        self.resize = resize or "nearest"
         if crop_method == "auto":
             crop_method = "hopper" if self.device.type == "cuda" else "gather"
         elif crop_method == "pallas":
@@ -103,16 +115,32 @@ class FusedEstimator:
 
         Returns (joints3d_mm (B, J, 3), com3d (B, 3), crops (B, dh, dw))."""
         cam = self.camera
-        if self.crop_method == "hopper":
-            # the kernel applies the clamp to the pixels it reads
+        kernel = self.crop_method == "hopper" and self.resize != "nd_bilinear"
+        clamped = False
+        if self.detect or self.refine_iters or not kernel:
+            depth, dmin, dmax = clamp_depth(depth)
+            clamped = True
+            if self.detect:
+                com = detect_closest(depth, cube, cam.fx, cam.fy,
+                                     min_depth=dmin, max_depth=dmax)
+            elif self.refine_iters:
+                com = refine_com_iterative(
+                    depth, com, cube, cam.fx, cam.fy, self.refine_iters,
+                    min_depth=dmin, max_depth=dmax,
+                )
+        if kernel:
+            # without detection the kernel applies the clamp to the pixels
+            # it reads: no full-frame clean pass
             crops, _ = hopper_normalized_crop(
-                depth, com, cube, cam.fx, cam.fy, self.dsize, fuse_clamp=True
+                depth, com, cube, cam.fx, cam.fy, self.dsize,
+                fuse_clamp=not clamped, use_bilinear=self.resize == "linear",
             )
         else:
-            depth, _, _ = clamp_depth(depth)
+            # 'nd_bilinear' on the kernel route takes the plain gather
+            method = "onehot" if self.crop_method == "onehot" else "gather"
             crops, _ = normalized_crop(
                 depth, com, cube, cam.fx, cam.fy, self.dsize,
-                method=self.crop_method,
+                method=method, resize=self.resize,
             )
         net_in = torch.where(mirror[:, None, None], crops.flip(-1), crops)
         out = self.model(net_in[:, None])
@@ -135,9 +163,10 @@ class FusedEstimator:
     @torch.inference_mode()
     def __call__(self, depth, com=None, cube=None, mirror=None,
                  invx=False, invy=False):
-        """depth (B, H, W) raw mm; com (B, 3) image coords; cube (3,) or
-        (B, 3) mm, default the constructor's; mirror bool or (B,) bool.
-        Inputs may be numpy arrays or tensors; they move to the device."""
+        """depth (B, H, W) raw mm; com (B, 3) image coords (ignored with
+        ``detect``); cube (3,) or (B, 3) mm, default the constructor's;
+        mirror bool or (B,) bool.  Inputs may be numpy arrays or tensors;
+        they move to the device."""
         dev = self.device
         depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
         b = depth.shape[0]

@@ -59,6 +59,61 @@ def poseregnet_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.T
     return sd
 
 
+def _conv_from_flax(sd, prefix, conv) -> None:
+    """A flax Conv's {kernel (HWIO), bias} as a torch Conv2d's OIHW."""
+    sd[f"{prefix}.conv.weight"] = torch.tensor(
+        np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.conv.bias"] = torch.tensor(np.asarray(conv["bias"], np.float32))
+
+
+def scalenet_state_dict_from_flax(params: Dict[str, Any], resize_factor: int = 2,
+                                  input_hw: int = 128) -> Dict[str, torch.Tensor]:
+    """flax ``ScaleNet`` ``variables["params"]`` (numpy leaves) ->
+    ``state_dict`` of deepprior_tpu_torch.models.ScaleNet.
+
+    Names: separate towers _Tower_{t}/ConvPool_{i}/Conv_0/{kernel,bias},
+    shared ones _SharedConvTowers_0/shared_conv_{i}/{kernel,bias}, and
+    MLPHead_0/Dense_{i}.  The head's first Dense reads the concatenation of
+    the three flattened towers (968 + 968 + 512 rows at 128x128 input, from
+    8 x 11 x 11, 8 x 11 x 11 and 8 x 8 x 8 maps), so its rows go from the
+    NHWC to the NCHW flatten order block by block; one permutation of the
+    whole matrix would mix the towers.
+    """
+    from deepprior_tpu_torch.models.scalenet import FEATURES, tower_sides
+
+    sd: Dict[str, torch.Tensor] = {}
+    if "_SharedConvTowers_0" in params:
+        shared = params["_SharedConvTowers_0"]
+        for i in range(len(shared)):
+            _conv_from_flax(sd, f"towers.layers.{i}", shared[f"shared_conv_{i}"])
+    else:
+        for t in range(3):
+            tower = params[f"_Tower_{t}"]
+            for i in range(len(tower)):
+                _conv_from_flax(sd, f"towers.{t}.layers.{i}",
+                                tower[f"ConvPool_{i}"]["Conv_0"])
+    head = params["MLPHead_0"]
+    dense = sorted((k for k in head if k.startswith("Dense_")),
+                   key=lambda k: int(k.split("_")[1]))
+    for i, k in enumerate(dense):
+        kern = np.asarray(head[k]["kernel"], np.float32)
+        if i == 0:
+            blocks, start = [], 0
+            for side in tower_sides(input_hw, resize_factor):
+                rows = FEATURES * side * side
+                blocks.append(_nhwc_rows_to_nchw(kern[start:start + rows], FEATURES))
+                start += rows
+            if start != kern.shape[0]:
+                raise ValueError(
+                    f"first Dense has {kern.shape[0]} input rows, the towers "
+                    f"give {start} at {input_hw}x{input_hw}"
+                )
+            kern = np.concatenate(blocks)
+        sd[f"head.dense.{i}.weight"] = torch.tensor(kern.T.copy())
+        sd[f"head.dense.{i}.bias"] = torch.tensor(np.asarray(head[k]["bias"], np.float32))
+    return sd
+
+
 def train_state_from_flax(trainer, params: Dict[str, Any]):
     """A port ``TrainState`` that starts from a flax ``PoseRegNet``'s
     parameters (e.g. the JAX ``TrainState.params``), with the fresh

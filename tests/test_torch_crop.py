@@ -10,6 +10,13 @@ Three references, all on the same numpy inputs:
       bit-exact mm crops, as bench.py asserts for the JAX paths.
 The port's hopper_normalized_crop runs its plain version on CPU tensors,
 so it is held to the same references.
+
+The resize methods 'linear' (cv2 INTER_LINEAR) and 'nd_bilinear' are held
+to the host twin bit for bit (the same float32 op order, no FMA), to the
+JAX gather within rtol 3e-7, atol 1e-3 mm (XLA may contract the blend into
+FMAs), to its one-hot form within rtol 1e-5, atol 2e-2 mm (separable
+summation order), and to the interpret-mode Pallas K2 on normalized crops
+within rtol 1e-4, atol 1e-4.
 """
 
 import numpy as np
@@ -201,21 +208,93 @@ def test_per_sample_cube_matches_jax(scenes):
 
 
 def test_bilinear_raises(scenes):
+    """Only an unknown resize method raises now ('cubic': ValueError);
+    resize='nearest' overrides the legacy use_bilinear flag, as in the JAX
+    package."""
     cam = NYU_CAMERA
     raw, com = scenes["nyu"]
     dpt, com_t = torch.from_numpy(raw), torch.from_numpy(com)
     cube = (250.0, 250.0, 250.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hopper_normalized_crop(dpt, com_t, cube, cam.fx, cam.fy, use_bilinear=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcrop.normalized_crop(dpt, com_t, cube, cam.fx, cam.fy, use_bilinear=True)
-    for resize in ("linear", "nd_bilinear"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcrop.crop3d(dpt, com_t, cube, cam.fx, cam.fy, resize=resize)
-    with pytest.raises(ValueError):
-        tcrop.crop3d(dpt, com_t, cube, cam.fx, cam.fy, resize="cubic")
-    # resize='nearest' overrides the legacy flag, as in the JAX package
+    for fn in (tcrop.crop3d, tcrop.normalized_crop):
+        with pytest.raises(ValueError, match="cubic"):
+            fn(dpt, com_t, cube, cam.fx, cam.fy, resize="cubic")
     got, _ = tcrop.crop3d(dpt, com_t, cube, cam.fx, cam.fy,
                           use_bilinear=True, resize="nearest")
     want, _ = tcrop.crop3d(dpt, com_t, cube, cam.fx, cam.fy)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("cam_name", ["nyu", "icvl"])
+@pytest.mark.parametrize("cube_name", ["250", "900"])
+@pytest.mark.parametrize("resize", ["linear", "nd_bilinear"])
+def test_resize_crop_matches_host_twin_and_jax(scenes, cam_name, cube_name, resize):
+    """mm crops: bit-exact against HandCropper(resize_method=resize), the
+    JAX gather within rtol 3e-7 / atol 1e-3 mm ('linear') or rtol 1e-5 /
+    atol 1e-3 mm ('nd_bilinear'); M equal to the nearest crop's."""
+    cam = CAMERAS[cam_name]
+    raw, com = scenes[cam_name]
+    size = (CUBES[cube_name],) * 3
+    clamped = np.array(jcrop.clamp_depth(raw)[0])
+    got, m_got = tcrop.crop3d(torch.from_numpy(clamped), torch.from_numpy(com), size,
+                              cam.fx, cam.fy, resize=resize)
+    for i in range(raw.shape[0]):
+        want, m_want, _ = HandCropper(raw[i], cam, resize_method=resize).crop_area_3d(
+            com=com[i], size=size)
+        np.testing.assert_array_equal(got[i].numpy(), want)
+        np.testing.assert_allclose(m_got[i].numpy(), m_want, rtol=1e-6)
+    want, _ = jcrop.crop3d(clamped, com, np.asarray(size, np.float32), cam.fx, cam.fy,
+                           resize=resize)
+    rtol = 3e-7 if resize == "linear" else 1e-5
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=1e-3)
+    _, m_near = tcrop.crop3d(torch.from_numpy(clamped), torch.from_numpy(com), size,
+                             cam.fx, cam.fy)
+    np.testing.assert_array_equal(m_got.numpy(), m_near.numpy())
+    # it interpolates: not the nearest crop
+    near, _ = tcrop.crop3d(torch.from_numpy(clamped), torch.from_numpy(com), size,
+                           cam.fx, cam.fy)
+    assert np.abs(got.numpy() - near.numpy()).max() > 0.5
+
+
+@pytest.mark.parametrize("cam_name", ["nyu", "icvl"])
+def test_linear_crop_matches_jax_onehot(scenes, cam_name):
+    """The JAX two-tap one-hot form sums rows before columns: within rtol
+    1e-5, atol 2e-2 mm.  The port's 'onehot' is its own gather."""
+    cam = CAMERAS[cam_name]
+    raw, com = scenes[cam_name]
+    cube = np.full(3, 250.0, np.float32)
+    clamped = np.array(jcrop.clamp_depth(raw)[0])
+    want, _ = jcrop.crop3d(clamped, com, cube, cam.fx, cam.fy, resize="linear",
+                           method="onehot")
+    got, _ = tcrop.crop3d(torch.from_numpy(clamped), torch.from_numpy(com), cube,
+                          cam.fx, cam.fy, resize="linear", method="onehot")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=2e-2)
+    gather, _ = tcrop.crop3d(torch.from_numpy(clamped), torch.from_numpy(com), cube,
+                             cam.fx, cam.fy, use_bilinear=True)
+    np.testing.assert_array_equal(got.numpy(), gather.numpy())
+
+
+@pytest.mark.parametrize("cam_name", ["nyu", "icvl"])
+@pytest.mark.parametrize("zero_one", [False, True])
+def test_linear_crop_matches_pallas_interpret(scenes, cam_name, zero_one):
+    """hopper_normalized_crop(use_bilinear=True) (its plain version on the
+    CPU, the clamp fused) against the Pallas K2 in interpret mode, on two
+    frames: normalized crops within rtol 1e-4, atol 1e-4 (the Pallas
+    kernel blends rows before columns)."""
+    cam = CAMERAS[cam_name]
+    raw, com = scenes[cam_name]
+    raw, com = _with_outliers(raw)[:2], com[:2]
+    cube = np.full(3, 250.0, np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want, m_want = pallas_normalized_crop(raw, com, cube, cam.fx, cam.fy,
+                                              norm_zero_one=zero_one,
+                                              fuse_clamp=True, use_bilinear=True)
+    got, m_got = hopper_normalized_crop(torch.from_numpy(raw), torch.from_numpy(com),
+                                        cube, cam.fx, cam.fy, norm_zero_one=zero_one,
+                                        fuse_clamp=True, use_bilinear=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(m_got.numpy(), np.asarray(m_want), rtol=1e-6)
+    # the fused clamp is clamp-then-crop, bit for bit
+    clamped, _, _ = tcrop.clamp_depth(torch.from_numpy(raw))
+    plain, _ = tcrop.normalized_crop(clamped, torch.from_numpy(com), cube, cam.fx, cam.fy,
+                                     norm_zero_one=zero_one, resize="linear")
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())

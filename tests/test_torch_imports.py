@@ -36,11 +36,14 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     first, names = proc.stdout.strip().splitlines()
     n, bad = first.split(" ", 1)
-    assert int(n) >= 29, proc.stdout  # every module of the package was imported
+    assert int(n) >= 37, proc.stdout  # every module of the package was imported
     assert bad == "[]", f"the port pulled in {bad}"
     for mod in ("geometry", "data.basetypes", "ops.augment", "ops.hopper_warp",
                 "train.optimizer", "train.prefetch", "train.trainer",
-                "eval.metrics", "mains.common", "mains.main_nyu_posereg_embedding"):
+                "eval.metrics", "mains.common", "mains.main_nyu_posereg_embedding",
+                "ops.resize", "ops.com", "ops.refine_cnn", "models.scalenet",
+                "data.detector_np", "realtime.camera", "realtime.pipeline",
+                "mains.demo_realtime"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -60,9 +63,11 @@ def test_cuda_request_raises_without_a_card():
 
     depth = np.zeros((1, 480, 640), np.float32)
     com = np.array([[320.0, 240.0, 600.0]], np.float32)
-    with pytest.raises((RuntimeError, AssertionError)):
-        hopper_normalized_crop(torch.as_tensor(depth, device="cuda"), com,
-                               (250.0,) * 3, NYU_CAMERA.fx, NYU_CAMERA.fy)
+    for bilinear in (False, True):
+        with pytest.raises((RuntimeError, AssertionError)):
+            hopper_normalized_crop(torch.as_tensor(depth, device="cuda"), com,
+                                   (250.0,) * 3, NYU_CAMERA.fx, NYU_CAMERA.fy,
+                                   use_bilinear=bilinear)
     from deepprior_tpu_torch.ops.hopper_warp import hopper_warp_patch
 
     with pytest.raises((RuntimeError, AssertionError)):
