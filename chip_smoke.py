@@ -4,8 +4,9 @@
 
 Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the
 nearest crop K1 and the cv2-linear crop K2; warp.cu: the augmentation
-warps K4 and K5) and holds each bit for bit against its plain PyTorch
-version.  Then it drives the main paths: serving (FusedEstimator with a
+warps K4 and K5; probes.cu: the band-read probes K6a-c and the general
+warp K7) and holds each bit for bit against its plain PyTorch version.
+Then it drives the main paths: serving (FusedEstimator with a
 full-width PoseRegNet, then MicroBatchServer) at B = 512 NYU frames,
 training (the port's main_nyu_posereg_embedding: 12 steps at B = 128
 through K4, then an epoch through K5) with a training step on the card
@@ -13,10 +14,16 @@ against the CPU, and realtime serving (phases 12-15: the 'linear'
 estimator through K2 at B = 512, detection and CoM refinement on the card
 at B = 64, the RealtimeHandposePipeline with a full-width ScaleNet CoM
 refiner over a synthetic camera, and the demo main; phase 16 times
-them).  It times the kernels, the estimators, the server, the training
-step, the detection and the pipeline.  Every phase raises on failure, so the exit code is 0 only
-when all passed.  The last line is {"ok": true, "device": {...}}; the
-line before it carries each kernel's launches, error and times as JSON.
+them).  Phases 17-18 drive the measuring path, the probe scripts
+deepprior_tpu_torch.prof.prof_bench (K6) and prof_warp_bf16 (K7), then
+hold each probe against its plain version and its library call and time
+K7 in turns with K4; phase 19 times K1, K2, K4 and K5 alone against their
+bounds from the byte models, with their launches per estimator call and
+train step; phase 20 runs the profiling helpers on the estimator at B = 1
+(dispatch included, and its CUDA graph: the device floor).  Every phase
+raises on failure, so the exit code is 0 only when all passed.  The last
+line is {"ok": true, "device": {...}}; the line before it carries each
+kernel's launches, error, times and bound as JSON.
 
 --profile adds phase 11: torch.profiler over the train step and its
 stages (augment via K4, forward + backward, optimizer) at B = 128 and 512,
@@ -121,7 +128,7 @@ def main(argv=None):
     from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_depth_frame
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
-    from deepprior_tpu_torch.ops import hopper_crop, hopper_warp
+    from deepprior_tpu_torch.ops import hopper_crop, hopper_probes, hopper_warp
     from deepprior_tpu_torch.ops._build import BUILD_LOG
     from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
     from deepprior_tpu_torch.prior import PCAPrior
@@ -147,14 +154,15 @@ def main(argv=None):
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, in parallel
-        for fut in [pool.submit(hopper_crop.build), pool.submit(hopper_warp.build)]:
+    builds = (hopper_crop.build, hopper_warp.build, hopper_probes.build)
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, in parallel
+        for fut in [pool.submit(b) for b in builds]:
             fut.result()
     build_s = time.perf_counter() - t0
-    for src in ("crop.cu", "warp.cu"):
+    for src in ("crop.cu", "warp.cu", "probes.cu"):
         ptxas = [ln.strip() for ln in BUILD_LOG.get(src, "").splitlines()
                  if "registers" in ln or "spill" in ln]
-        log(f"[2 build] {src} built and loaded ({build_s:.3f} s for both) "
+        log(f"[2 build] {src} built and loaded ({build_s:.3f} s for all) "
             f"({'cached' if not ptxas else '; '.join(ptxas)})")
 
     # ---------------------------------------------------------------- 3
@@ -396,19 +404,33 @@ def main(argv=None):
     }]
     kernels += training_phases(dev, tag, log, profile=args.profile)
     kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
+    kernels += probe_phases(dev, tag, log)
+    roofline_phases(dev, tag, log, model, prior, kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)
 
 
-def alternate(plain_fn, kernel_fn, iters):
+def alternate(plain_fn, kernel_fn, iters, timer=time_ms):
     """Mean ms of each, timed in the order plain, kernel, kernel, plain."""
     t_plain, t_kernel = [], []
     for fn, acc in ((plain_fn, t_plain), (kernel_fn, t_kernel),
                     (kernel_fn, t_kernel), (plain_fn, t_plain)):
-        acc.append(time_ms(fn, iters=iters))
+        acc.append(timer(fn, iters=iters))
     return float(np.mean(t_plain)), float(np.mean(t_kernel))
+
+
+def graph_ms(fn, iters):
+    """Device ms of one fn() from a CUDA graph of iters calls: no host
+    enqueue between the launches, so a kernel shorter than its Python
+    wrapper's dispatch is timed by the card and not by the host."""
+    import torch
+
+    from deepprior_tpu_torch.utils.profiling import device_loop_latency
+
+    return device_loop_latency(lambda c: (fn(), c)[1],
+                               torch.zeros(1, device="cuda"), iters=iters)
 
 
 def training_phases(dev, tag, log, profile=False):
@@ -991,6 +1013,282 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
             "replaces": "deepprior_tpu/ops/pallas_crop.py:417",
             "launches": k2_launches, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "kernel_only_ms": k2_ms}
+
+
+def probe_phases(dev, tag, log):
+    """Phases 17-18: the measuring path, the probe scripts K6
+    (deepprior_tpu_torch.prof.prof_bench) and K7 (prof_warp_bf16) driven as
+    a user runs them, then each probe kernel against its plain version,
+    the library call that computes the same function where there is one,
+    and K7 in turns with K4.  Returns the probes' JSON records."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepprior_tpu_torch.ops import hopper_probes as hp
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.prof import prof_bench, prof_warp_bf16
+    from deepprior_tpu_torch.utils.flops import roofline_ms
+
+    # --------------------------------------------------------------- 17
+    # the scripts time each probe alone from a CUDA graph; their kernel
+    # times are the ones reported below
+    hp.LAUNCHES.update(dict.fromkeys(hp.LAUNCHES, 0))
+    k6_ms = prof_bench.main(log=lambda line: log(f"[17 prof_bench] {line}"))
+    k7_alone = {split: alone for split, (_, alone) in prof_warp_bf16.main(
+        log=lambda line: log(f"[18 prof_warp_bf16] {line}"))[0].items()}
+    torch.cuda.synchronize()
+    launches = dict(hp.LAUNCHES)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the probe scripts launched {launches}")
+    log(f"[17 main path] python -m deepprior_tpu_torch.prof.prof_bench and "
+        f"prof_warp_bf16: launches {launches}")
+
+    dpt, zero = prof_bench.make_inputs(dev)
+    band = (prof_bench.WH, prof_bench.WW)
+    b, h, w = dpt.shape
+    rng = np.random.default_rng(17)
+    picked = np.stack([rng.integers(0, (h - band[0]) // hp.ROW_ALIGN + 1, b) * hp.ROW_ALIGN,
+                       rng.integers(0, (w - band[1]) // hp.COL_ALIGN + 1, b) * hp.COL_ALIGN], 1)
+    per_sample = torch.from_numpy(hp.check_offsets(picked, (h, w), band)).to(dev)
+    err = {body: 0.0 for body in hp.BODIES}
+    for label, offs in (("zero offsets", zero), ("aligned per-sample offsets", per_sample)):
+        for body in hp.BODIES:
+            got = hp.launch_band(dpt, offs, band, body)
+            want = hp.band_plain(dpt, offs, body)
+            torch.cuda.synchronize()
+            err[body] = max(err[body], (got - want).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6 {body}, {label}: kernel != plain on "
+                                     f"{int((got != want).sum())} pixels")
+    # the PyTorch calls that compute each body's function when every offset
+    # is 0: copy_ broadcasts the selected (B, 1, 1) pixel over the tile; the
+    # bf16 body needs two calls, the rounding and then the copy
+    corner = torch.empty((b, hp.CORNER, hp.CORNER), device=dev)
+    pixel = dpt[:, hp.SEL_ROW:hp.SEL_ROW + 1, hp.SEL_COL:hp.SEL_COL + 1]
+    library = {
+        "trivial": ("out.copy_(dpt[:, :128, :128])",
+                    lambda: corner.copy_(dpt[:, :hp.CORNER, :hp.CORNER])),
+        "select": ("out.copy_(dpt[:, 64:65, 32:33])", lambda: corner.copy_(pixel)),
+        "select_bf16": ("out.copy_(dpt[:, 64:65, 32:33].to(torch.bfloat16))",
+                        lambda: corner.copy_(pixel.to(torch.bfloat16))),
+    }
+    for body, (call, fn) in library.items():
+        if not torch.equal(fn(), hp.launch_band(dpt, zero, band, body)):
+            raise AssertionError(f"K6 {body} != {call} at zero offsets")
+    log(f"[17 K6 vs plain] trivial, select and select_bf16 at B={b} {h}x{w}, band "
+        f"{band[0]}x{band[1]}, zero and aligned per-sample offsets: bit-exact "
+        f"(torch.equal); at zero offsets each equals its PyTorch call: "
+        + "; ".join(f"{body} == {call}" for body, (call, _) in library.items()))
+    replaces = {"trivial": "prof_bench.py:28", "select": "prof_bench.py:56",
+                "select_bf16": "prof_bench.py:79"}
+    records = []
+    for body in hp.BODIES:
+        name = f"band_{body}"
+        ms = k6_ms[body]
+        plain_ms = graph_ms(lambda body=body: hp.band_plain(dpt, zero, body), iters=50)
+        call, fn = library[body]
+        call_ms = graph_ms(fn, iters=50)
+        # select_bf16's call is two launches, so it is no one-call equivalent
+        library_ms = None if body == "select_bf16" else call_ms
+        moved = hp.band_read_bytes(dpt.shape, band)
+        need = hp.band_need_bytes(dpt.shape, body)
+        bound, bound_by = roofline_ms(need, hp.FP32_OPS_PER_PIXEL[name] * b * hp.CORNER ** 2)
+        log(f"[17 timing] {tag} K6 {body} B={b} (CUDA graphs): kernel {ms:.4f} ms "
+            f"(prof_bench), plain {plain_ms:.4f} ms, {call} {call_ms:.4f} ms "
+            f"({'one call' if library_ms is not None else 'two calls: no one-call equivalent'}); "
+            f"moves {moved} B = {moved / (ms * 1e-3) / 1e12:.4f} TB/s; needs {need} B: "
+            f"bound {bound:.4f} ms by {bound_by}, share {bound / ms:.4f}")
+        records.append({
+            "name": name, "route": "cuda", "source": "deepprior_tpu_torch/csrc/probes.cu",
+            "replaces": replaces[body], "launches": launches[name],
+            "max_abs_err": err[body], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms})
+
+    # --------------------------------------------------------------- 18
+    patch, m = prof_warp_bf16.make_inputs(dev)
+    params = hw.warp_patch_params(m)
+    b, h, w = patch.shape
+    outs, err7 = {}, {}
+    for split in (False, True):
+        got = hp.launch_warp_general(patch, params, split)
+        want = hp.warp_general_plain(patch, params, split)
+        torch.cuda.synchronize()
+        err7[split] = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7 split={split}: kernel != plain on "
+                                 f"{int((got != want).sum())} pixels")
+        outs[split] = got
+    if not torch.equal(outs[False], outs[True]):
+        raise AssertionError("K7 'split' != 'f32'")
+    k4 = hw.launch_warp(patch, params, 0.0, None)
+    if not torch.equal(k4, outs[False]):
+        raise AssertionError("K4 without the NV mask != K7 'f32' (the same function)")
+    # the library call: grid_sample, nearest, zeros, on a precomputed grid
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    v = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    c = [params[:, i, None, None] for i in range(6)]
+    x = (c[0] * u + c[1] * v) + c[2]
+    y = (c[3] * u + c[4] * v) + c[5]
+    grid = torch.stack([x * (2.0 / (w - 1)) - 1.0, y * (2.0 / (h - 1)) - 1.0], dim=-1)
+
+    def grid_sample():
+        return F.grid_sample(patch[:, None], grid, mode="nearest", padding_mode="zeros",
+                             align_corners=True)[:, 0]
+
+    n_diff = int((grid_sample() != outs[False]).sum())
+    log(f"[18 K7 vs plain] 'f32' and 'split' at B={b} {h}x{w}: bit-exact (torch.equal); "
+        f"'split' == 'f32'; K4 (no NV mask) == K7 'f32'; grid_sample(nearest, zeros, "
+        f"align_corners=True) differs on {n_diff} of {outs[False].numel()} pixels "
+        f"(it rounds half to even, K7 half up)")
+    lib7 = graph_ms(grid_sample, iters=50)
+    k4_ms, k7_ms = alternate(lambda: hw.launch_warp(patch, params, 0.0, None),
+                             lambda: hp.launch_warp_general(patch, params), 50, graph_ms)
+    n_bytes = hw.warp_bytes(params, (h, w))
+    for split in (False, True):
+        name = "warp_general_split" if split else "warp_general"
+        ms = k7_alone[split]
+        plain_ms = graph_ms(lambda split=split: hp.warp_general_plain(patch, params, split),
+                            iters=50)
+        bound, bound_by = roofline_ms(n_bytes, hp.FP32_OPS_PER_PIXEL[name] * b * h * w)
+        library_ms = lib7 if n_diff == 0 else None
+        log(f"[18 timing] {tag} K7 {name} B={b} (CUDA graphs): kernel {ms:.4f} ms "
+            f"(prof_warp_bf16), plain {plain_ms:.4f} "
+            f"ms, grid_sample {lib7:.4f} ms ({'the same function' if n_diff == 0 else 'not the same function: %d pixels differ' % n_diff}); "
+            f"needs {n_bytes} B = {n_bytes / (ms * 1e-3) / 1e12:.4f} TB/s: bound "
+            f"{bound:.4f} ms by {bound_by}, share {bound / ms:.4f}")
+        records.append({
+            "name": name, "route": "cuda", "source": "deepprior_tpu_torch/csrc/probes.cu",
+            "replaces": "prof_warp_bf16.py:63", "launches": launches[name],
+            "max_abs_err": err7[split], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+            "library_pixels_differ": n_diff})
+    # the same at 4x the batch, where the patches no longer sit in L2 as easily
+    big, big_params = patch.repeat(4, 1, 1), params.repeat(4, 1)
+    k4_big, k7_big = alternate(lambda: hw.launch_warp(big, big_params, 0.0, None),
+                               lambda: hp.launch_warp_general(big, big_params), 50, graph_ms)
+    log(f"[18 staging] {tag} 128x128, CUDA graphs in turns: K4 (patch staged in shared "
+        f"memory) vs K7 'f32' (loads straight from global), the same function bit for "
+        f"bit: B={b} {k4_ms:.4f} vs {k7_ms:.4f} ms; B={4 * b} {k4_big:.4f} vs "
+        f"{k7_big:.4f} ms")
+    return records
+
+
+def roofline_phases(dev, tag, log, model, prior, kernels, batch=512,
+                    warp_batches=(128, 512)):
+    """Phases 19-20: the ported kernels K1, K2, K4 and K5 alone, in turns,
+    against their bounds from the byte models, with their launches per
+    main-path call (one estimator call, one train step); then the profiling
+    helpers on the card.  Adds the bound to each kernel's record in
+    ``kernels``."""
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame, make_sequence
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.augment import NV_VAL, augment_geometry, sample_augment_params
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+    from deepprior_tpu_torch.utils.flops import peak_hbm_tbps, roofline_ms
+    from deepprior_tpu_torch.utils.profiling import device_loop_latency, time_batched_inference
+
+    cam = NYU_CAMERA
+    cube = (250.0, 250.0, 250.0)
+    rng = np.random.default_rng(19)
+    record = {k["name"]: k for k in kernels}
+    none_why = {
+        "normalized_crop": "none: per-sample windows of different sizes, the clamp, "
+                           "the z-threshold and the normalization have no single call",
+        "warp_patch": "none: grid_sample has no NV mask and rounds half to even",
+        "warp_norm": "none: the fused un/renormalization, premax and recrop "
+                     "threshold have no single call",
+    }
+    none_why["normalized_crop_linear"] = none_why["normalized_crop"]
+
+    # --------------------------------------------------------------- 19
+    pairs = [make_depth_frame(cam, rng) for _ in range(16)]
+    depth = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev).repeat(batch // 16, 1, 1)
+    com = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev).repeat(batch // 16, 1)
+    b, h, w = depth.shape
+    params, _ = hopper_crop.crop_params(depth, com, cube, cam.fx, cam.fy, fuse_clamp=True)
+    k1_ms, k2_ms = alternate(
+        lambda: hopper_crop.launch_crop(depth, params, fuse_clamp=True),
+        lambda: hopper_crop.launch_crop(depth, params, fuse_clamp=True, linear=True), 50,
+        graph_ms)
+    per_call = {}
+    for resize, name in ((None, "normalized_crop"), ("linear", "normalized_crop_linear")):
+        est = FusedEstimator(model, cam, prior=prior, resize=resize, device=dev)
+        hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+        est(depth, com)
+        torch.cuda.synchronize()
+        per_call[name] = hopper_crop.LAUNCHES[name]
+    rows = [("normalized_crop", b, k1_ms, hopper_crop.crop_bytes(params, (h, w)),
+             hopper_crop.FP32_OPS_PER_PIXEL["normalized_crop"] * b * 128 * 128),
+            ("normalized_crop_linear", b, k2_ms,
+             hopper_crop.crop_bytes(params, (h, w), linear=True),
+             hopper_crop.FP32_OPS_PER_PIXEL["normalized_crop_linear"] * b * 128 * 128)]
+
+    seq = make_sequence(cam, warp_batches[0], seed=19)
+    data = TrainData.from_sequence(seq).to(dev)
+    gen = torch.Generator(dev).manual_seed(19)
+    for bsz in warp_batches:
+        rep = bsz // data.n
+        batch = TrainData(*(t.repeat((rep,) + (1,) * (t.dim() - 1)) for t in data)).take(
+            torch.arange(bsz, device=dev))
+        geo = augment_geometry(sample_augment_params(gen, bsz, 3), batch["com"],
+                               batch["cube"], batch["m"], cam, ("com", "rot", "none"),
+                               (128, 128))
+        img, _ = hw.unnormalize(batch["crops"], geo.norm)
+        p6 = hw.warp_patch_params(geo.a_fwd)
+        k5_params = hw.warp_norm_params(geo.a_fwd, geo.norm)
+        k4_ms, k5_ms = alternate(
+            lambda: hw.launch_warp(img, p6, 0.0, NV_VAL),
+            lambda: hw.launch_warp(batch["crops"], k5_params, 0.0, NV_VAL, fused=True), 50,
+            graph_ms)
+        rows += [("warp_patch", bsz, k4_ms, hw.warp_bytes(p6, (128, 128)),
+                  hw.FP32_OPS_PER_PIXEL["warp_patch"] * bsz * 128 * 128),
+                 ("warp_norm", bsz, k5_ms, hw.warp_bytes(k5_params, (128, 128), fused=True),
+                  hw.FP32_OPS_PER_PIXEL["warp_norm"] * bsz * 128 * 128)]
+    full = data.take(torch.arange(data.n, device=dev))
+    for fuse, name in ((None, "warp_patch"), (True, "warp_norm")):
+        # no prior: the net regresses the 14 joints' 42 coordinates
+        tr = Trainer(PoseRegNet(PoseRegNetConfig(num_joints=14, n_dims=3, hidden=1024)),
+                     TrainConfig(batch_size=data.n, aug_fuse_norm=fuse), cam, device=dev)
+        st = tr.init_state()
+        hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+        tr._train_step_core(st, full, torch.Generator(dev).manual_seed(1),
+                            torch.Generator(dev).manual_seed(2), 1e-4)
+        torch.cuda.synchronize()
+        per_call[name] = hw.LAUNCHES[name]
+    if min(per_call.values()) < 1:
+        raise AssertionError(f"launches per main-path call {per_call}")
+    peak = peak_hbm_tbps()
+    for name, bsz, ms, n_bytes, ops in rows:
+        bound, bound_by = roofline_ms(n_bytes, ops)
+        log(f"[19 roofline] {tag} {name} B={bsz}: kernel alone {ms:.4f} ms (CUDA graph, "
+            f"in turns); "
+            f"{n_bytes} B at {n_bytes / (ms * 1e-3) / 1e12:.4f} TB/s of {peak}; {ops} fp32 "
+            f"ops; bound {bound:.4f} ms by {bound_by}, share {bound / ms:.4f}; "
+            f"launches per main-path call {per_call[name]}; library {none_why[name]}")
+        rec = record[name]
+        if bsz == (warp_batches[0] if name.startswith("warp") else b):
+            rec.update(bound_ms=bound, bound_by=bound_by, library_ms=None,
+                       library=none_why[name], roofline_kernel_ms=ms,
+                       launches_per_call=per_call[name])
+
+    # --------------------------------------------------------------- 20
+    est = FusedEstimator(model, cam, prior=prior, device=dev)
+    d1, c1 = depth[:1].contiguous(), com[:1].contiguous()
+    call_ms = time_batched_inference(est, (d1, c1), iters=50)
+    # the whole call captures into a CUDA graph: its inputs are on the card,
+    # its geometry is tensor math and the kernel launches on the current stream
+    floor_ms = device_loop_latency(lambda c, d: est(d, c)[1] * 1e-32 + c, c1,
+                                   iters=50, args=(d1,))
+    log(f"[20 profiling] {tag} FusedEstimator B=1 NYU: time_batched_inference "
+        f"{call_ms:.4f} ms/call (dispatch included, CUDA events); "
+        f"device_loop_latency of FusedEstimator.__call__ (CUDA inputs) captured as "
+        f"one CUDA graph of 50 calls: {floor_ms:.4f} ms/call, the device floor")
 
 
 if __name__ == "__main__":

@@ -36,8 +36,15 @@ _TODO = {
 
 
 def default_device() -> torch.device:
-    """cuda when a card is available, else cpu."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The entry points' default device: the CUDA card.  Raises
+    RuntimeError when there is none; the CPU is only ever asked for
+    (``--device cpu``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False); pass "
+            "--device cpu to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -74,7 +81,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--validation-frequency", type=int, default=None,
                    help="run the validation observers every N minibatches")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: cuda; cpu only when asked for)")
     # not ported yet: parsed so that asking for them fails loudly
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--tp", type=int, default=1)

@@ -5,10 +5,11 @@ synthetic camera, detecting the hand on the device, and reports fps.
     python -m deepprior_tpu_torch.mains.demo_realtime --frames 100 [--threaded] [--comref]
 
 Random weights (PoseRegNet type 0, 30-D PCA prior; with --comref a
-full-width ScaleNet CoM refiner).  --device is the torch device, cuda when
-a card is available.  The camera is the synthetic one; the JAX demo's
-camera spellings are accepted: --device synthetic means the default torch
-device, and --device capture is not ported.
+full-width ScaleNet CoM refiner).  --device is the torch device, cuda by
+default; without a card the demo raises unless given --device cpu.  The
+camera is the synthetic one; the JAX demo's camera spellings are accepted:
+--device synthetic means the default torch device, and --device capture is
+not ported.
 """
 
 import argparse
@@ -26,7 +27,7 @@ _SAVE_VIEW_TODO = ("--save-view needs the pipeline's drawing (ROADMAP.md Queue 1
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: cuda; cpu only when asked for)")
     p.add_argument("--frames", type=int, default=100)
     p.add_argument("--threaded", action="store_true")
     p.add_argument("--comref", action="store_true",

@@ -24,16 +24,23 @@ import torch
 
 from deepprior_tpu_torch.ops.crop import (
     _embed_geometry,
+    _exact_floor_div,
     _transform_matrix,
     clamp_depth,
     com_to_bounds,
     depth_limits,
     normalized_crop,
 )
+from deepprior_tpu_torch.ops.resize import halfpixel_taps
+from deepprior_tpu_torch.utils.flops import distinct_per_row
 
 # kernel launches since the last reset, per mode (K1 nearest, K2 linear);
 # chip_smoke.py reads them to show that a main path went through the kernel
 LAUNCHES = {"normalized_crop": 0, "normalized_crop_linear": 0}
+# float32 operations per output pixel, counted from csrc/crop.cu (each add,
+# multiply, divide, floor, min, max and compare as one): the arithmetic side
+# of the kernels' roofline, far below their bytes at the main path's shapes
+FP32_OPS_PER_PIXEL = {"normalized_crop": 37, "normalized_crop_linear": 91}
 
 # columns of the params tensor, in the order of csrc/crop.cu's Param enum
 PARAM_NAMES = (
@@ -87,6 +94,40 @@ def crop_params(dpt, com, cube, fx, fy, dsize=(128, 128), fuse_clamp=False):
     ]
     m = _transform_matrix(scale, xs, ys, off_x, off_y)
     return torch.stack(cols, dim=1).contiguous(), m
+
+
+def crop_bytes(params, frame_hw, dsize=(128, 128), linear=False) -> int:
+    """Bytes K1 (nearest) or K2 (``linear``) must move at least for one
+    launch on ``params`` (``crop_params``'s (B, 14)) over (B, *frame_hw)
+    float32 frames: each input byte read once and each output byte written
+    once.  The frame pixels are those the embedded region's source map
+    reaches inside the frame, counted distinct per sample; for K2 the
+    distinct taps its two-tap windows need, not four reads per pixel.  The
+    map is separable, so a sample's pixels are its distinct columns times
+    its distinct rows.  Plus the params read and the (B, dh, dw) output
+    written."""
+    h, w = frame_hw
+    dw, dh = dsize
+    f32 = dict(dtype=torch.float32, device=params.device)
+
+    def col(name):
+        return params[:, PARAM_NAMES.index(name), None]
+
+    def distinct(o, off, sz, extent, start, limit):
+        inside = (o >= off) & (o < off + sz)
+        if linear:
+            t0, t1, _ = halfpixel_taps(o, off, sz, extent, start)
+            taps, inside = torch.cat([t0, t1], 1), torch.cat([inside, inside], 1)
+        else:
+            taps = start + _exact_floor_div((o - off) * extent, sz)
+        taps = torch.where(inside & (taps >= 0) & (taps < limit), taps, -1.0)
+        return distinct_per_row(taps.long())
+
+    nx = distinct(torch.arange(dw, **f32)[None], col("off_x"), col("sz_w"),
+                  col("wb"), col("xstart"), w)
+    ny = distinct(torch.arange(dh, **f32)[None], col("off_y"), col("sz_h"),
+                  col("hb"), col("ystart"), h)
+    return 4 * (int((nx * ny).sum()) + params.numel() + params.shape[0] * dh * dw)
 
 
 def launch_crop(dpt, params, dsize=(128, 128), fuse_clamp=False,

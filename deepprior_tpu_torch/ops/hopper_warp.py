@@ -31,10 +31,15 @@ import torch
 
 from deepprior_tpu_torch.geometry import inv3x3
 from deepprior_tpu_torch.ops.crop import _gather_patch, nv_threshold
+from deepprior_tpu_torch.utils.flops import distinct_per_row
 
 # kernel launches since the last reset, per kernel; chip_smoke.py reads
 # them to show that the main path went through the kernels
 LAUNCHES = {"warp_patch": 0, "warp_norm": 0}
+# float32 operations per output pixel, counted from csrc/warp.cu (each add,
+# multiply, divide, floor, min, max and compare as one; K5's staging pass
+# included): the arithmetic side of the kernels' roofline
+FP32_OPS_PER_PIXEL = {"warp_patch": 19, "warp_norm": 32}
 
 # columns of the params tensors, in the order of csrc/warp.cu's Param enum:
 # K4 takes the inverse transform's top two rows, K5 those and then the
@@ -133,18 +138,44 @@ def _col(params, name):
                   None, None]
 
 
+def _source_pixels(params, h, w):
+    """The nearest source pixel (q, p) of each output pixel, (B, h, w)
+    floats each: floor(((i00*u) + (i01*v)) + i02 + 0.5), likewise q."""
+    u = torch.arange(w, dtype=torch.float32, device=params.device)[None, None, :]
+    v = torch.arange(h, dtype=torch.float32, device=params.device)[None, :, None]
+    x = (_col(params, "i00") * u + _col(params, "i01") * v) + _col(params, "i02")
+    y = (_col(params, "i10") * u + _col(params, "i11") * v) + _col(params, "i12")
+    return torch.floor(y + 0.5), torch.floor(x + 0.5)
+
+
 def warp_patch_plain(patch, params, border: float = 0.0, nv_val=None):
     """K4's function in plain PyTorch: patch (B, H, W), params (B, 6)."""
     b, h, w = patch.shape
-    u = torch.arange(w, dtype=torch.float32, device=patch.device)[None, None, :]
-    v = torch.arange(h, dtype=torch.float32, device=patch.device)[None, :, None]
-    x = (_col(params, "i00") * u + _col(params, "i01") * v) + _col(params, "i02")
-    y = (_col(params, "i10") * u + _col(params, "i11") * v) + _col(params, "i12")
-    val = _gather_patch(patch, torch.floor(y + 0.5), torch.floor(x + 0.5), border)
+    q, p = _source_pixels(params, h, w)
+    val = _gather_patch(patch, q, p, border)
     if nv_val is not None:
         val = torch.where((val - nv_val).abs() <= nv_threshold(nv_val),
                           border, val)
     return val
+
+
+def warp_bytes(params, hw, fused: bool = False) -> int:
+    """Bytes K4 (fused=False) or K5 must move at least for one launch on
+    ``params`` ((B, 6) or (B, 15)) over (B, *hw) float32 patches: each
+    input byte read once and each output byte written once.  K4 needs only
+    the source pixels its nearest map reaches inside the patch, counted
+    distinct per sample; K5 reads the whole patch (its premax); both read
+    their params and write the (B, H, W) output."""
+    b = params.shape[0]
+    h, w = hw
+    if fused:
+        src = b * h * w
+    else:
+        q, p = _source_pixels(params[:, :len(PATCH_PARAMS)], h, w)
+        inside = (p >= 0) & (p < w) & (q >= 0) & (q < h)
+        flat = torch.where(inside, q * w + p, -1.0).reshape(b, -1).long()
+        src = int(distinct_per_row(flat).sum())
+    return 4 * (src + params.numel() + b * h * w)
 
 
 def unnormalize(patch_norm, norm):

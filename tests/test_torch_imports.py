@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
                 "eval.metrics", "mains.common", "mains.main_nyu_posereg_embedding",
                 "ops.resize", "ops.com", "ops.refine_cnn", "models.scalenet",
                 "data.detector_np", "realtime.camera", "realtime.pipeline",
-                "mains.demo_realtime"):
+                "mains.demo_realtime", "utils.profiling", "utils.flops",
+                "ops.hopper_probes", "prof.prof_bench", "prof.prof_warp_bf16"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -73,6 +74,14 @@ def test_cuda_request_raises_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         hopper_warp_patch(torch.zeros((1, 32, 32), device="cuda"),
                           torch.eye(3)[None])
+    from deepprior_tpu_torch.ops import hopper_probes
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        hopper_probes.band_probe(torch.zeros((1, 136, 256), device="cuda"),
+                                 np.zeros((1, 2)), (128, 128))
+    with pytest.raises((RuntimeError, AssertionError)):
+        hopper_probes.warp_general(torch.zeros((1, 32, 32), device="cuda"),
+                                   torch.eye(3)[None])
     # a device the wrapper has no path for raises too
     with pytest.raises(ValueError, match="cpu or cuda"):
         hopper_normalized_crop(torch.zeros((1, 480, 640), device="meta"), com,

@@ -36,6 +36,7 @@ from deepprior_tpu.realtime import pipeline as jpipeline
 from deepprior_tpu.realtime.fused import FusedEstimator as JaxFusedEstimator
 
 from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
+from deepprior_tpu_torch.mains import common as tcommon
 from deepprior_tpu_torch.mains import demo_realtime
 from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ScaleNet, ScaleNetConfig
 from deepprior_tpu_torch.ops.refine_cnn import CNNComRefiner
@@ -223,10 +224,19 @@ def test_demo_main_on_cpu():
     assert len(results) == 5 and pipe.com_refiner is not None
     assert lines and lines[0].startswith("processed 5 frames on cpu")
     assert next(pipe.estimator.model.parameters()).device.type == "cpu"
-    # the JAX demo's camera spelling: the synthetic camera on the default device
-    _, results = demo_realtime.main(["--device", "synthetic", "--frames", "1"],
-                                    log=lines.append)
-    assert len(results) == 1
+    # the JAX demo's camera spelling: the synthetic camera on the default
+    # device, which is the card; without one it raises and names the way
+    # to the CPU
+    if torch.cuda.is_available():
+        _, results = demo_realtime.main(["--device", "synthetic", "--frames", "1"],
+                                        log=lines.append)
+        assert len(results) == 1
+    else:
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            demo_realtime.main(["--device", "synthetic", "--frames", "1"],
+                               log=lines.append)
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            tcommon.default_device()
     for argv in (["--device", "capture"], ["--checkpoint", "x"],
                  ["--ref-pickle", "x"], ["--comref-pickle", "x"], ["--model", "resnet"],
                  ["--save-view", "x.png"]):
