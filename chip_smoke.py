@@ -5,9 +5,12 @@
 Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the
 nearest crop K1 and the cv2-linear crop K2; warp.cu: the augmentation
 warps K4 and K5; probes.cu: the band-read probes K6a-c and the general
-warp K7) and holds each bit for bit against its plain PyTorch version.
-Then it drives the main paths: serving (FusedEstimator with a
-full-width PoseRegNet, then MicroBatchServer) at B = 512 NYU frames,
+warp K7) and holds each bit for bit against its plain PyTorch version
+(the crops K1/K2 compute their geometry and M in the kernel: crops and M
+are held to the plain crop).  Then it drives the main paths: serving
+(FusedEstimator with a full-width PoseRegNet, then MicroBatchServer; phase
+6 counts the crop wrapper's device operations per estimator call with
+torch.profiler and fails above 5) at B = 512 NYU frames,
 training (the port's main_nyu_posereg_embedding: 12 steps at B = 128
 through K4, then an epoch through K5) with a training step on the card
 against the CPU, and realtime serving (phases 12-15: the 'linear'
@@ -16,11 +19,13 @@ at B = 64, the RealtimeHandposePipeline with a full-width ScaleNet CoM
 refiner over a synthetic camera, and the demo main; phase 16 times
 them).  Phases 17-18 drive the measuring path, the probe scripts
 deepprior_tpu_torch.prof.prof_bench (K6) and prof_warp_bf16 (K7), then
-hold each probe against its plain version and its library call and time
-K7 in turns with K4; phase 19 times K1, K2, K4 and K5 alone against their
-bounds from the byte models, with their launches per estimator call and
-train step; phase 20 runs the profiling helpers on the estimator at B = 1
-(dispatch included, and its CUDA graph: the device floor).  Every phase
+hold each probe against its plain version and its library call (K6 in
+turns with its call) and time K7 in turns with K4; phase 19 times K1, K2,
+K4 and K5 alone against their bounds from the byte models, with their
+launches per estimator call and train step; phase 20 runs the profiling
+helpers on the estimator at B = 1 (dispatch included, and its CUDA graph:
+the device floor) and holds a replayed CUDA graph of the estimator to the
+eager call bit for bit.  Every phase
 raises on failure, so the exit code is 0 only when all passed.  The last
 line is {"ok": true, "device": {...}}; the line before it carries each
 kernel's launches, error, times and bound as JSON.
@@ -42,6 +47,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -68,6 +74,19 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def is_device_op(event):
+    """A profiler event that is a kernel, copy or memset on the card.  The
+    device-side copies of user annotations (Optimizer.step#...) span other
+    kernels and are left out; PyTorch's elementwise kernels carry '#' too
+    ({lambda()#1}), but inside a parenthesised signature."""
+    import torch
+
+    name = event.name
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False)
+            and not ("#" in name and "(" not in name))
+
+
 def profile_stage(label, fn, iters, log):
     """torch.profiler over iters calls of fn() after 3 warm-up calls.
 
@@ -88,11 +107,7 @@ def profile_stage(label, fn, iters, log):
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    # kernels and copies; the device-side copies of user annotations
-    # (Optimizer.step#...) span other kernels and are left out
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    evs = [e for e in prof.events() if is_device_op(e)]
     busy_us, end = 0.0, -math.inf
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in evs):
         if b > end:
@@ -342,25 +357,40 @@ def main(argv=None):
         f"occupancy {occ:.3f}, max |server - direct| {serr} mm")
 
     # ---------------------------------------------------------------- 6
+    cube_b = est.cube.expand(batch, 3)  # the cube as the estimator passes it
+
     def kernel_crop():
         return hopper_crop.hopper_normalized_crop(
-            depth_d, com_d, cube, cam.fx, cam.fy, fuse_clamp=True)
+            depth_d, com_d, cube_b, cam.fx, cam.fy, fuse_clamp=True)
 
     def plain_crop():
         return normalized_crop(clamp_depth(depth_d)[0], com_d, cube, cam.fx, cam.fy)
 
-    params, _ = hopper_crop.crop_params(depth_d, com_d, cube, cam.fx, cam.fy,
-                                        fuse_clamp=True)
+    # the crop wrapper's device operations per nearest estimator call, and
+    # the whole call's, counted by torch.profiler over one call
+    wrapper_ops = device_ops(kernel_crop)
+    est_ops = device_ops(lambda: est(depth_d, com_d))
+    n_kernel = sum("normalized_crop_kernel" in op for op in wrapper_ops)
+    if len(wrapper_ops) > 5 or n_kernel != 1:
+        raise AssertionError(f"crop wrapper launched {len(wrapper_ops)} device "
+                             f"operations (kernel {n_kernel}x): {wrapper_ops}")
+    kinds = Counter(op.removeprefix("void ")[:40] for op in est_ops)
+    log(f"[6 launches] crop wrapper (nearest, fused clamp) per estimator call: "
+        f"{len(wrapper_ops)} device operations ({'; '.join(op[:48] for op in wrapper_ops)}); "
+        f"the whole estimator call: {len(est_ops)} ("
+        + "; ".join(f"{n}x {k}" for k, n in kinds.most_common(8)) + ")")
     # alternate plain, kernel, kernel, plain within this one call
     t_plain, t_kernel = [], []
     for fn, acc in ((plain_crop, t_plain), (kernel_crop, t_kernel),
                     (kernel_crop, t_kernel), (plain_crop, t_plain)):
         acc.append(time_ms(fn, iters=20))
     ms, plain_ms = float(np.mean(t_kernel)), float(np.mean(t_plain))
-    launch_ms = time_ms(lambda: hopper_crop.launch_crop(
-        depth_d, params, fuse_clamp=True), iters=50)
-    params_ms = time_ms(lambda: hopper_crop.crop_params(
-        depth_d, com_d, cube, cam.fx, cam.fy, fuse_clamp=True), iters=50)
+    # the kernel alone, its geometry included, from a CUDA graph; then the
+    # launch's arguments alone (the clamp limits and the output buffers)
+    launch_args = hopper_crop.crop_args(depth_d, com_d, cube_b, cam.fx, cam.fy, fuse_clamp=True)
+    launch_ms = graph_ms(lambda: hopper_crop.launch_crop(depth_d, launch_args), iters=50)
+    args_ms = time_ms(lambda: hopper_crop.crop_args(
+        depth_d, com_d, cube_b, cam.fx, cam.fy, fuse_clamp=True), iters=50)
     crops = kernel_crop()[0]
     with torch.inference_mode():
         model_ms = time_ms(lambda: est.model(crops[:, None]), iters=20)
@@ -375,8 +405,9 @@ def main(argv=None):
         lat.append((time.perf_counter() - t0) * 1e3)
     b1_ms = float(np.median(lat[3:]))
     log(f"[6 timing] {tag} B={batch} NYU: crop kernel path {ms:.4f} ms "
-        f"(runs {', '.join(f'{t:.4f}' for t in t_kernel)}) = params+limits "
-        f"{params_ms:.4f} ms + kernel alone {launch_ms:.4f} ms; plain clamp+crop "
+        f"(runs {', '.join(f'{t:.4f}' for t in t_kernel)}): args (clamp limits, "
+        f"outputs) {args_ms:.4f} ms, kernel alone with its geometry {launch_ms:.4f} ms "
+        f"(CUDA graph); plain clamp+crop "
         f"{plain_ms:.4f} ms (runs {', '.join(f'{t:.4f}' for t in t_plain)}); "
         f"PoseRegNet bf16 {model_ms:.4f} ms; estimator {est_ms:.4f} ms/batch "
         f"= {fps:.1f} frames/s; batch-1 call {b1_ms:.4f} ms (median of 20)")
@@ -401,6 +432,7 @@ def main(argv=None):
         "ms": ms,
         "plain_ms": plain_ms,
         "kernel_only_ms": launch_ms,
+        "wrapper_device_ops_per_call": len(wrapper_ops),
     }]
     kernels += training_phases(dev, tag, log, profile=args.profile)
     kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
@@ -419,6 +451,40 @@ def alternate(plain_fn, kernel_fn, iters, timer=time_ms):
                     (kernel_fn, t_kernel), (plain_fn, t_plain)):
         acc.append(timer(fn, iters=iters))
     return float(np.mean(t_plain)), float(np.mean(t_kernel))
+
+
+def device_ops(fn):
+    """The names of the device operations (kernels, copies, memsets) of one
+    fn() call, from torch.profiler, after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if is_device_op(e)]
+
+
+def graph_outputs(fn):
+    """fn()'s outputs from one replay of a CUDA graph that captured one
+    fn() call (warmed up on a side stream first, as capture requires)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    out = [t.clone() for t in out]  # out of the graph's memory pool
+    torch.cuda.synchronize()
+    return out
 
 
 def graph_ms(fn, iters):
@@ -968,8 +1034,7 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
         f"--comref: {demo.stdout.strip().splitlines()[-1]}")
 
     # ----------------------------------------------------------- timing
-    params, _ = hopper_crop.crop_params(depth_d, com_d, cube, cam.fx, cam.fy,
-                                        fuse_clamp=True)
+    launch_args = hopper_crop.crop_args(depth_d, com_d, cube, cam.fx, cam.fy, fuse_clamp=True)
     plain_ms, ms = alternate(
         lambda: normalized_crop(clamp_depth(depth_d)[0], com_d, cube, cam.fx, cam.fy,
                                 resize="linear"),
@@ -977,9 +1042,8 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
                                                    fuse_clamp=True, use_bilinear=True),
         20)
     k1_ms, k2_ms = alternate(
-        lambda: hopper_crop.launch_crop(depth_d, params, fuse_clamp=True),
-        lambda: hopper_crop.launch_crop(depth_d, params, fuse_clamp=True, linear=True),
-        50)
+        lambda: hopper_crop.launch_crop(depth_d, launch_args),
+        lambda: hopper_crop.launch_crop(depth_d, launch_args, linear=True), 50)
     # the nearest estimator in turns with the linear one: the two differ by
     # the kernel and its wrapper only, within one phase's host speed
     near_est = FusedEstimator(model, cam, prior=prior, device=dev)
@@ -1087,17 +1151,21 @@ def probe_phases(dev, tag, log):
         ms = k6_ms[body]
         plain_ms = graph_ms(lambda body=body: hp.band_plain(dpt, zero, body), iters=50)
         call, fn = library[body]
-        call_ms = graph_ms(fn, iters=50)
+        # the PyTorch call in turns with the kernel
+        call_ms, turns_kernel = alternate(
+            fn, lambda body=body: hp.launch_band(dpt, zero, band, body), 50, graph_ms)
         # select_bf16's call is two launches, so it is no one-call equivalent
         library_ms = None if body == "select_bf16" else call_ms
-        moved = hp.band_read_bytes(dpt.shape, band)
         need = hp.band_need_bytes(dpt.shape, body)
         bound, bound_by = roofline_ms(need, hp.FP32_OPS_PER_PIXEL[name] * b * hp.CORNER ** 2)
         log(f"[17 timing] {tag} K6 {body} B={b} (CUDA graphs): kernel {ms:.4f} ms "
             f"(prof_bench), plain {plain_ms:.4f} ms, {call} {call_ms:.4f} ms "
-            f"({'one call' if library_ms is not None else 'two calls: no one-call equivalent'}); "
-            f"moves {moved} B = {moved / (ms * 1e-3) / 1e12:.4f} TB/s; needs {need} B: "
-            f"bound {bound:.4f} ms by {bound_by}, share {bound / ms:.4f}")
+            f"({'one call' if library_ms is not None else 'two calls: no one-call equivalent'}) "
+            f"in turns with the kernel's {turns_kernel:.4f} ms: kernel "
+            f"{'no slower' if turns_kernel <= call_ms else 'SLOWER'}; moves {need} B "
+            f"(the TPU band: {hp.band_read_bytes(dpt.shape, band)} B) = "
+            f"{need / (ms * 1e-3) / 1e12:.4f} TB/s: bound {bound:.4f} ms by {bound_by}, "
+            f"share {bound / ms:.4f}")
         records.append({
             "name": name, "route": "cuda", "source": "deepprior_tpu_torch/csrc/probes.cu",
             "replaces": replaces[body], "launches": launches[name],
@@ -1211,11 +1279,13 @@ def roofline_phases(dev, tag, log, model, prior, kernels, batch=512,
     depth = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev).repeat(batch // 16, 1, 1)
     com = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev).repeat(batch // 16, 1)
     b, h, w = depth.shape
+    # the kernels alone, their geometry included; the plain geometry feeds
+    # the byte model
     params, _ = hopper_crop.crop_params(depth, com, cube, cam.fx, cam.fy, fuse_clamp=True)
+    launch_args = hopper_crop.crop_args(depth, com, cube, cam.fx, cam.fy, fuse_clamp=True)
     k1_ms, k2_ms = alternate(
-        lambda: hopper_crop.launch_crop(depth, params, fuse_clamp=True),
-        lambda: hopper_crop.launch_crop(depth, params, fuse_clamp=True, linear=True), 50,
-        graph_ms)
+        lambda: hopper_crop.launch_crop(depth, launch_args),
+        lambda: hopper_crop.launch_crop(depth, launch_args, linear=True), 50, graph_ms)
     per_call = {}
     for resize, name in ((None, "normalized_crop"), ("linear", "normalized_crop_linear")):
         est = FusedEstimator(model, cam, prior=prior, resize=resize, device=dev)
@@ -1282,13 +1352,25 @@ def roofline_phases(dev, tag, log, model, prior, kernels, batch=512,
     d1, c1 = depth[:1].contiguous(), com[:1].contiguous()
     call_ms = time_batched_inference(est, (d1, c1), iters=50)
     # the whole call captures into a CUDA graph: its inputs are on the card,
-    # its geometry is tensor math and the kernel launches on the current stream
+    # nothing on the path reads a device value back, and the kernel
+    # computes the geometry and launches on the current stream
     floor_ms = device_loop_latency(lambda c, d: est(d, c)[1] * 1e-32 + c, c1,
                                    iters=50, args=(d1,))
+    # the replayed graph gives the eager call's outputs bit for bit
+    for bsz in (1, b):
+        dd, cc = depth[:bsz].contiguous(), com[:bsz].contiguous()
+        replayed = graph_outputs(lambda: est(dd, cc))
+        eager = est(dd, cc)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, e) for g, e in zip(replayed, eager)):
+            raise AssertionError(f"B={bsz}: the estimator's CUDA-graph replay differs "
+                                 f"from the eager call")
     log(f"[20 profiling] {tag} FusedEstimator B=1 NYU: time_batched_inference "
         f"{call_ms:.4f} ms/call (dispatch included, CUDA events); "
         f"device_loop_latency of FusedEstimator.__call__ (CUDA inputs) captured as "
-        f"one CUDA graph of 50 calls: {floor_ms:.4f} ms/call, the device floor")
+        f"one CUDA graph of 50 calls: {floor_ms:.4f} ms/call, the device floor; "
+        f"a graph of one call replays the eager call's joints, CoMs and crops bit "
+        f"for bit at B=1 and B={b}")
 
 
 if __name__ == "__main__":

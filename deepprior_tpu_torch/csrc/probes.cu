@@ -6,19 +6,23 @@
 // sample's frame at scalar-prefetched offsets into VMEM, then copies the
 // band's (128, 128) corner out (K6a), or selects band[64, 32] with two
 // one-hot matmuls at HIGHEST (K6b, exact) or DEFAULT precision (K6c, one
-// bf16 pass on a TPU) into every output pixel.  On the TPU they measure what
-// K1's banded-window design pays for its DMA.  Here one block per (sample,
-// 16-row band tile) stages its tile into shared memory with 16-byte
-// cp.async copies, coalesced along the row; the copies are asm volatile, so
-// the compiler cannot drop the read whatever the body uses.  The blocks
-// whose tile holds the corner's rows write them (K6a); the block whose tile
-// holds row 64 writes the selected value into all of the sample's output
-// (K6b; K6c rounds it with __float2bfloat16_rn first).  The selection is a
-// direct load, exact by construction: no matmul.
-// What bounds them: bytes.  The band is 622 KB a sample (319 MB at B = 512),
-// against 64 KB a sample that the function needs; the probe is the measured
-// floor of a crop that reads whole bands, beside K1, which reads only its
-// taps.
+// bf16 pass on a TPU) into every output pixel.  On the TPU the band DMA is
+// how K1's banded-window design feeds its one-hot selection, and the probes
+// time it.  On Hopper a gather is a direct load and needs no band, so these
+// kernels compute the probes' function and read nothing more: one block of
+// 256 threads per (sample, quarter of the 128x128 output).  K6a copies the
+// corner with 16-byte loads and stores, 4 vectors a thread, neighbouring
+// threads on neighbouring vectors of a row (the offsets' columns are
+// multiples of 128 and W of 4, so every access is aligned); no shared
+// memory and no staging.  K6b and K6c load the one selected pixel once per
+// block (K6c rounds it with __float2bfloat16_rn), then write the sample's
+// quarter as 16-byte stores.  The selection is a direct load, exact by
+// construction: no matmul.
+// What bounds them: bytes.  K6a reads and writes 64 KB a sample (67 MB at
+// B = 512); K6b and K6c only write, 64 KB a sample.  On an H100 they run
+// at about 80% (K6a) and 99% (K6b, K6c) of that bound (PERF.md).  The
+// whole 304x512 band, 622 KB a sample, is what the TPU probe moves; an
+// earlier version of this kernel staged it, at 0.117 ms for B = 512.
 //
 // K7 replaces the TPU probe prof_warp_bf16.py::make(variant).warp (:63): a
 // general nearest warp whose selection the TPU writes as one-hot matmuls in
@@ -45,73 +49,54 @@
 namespace {
 
 constexpr int kBandThreads = 256;
-constexpr int kTileRows = 16;    // band rows staged per block
 constexpr int kCorner = 128;     // the (kCorner, kCorner) output per sample
 constexpr int kSelRow = 64;      // K6b/K6c select band[kSelRow, kSelCol]
 constexpr int kSelCol = 32;
+constexpr int kRowVecs = kCorner / 4;   // 16-byte vectors per output row
+constexpr int kVecsPerThread = 4;
+constexpr int kBlockVecs = kBandThreads * kVecsPerThread;
+constexpr int kBlocksPerSample = kCorner * kRowVecs / kBlockVecs;
 constexpr int kWarpThreads = 256;
 
 enum Body { kTrivial = 0, kSelect = 1, kSelectBf16 = 2 };
-enum Constant { kConstCorner, kConstSelRow, kConstSelCol, kConstTileRows };
+enum Constant { kConstCorner, kConstSelRow, kConstSelCol };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// grid (ceil(band_h / kTileRows), b); dynamic shared memory kTileRows *
-// band_w floats.  offsets (b, 2) int32: the band's first row and column.
+// grid (kBlocksPerSample, b).  offsets (b, 2) int32: the band's first row
+// and column, with the band inside the frame (the wrapper checks it).
 template <int kBody>
 __global__ void __launch_bounds__(kBandThreads)
 band_kernel(const float* __restrict__ dpt, const int* __restrict__ offsets,
-            float* __restrict__ out, int h, int w, int band_h, int band_w) {
-  extern __shared__ __align__(16) float tile[];
+            float* __restrict__ out, int h, int w) {
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kTileRows;
-  const int rows = min(kTileRows, band_h - row0);
   const int r_off = offsets[2 * b], c_off = offsets[2 * b + 1];
   const float* img = dpt + static_cast<int64_t>(b) * h * w;
-  const int vecs = band_w / 4;  // 16-byte vectors per band row
-
-  // stage this tile of the band; parts outside the frame read as 0, so a
-  // band that leaves the frame reads nothing out of bounds
-  for (int i = threadIdx.x; i < rows * vecs; i += kBandThreads) {
-    const int r = i / vecs, c = 4 * (i - r * vecs);
-    const int fr = r_off + row0 + r, fc = c_off + c;
-    float* dst = tile + r * band_w + c;
-    if (fr >= 0 && fr < h && fc >= 0 && fc + 4 <= w) {
-      cp_async16(dst, img + static_cast<int64_t>(fr) * w + fc);
-    } else {
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
   float4* dst = reinterpret_cast<float4*>(out + static_cast<int64_t>(b) *
                                                     kCorner * kCorner);
-  constexpr int kRowVecs = kCorner / 4;
+  const int first = blockIdx.x * kBlockVecs + threadIdx.x;
   if (kBody == kTrivial) {
-    // the corner's rows that this tile holds
-    const int last = min(rows, kCorner - row0);
-    for (int i = threadIdx.x; i < last * kRowVecs; i += kBandThreads) {
+    // all loads first, so that each thread has kVecsPerThread in flight
+    float4 v[kVecsPerThread];
+#pragma unroll
+    for (int k = 0; k < kVecsPerThread; ++k) {
+      const int i = first + k * kBandThreads;
       const int r = i / kRowVecs, c = i - r * kRowVecs;
-      dst[(row0 + r) * kRowVecs + c] =
-          reinterpret_cast<const float4*>(tile + r * band_w)[c];
+      v[k] = __ldg(reinterpret_cast<const float4*>(
+                       img + static_cast<int64_t>(r_off + r) * w + c_off) + c);
     }
+#pragma unroll
+    for (int k = 0; k < kVecsPerThread; ++k) dst[first + k * kBandThreads] = v[k];
   } else {
-    if (kSelRow < row0 || kSelRow >= row0 + rows) return;
-    float v = tile[(kSelRow - row0) * band_w + kSelCol];
-    if (kBody == kSelectBf16) v = __bfloat162float(__float2bfloat16_rn(v));
-    const float4 v4 = make_float4(v, v, v, v);
-    for (int i = threadIdx.x; i < kCorner * kRowVecs; i += kBandThreads) {
-      dst[i] = v4;
+    __shared__ float sel;
+    if (threadIdx.x == 0) {
+      float v = __ldg(img + static_cast<int64_t>(r_off + kSelRow) * w + c_off +
+                      kSelCol);
+      if (kBody == kSelectBf16) v = __bfloat162float(__float2bfloat16_rn(v));
+      sel = v;
     }
+    __syncthreads();
+    const float4 v4 = make_float4(sel, sel, sel, sel);
+#pragma unroll
+    for (int k = 0; k < kVecsPerThread; ++k) dst[first + k * kBandThreads] = v4;
   }
 }
 
@@ -161,27 +146,28 @@ extern "C" {
 // K6a (body 0), K6b (1) or K6c (2) on `stream`; returns the cudaError_t of
 // the launch.  dpt (b, h, w) float32, offsets (b, 2) int32, out (b,
 // kCorner, kCorner) float32, all contiguous device buffers, dpt 16-byte
-// aligned.  Requires w % 4 == 0, band_w % 4 == 0, band_h >= kCorner,
-// band_w >= kCorner, kTileRows * band_w * 4 <= 48 KB and b <= 65535.
+// aligned.  The band (band_h, band_w) at each sample's offsets lies inside
+// the frame; the function is defined on it, so it must hold the corner:
+// band_h >= kCorner and band_w >= kCorner.  Requires w % 4 == 0, offsets'
+// columns multiples of 4 and b <= 65535.
 int dp_band_probe(const float* dpt, const int* offsets, float* out, int b,
                   int h, int w, int band_h, int band_w, int body,
                   void* stream) {
   if (b == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((band_h + kTileRows - 1) / kTileRows, b);
-  const size_t smem = static_cast<size_t>(kTileRows) * band_w * sizeof(float);
+  if (band_h < kCorner || band_w < kCorner || band_h > h || band_w > w) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(kBlocksPerSample, b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (body) {
     case kTrivial:
-      band_kernel<kTrivial><<<grid, kBandThreads, smem, s>>>(
-          dpt, offsets, out, h, w, band_h, band_w);
+      band_kernel<kTrivial><<<grid, kBandThreads, 0, s>>>(dpt, offsets, out, h, w);
       break;
     case kSelect:
-      band_kernel<kSelect><<<grid, kBandThreads, smem, s>>>(
-          dpt, offsets, out, h, w, band_h, band_w);
+      band_kernel<kSelect><<<grid, kBandThreads, 0, s>>>(dpt, offsets, out, h, w);
       break;
     case kSelectBf16:
-      band_kernel<kSelectBf16><<<grid, kBandThreads, smem, s>>>(
-          dpt, offsets, out, h, w, band_h, band_w);
+      band_kernel<kSelectBf16><<<grid, kBandThreads, 0, s>>>(dpt, offsets, out, h, w);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -211,7 +197,6 @@ int dp_probe_constant(int which) {
     case kConstCorner: return kCorner;
     case kConstSelRow: return kSelRow;
     case kConstSelCol: return kSelCol;
-    case kConstTileRows: return kTileRows;
     default: return -1;
   }
 }

@@ -36,10 +36,8 @@ FP32_OPS_PER_PIXEL = {"band_trivial": 0, "band_select": 0, "band_select_bf16": 2
 BODIES = ("trivial", "select", "select_bf16")
 CORNER = 128            # each sample's (CORNER, CORNER) output
 SEL_ROW, SEL_COL = 64, 32   # the selection bodies output band[SEL_ROW, SEL_COL]
-TILE_ROWS = 16          # band rows a block stages in shared memory
 # the TPU's BlockSpec takes band offsets in rows of 8 and columns of 128
 ROW_ALIGN, COL_ALIGN = 8, 128
-_MAX_TILE_BYTES = 48 * 1024  # static shared memory without an opt-in
 _MAX_GRID_Y = 65535
 
 
@@ -59,11 +57,11 @@ def build() -> ctypes.CDLL:
     lib.dp_probe_constant.restype = ctypes.c_int
     lib.dp_probe_error_string.argtypes = [ctypes.c_int]
     lib.dp_probe_error_string.restype = ctypes.c_char_p
-    got = tuple(lib.dp_probe_constant(i) for i in range(4))
-    if got != (CORNER, SEL_ROW, SEL_COL, TILE_ROWS):
+    got = tuple(lib.dp_probe_constant(i) for i in range(3))
+    if got != (CORNER, SEL_ROW, SEL_COL):
         raise RuntimeError(
-            f"csrc/probes.cu has (corner, sel_row, sel_col, tile_rows) {got}, "
-            f"this wrapper {(CORNER, SEL_ROW, SEL_COL, TILE_ROWS)}")
+            f"csrc/probes.cu has (corner, sel_row, sel_col) {got}, "
+            f"this wrapper {(CORNER, SEL_ROW, SEL_COL)}")
     return lib
 
 
@@ -138,12 +136,12 @@ def launch_band(dpt, offsets, band, body: str = "trivial"):
     if offsets.shape != (b, 2) or not (dpt.is_contiguous() and offsets.is_contiguous()):
         raise ValueError(f"band probe needs contiguous dpt (B, H, W) and offsets "
                          f"(B, 2), got {tuple(dpt.shape)} and {tuple(offsets.shape)}")
-    if w % 4 or bw % 4 or dpt.data_ptr() % 16:
-        raise ValueError("band probe reads 16-byte vectors: W and band_w must be "
-                         "multiples of 4 and dpt 16-byte aligned")
-    if bh < CORNER or bw < CORNER or TILE_ROWS * bw * 4 > _MAX_TILE_BYTES:
-        raise ValueError(f"band {bh}x{bw}: needs at least {CORNER}x{CORNER} and at "
-                         f"most {_MAX_TILE_BYTES // (4 * TILE_ROWS)} columns")
+    if w % 4 or dpt.data_ptr() % 16:
+        raise ValueError("band probe reads 16-byte vectors: W must be a multiple "
+                         "of 4 and dpt 16-byte aligned")
+    if bh < CORNER or bw < CORNER or bh > h or bw > w:
+        raise ValueError(f"band {bh}x{bw}: needs at least {CORNER}x{CORNER} and "
+                         f"to fit the {h}x{w} frame")
     if b > _MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit {_MAX_GRID_Y}")
     lib = build()
@@ -173,9 +171,10 @@ def band_probe(dpt, offsets, band=(304, 512), body: str = "trivial"):
 
 
 def band_read_bytes(shape, band) -> int:
-    """Bytes K6 moves by design for frames of ``shape`` (B, H, W): each
-    sample's whole band read once, its offsets, and the (CORNER, CORNER)
-    float32 output written once."""
+    """Bytes the TPU probes move by design for frames of ``shape`` (B, H,
+    W): each sample's whole band DMA'd once, its offsets, and the (CORNER,
+    CORNER) float32 output written once.  The CUDA kernels read only what
+    the output needs (``band_need_bytes``)."""
     b = shape[0]
     return b * (band[0] * band[1] * 4 + 2 * 4 + CORNER * CORNER * 4)
 

@@ -7,10 +7,11 @@ numpy ``default_rng(0)``, the 304x512 band at offsets (0, 0).  Each body
 (the band's corner copied out, K6a; band[64, 32] selected exactly, K6b;
 the same rounded to bf16, K6c) is timed alone by ``kernel_ms``, a CUDA
 graph of 40 launches, so that the time is the card's and not the host's
-dispatch.  Each line also gives the card's name and power limit,
-the bytes the probe moves by design with the TB/s achieved on them, and
-the roofline share on the bytes the function needs.  Runs on the card and
-raises without one.
+dispatch.  Each line also gives the card's name and power limit, the
+bytes the kernel moves (what the function needs: the kernels read no
+band) with the TB/s achieved on them and the roofline share, and, as a
+separate figure, the bytes the TPU probe's band DMA moves.  Runs on the
+card and raises without one.
 """
 
 from __future__ import annotations
@@ -42,17 +43,17 @@ def make_inputs(device):
 
 def report(body, ms, card, shape, band):
     """One probe line: ms and us/sample as the TPU probe prints them, then
-    the card, the bytes moved and needed, TB/s and the roofline share."""
-    moved = hp.band_read_bytes(shape, band)
-    need = hp.band_need_bytes(shape, body)
+    the card, the bytes the kernel moves with its TB/s and roofline share,
+    and the TPU band's bytes."""
+    moved = hp.band_need_bytes(shape, body)
     ops = hp.FP32_OPS_PER_PIXEL[f"band_{body}"] * shape[0] * hp.CORNER ** 2
-    bound, bound_by = roofline_ms(need, ops)
+    bound, bound_by = roofline_ms(moved, ops)
     tbps = moved / (ms * 1e-3) / 1e12
     return (f"{LABELS[body]}: {ms:.4f} ms = {ms * 1000 / shape[0]:.3f} us/sample "
-            f"(kernel alone, CUDA graph) [{card}]; moves {moved / 1e6:.1f} MB at {tbps:.3f} TB/s "
-            f"({tbps / peak_hbm_tbps():.1%} of the card's peak); needs "
-            f"{need / 1e6:.1f} MB: bound {bound:.4f} ms by {bound_by}, roofline "
-            f"share {bound / ms:.1%}")
+            f"(kernel alone, CUDA graph) [{card}]; moves {moved / 1e6:.1f} MB at "
+            f"{tbps:.3f} TB/s ({tbps / peak_hbm_tbps():.1%} of the card's peak): bound "
+            f"{bound:.4f} ms by {bound_by}, roofline share {bound / ms:.1%}; the TPU "
+            f"probe's band DMA moves {hp.band_read_bytes(shape, band) / 1e6:.1f} MB")
 
 
 def main(iters: int = 40, log=print):

@@ -17,7 +17,15 @@ JAX gather within rtol 3e-7, atol 1e-3 mm (XLA may contract the blend into
 FMAs), to its one-hot form within rtol 1e-5, atol 2e-2 mm (separable
 summation order), and to the interpret-mode Pallas K2 on normalized crops
 within rtol 1e-4, atol 1e-4.
+
+The kernel computes the geometry itself; its plain prologue
+``hopper_crop.crop_params`` is held column by column to the JAX geometry
+bit for bit, and the kernel's argument preparation (``crop_args``) and
+ctypes binding (``build`` with a stub library) are checked here, since the
+kernel runs only on a card (chip_smoke.py holds it to the plain crop).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -31,6 +39,7 @@ from deepprior_tpu.data.synthetic import make_frame
 from deepprior_tpu.ops import crop as jcrop
 from deepprior_tpu.ops.pallas_crop import pallas_normalized_crop
 
+from deepprior_tpu_torch.ops import _build, hopper_crop
 from deepprior_tpu_torch.ops import crop as tcrop
 from deepprior_tpu_torch.ops.hopper_crop import hopper_normalized_crop
 
@@ -298,3 +307,153 @@ def test_linear_crop_matches_pallas_interpret(scenes, cam_name, zero_one):
     plain, _ = tcrop.normalized_crop(clamped, torch.from_numpy(com), cube, cam.fx, cam.fy,
                                      norm_zero_one=zero_one, resize="linear")
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+def _geometry_scene(cam, seed, n=12):
+    """n raw frames for the geometry: sample 0 has com_z = 0 (the centred
+    fallback); samples 1-4 a CoM within 20 px of the left, right, top and
+    bottom border; per-sample non-square cubes, wide and tall in turns,
+    so both branches of _embed_geometry run."""
+    rng = np.random.default_rng(seed)
+    frames = [make_frame(cam, rng) for _ in range(n)]
+    raw = np.stack([f.extraData["dpt_full"] for f in frames])
+    com = np.stack([f.com for f in frames]).astype(np.float32)
+    com[0, 2] = 0.0
+    edge = rng.uniform(0.0, 20.0, 4).astype(np.float32)
+    com[1, 0], com[2, 0] = edge[0], cam.width - 1 - edge[1]
+    com[3, 1], com[4, 1] = edge[2], cam.height - 1 - edge[3]
+    cube = rng.uniform(150.0, 450.0, (n, 3)).astype(np.float32)
+    wide = np.arange(n) % 2 == 0
+    cube[wide, 0] = cube[wide, 1] * 1.3
+    cube[~wide, 1] = cube[~wide, 0] * 1.3
+    return raw, com, cube
+
+
+@pytest.mark.parametrize("cam_name", ["nyu", "icvl"])
+def test_crop_params_matches_jax_geometry(cam_name):
+    """The plain prologue, column by column, against the JAX package's
+    com_to_bounds, _embed_geometry and depth_limits, and its M against
+    crop_transform: bit for bit."""
+    cam = CAMERAS[cam_name]
+    raw, com, cube = _geometry_scene(cam, 21 if cam_name == "nyu" else 22)
+    hw = (cam.height, cam.width)
+    params, m = hopper_crop.crop_params(torch.from_numpy(raw), torch.from_numpy(com),
+                                        torch.from_numpy(cube), cam.fx, cam.fy,
+                                        fuse_clamp=True)
+    xs, xe, ys, ye, zs, ze = jcrop.com_to_bounds(com, cube, cam.fx, cam.fy, hw)
+    _, off_x, off_y, sz_w, sz_h = jcrop._embed_geometry(xs, xe, ys, ye, (128, 128))
+    min_d, max_d = jcrop.depth_limits(raw)
+    want = dict(xstart=xs, ystart=ys, wb=xe - xs, hb=ye - ys, off_x=off_x, off_y=off_y,
+                zstart=zs, zend=ze, com_z=com[:, 2], cube_half=cube[:, 2] / np.float32(2),
+                sz_w=sz_w, sz_h=sz_h, min_d=min_d, max_d=max_d)
+    assert params.shape == (len(com), len(hopper_crop.PARAM_NAMES))
+    for i, name in enumerate(hopper_crop.PARAM_NAMES):
+        np.testing.assert_array_equal(params[:, i].numpy(),
+                                      np.asarray(want[name], np.float32), err_msg=name)
+    np.testing.assert_array_equal(
+        m.numpy(), np.asarray(jcrop.crop_transform(com, cube, cam.fx, cam.fy, hw)))
+    # the scene reaches what it is meant to: the fallback, both branches,
+    # and bounding boxes that leave the frame
+    col = {n: params[:, i].numpy() for i, n in enumerate(hopper_crop.PARAM_NAMES)}
+    assert (col["xstart"][0], col["zstart"][0]) == (cam.width // 4, 10.0)
+    wide = col["wb"] > col["hb"]
+    assert wide.any() and (~wide).any()
+    assert col["xstart"][1] < 0 and col["xstart"][2] + col["wb"][2] > cam.width
+    assert col["ystart"][3] < 0 and col["ystart"][4] + col["hb"][4] > cam.height
+
+
+def test_crop_args_make_the_kernel_tensors(scenes):
+    """The launch's tensors: contiguous float32 com (B, 3); a (3,) cube, or
+    one expanded to (B, 3), read at stride 0 without a copy; a per-sample
+    cube as contiguous (B, 3); fx/fy as Python floats; the (B,) clamp
+    limits only with the fused clamp; the (B, dh, dw) and (B, 3, 3)
+    outputs."""
+    cam = NYU_CAMERA
+    raw, com = scenes["nyu"]
+    dpt = torch.from_numpy(raw)
+    b = dpt.shape[0]
+    # a strided float64 CoM: the args copy it to contiguous float32
+    com64 = torch.from_numpy(np.repeat(com, 2, axis=1).astype(np.float64))[:, ::2]
+    assert not com64.is_contiguous()
+    one = torch.tensor([250.0, 260.0, 270.0])
+    per = torch.from_numpy(np.random.default_rng(3).uniform(150, 450, (b, 3)).astype(np.float32))
+    for cube, stride in (((250.0,) * 3, 0), (one, 0), (one.expand(b, 3), 0),
+                         (one[None], 0), (per, 3)):
+        for fuse in (False, True):
+            a = hopper_crop.crop_args(dpt, com64, cube, cam.fx, cam.fy, (96, 72), fuse)
+            assert a.com.shape == (b, 3) and a.com.dtype == torch.float32
+            assert a.com.is_contiguous()
+            np.testing.assert_array_equal(a.com.numpy(), com)
+            assert a.cube_stride == stride and a.cube.is_contiguous()
+            assert a.cube.dtype == torch.float32
+            assert a.cube.shape == ((3,) if stride == 0 else (b, 3))
+            assert type(a.fx) is float and type(a.fy) is float
+            assert (a.fx, a.fy) == (cam.fx, cam.fy)
+            assert a.out.shape == (b, 72, 96) and a.m.shape == (b, 3, 3)
+            for t in (a.out, a.m):
+                assert t.dtype == torch.float32 and t.is_contiguous()
+            if fuse:
+                want = tcrop.depth_limits(dpt)
+                for got, w in zip((a.min_d, a.max_d), want):
+                    assert got.shape == (b,) and got.is_contiguous()
+                    assert torch.equal(got, w)
+            else:
+                assert a.min_d is None and a.max_d is None
+    # an expanded cube is read in place: no copy
+    a = hopper_crop.crop_args(dpt, com, one.expand(b, 3), cam.fx, cam.fy)
+    assert a.cube.data_ptr() == one.data_ptr()
+    with pytest.raises(ValueError, match="cube"):
+        hopper_crop.crop_args(dpt, com, torch.ones(b, 2), cam.fx, cam.fy)
+    with pytest.raises(ValueError, match="com"):
+        hopper_crop.crop_args(dpt, com[:, :2], one, cam.fx, cam.fy)
+
+
+class _StubFn:
+    """A C function of a stub library: takes argtypes/restype, returns
+    ``ret(*args)``."""
+
+    def __init__(self, ret):
+        self.ret, self.argtypes, self.restype = ret, None, None
+
+    def __call__(self, *args):
+        return self.ret(*args)
+
+
+class _StubLib:
+    """What ``_build.load_library`` returns, without nvcc: each C function
+    answers with ``answers[name]`` (default 0)."""
+
+    def __init__(self, **answers):
+        self._answers = answers
+
+    def __getattr__(self, name):
+        ret = self._answers.get(name, lambda *a: 0)
+        fn = _StubFn(ret)
+        setattr(self, name, fn)
+        return fn
+
+
+def test_crop_build_binds_float_focal_lengths(monkeypatch):
+    """build() declares fx and fy as c_float (ctypes would pass a bare
+    Python float as a double) and every pointer and the stream as
+    c_void_p (as c_int they would be cut to 32 bits)."""
+    stub = _StubLib()
+    monkeypatch.setattr(_build, "load_library", lambda source: stub)
+    hopper_crop.build.cache_clear()
+    try:
+        lib = hopper_crop.build()
+    finally:
+        hopper_crop.build.cache_clear()
+    assert lib is stub
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    names = ("dpt com cube cube_stride fx fy min_d max_d out m b h w dh dw "
+             "fuse_clamp norm_zero_one linear stream").split()
+    want = dict(zip(names, [ptr] * 3 + [i32] + [f32] * 2 + [ptr] * 4 + [i32] * 8 + [ptr]))
+    assert dict(zip(names, lib.dp_normalized_crop.argtypes)) == want
+    assert len(lib.dp_normalized_crop.argtypes) == len(names)
+    assert lib.dp_normalized_crop.restype is i32
+    assert lib.dp_error_string.argtypes == [i32]
+    assert lib.dp_error_string.restype is ctypes.c_char_p
+    # the focal lengths of both cameras survive the float32 argument
+    for cam in CAMERAS.values():
+        assert ctypes.c_float(cam.fx).value == np.float32(cam.fx)

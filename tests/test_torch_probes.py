@@ -178,3 +178,46 @@ def test_wrappers_refuse_cpu_launches_and_unknown_bodies(frames):
         hp.band_probe(dpt, OFFSETS, BAND, body="matmul")
     with pytest.raises(ValueError, match="cpu or cuda"):
         hp.warp_general(torch.zeros((1, 8, 8), device="meta"), torch.eye(3)[None])
+
+
+def test_band_build_binds_and_checks_constants(monkeypatch):
+    """build() declares every pointer and the stream as c_void_p and the
+    sizes as c_int, and refuses a library whose corner or selected pixel
+    differ from the wrapper's (CORNER, SEL_ROW, SEL_COL)."""
+    import ctypes
+
+    from deepprior_tpu_torch.ops import _build
+
+    class Fn:
+        def __init__(self, ret):
+            self.ret, self.argtypes, self.restype = ret, None, None
+
+        def __call__(self, *args):
+            return self.ret(*args)
+
+    def stub(constants):
+        lib = type("StubLib", (), {})()
+        for name in ("dp_band_probe", "dp_warp_general", "dp_probe_error_string"):
+            setattr(lib, name, Fn(lambda *a: 0))
+        lib.dp_probe_constant = Fn(lambda i: constants[i] if i < len(constants) else -1)
+        return lib
+
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    good = stub((hp.CORNER, hp.SEL_ROW, hp.SEL_COL))
+    monkeypatch.setattr(_build, "load_library", lambda source: good)
+    hp.build.cache_clear()
+    try:
+        lib = hp.build()
+        # dpt, offsets, out, b, h, w, band_h, band_w, body, stream
+        assert lib.dp_band_probe.argtypes == [ptr] * 3 + [i32] * 6 + [ptr]
+        assert lib.dp_band_probe.restype is i32
+        # src, params, out, b, h, w, split, stream
+        assert lib.dp_warp_general.argtypes == [ptr] * 3 + [i32] * 4 + [ptr]
+        assert lib.dp_probe_constant.argtypes == [i32]
+        hp.build.cache_clear()
+        bad = stub((hp.CORNER, hp.SEL_ROW + 1, hp.SEL_COL))
+        monkeypatch.setattr(_build, "load_library", lambda source: bad)
+        with pytest.raises(RuntimeError, match="sel_row"):
+            hp.build()
+    finally:
+        hp.build.cache_clear()
