@@ -6,34 +6,44 @@ Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the
 nearest crop K1 and the cv2-linear crop K2; warp.cu: the augmentation
 warps K4 and K5; probes.cu: the band-read probes K6a-c and the general
 warp K7) and holds each bit for bit against its plain PyTorch version
-(the crops K1/K2 compute their geometry and M in the kernel: crops and M
-are held to the plain crop).  Then it drives the main paths: serving
-(FusedEstimator with a full-width PoseRegNet, then MicroBatchServer; phase
-6 counts the crop wrapper's device operations per estimator call with
-torch.profiler and fails above 5) at B = 512 NYU frames,
-training (the port's main_nyu_posereg_embedding: 12 steps at B = 128
-through K4, then an epoch through K5) with a training step on the card
-against the CPU, and realtime serving (phases 12-15: the 'linear'
-estimator through K2 at B = 512, detection and CoM refinement on the card
-at B = 64, the RealtimeHandposePipeline with a full-width ScaleNet CoM
-refiner over a synthetic camera, and the demo main; phase 16 times
-them).  Phases 17-18 drive the measuring path, the probe scripts
-deepprior_tpu_torch.prof.prof_bench (K6) and prof_warp_bf16 (K7), then
-hold each probe against its plain version and its library call (K6 in
-turns with its call) and time K7 in turns with K4; phase 19 times K1, K2,
-K4 and K5 alone against their bounds from the byte models, with their
-launches per estimator call and train step; phase 20 runs the profiling
-helpers on the estimator at B = 1 (dispatch included, and its CUDA graph:
-the device floor) and holds a replayed CUDA graph of the estimator to the
-eager call bit for bit.  Every phase
-raises on failure, so the exit code is 0 only when all passed.  The last
-line is {"ok": true, "device": {...}}; the line before it carries each
-kernel's launches, error, times and bound as JSON.
+(the crops K1/K2 and the fused warp K5 compute their geometry in the
+kernel: crops and M, and K5's patches and the per-sample fields it writes
+for the labels, are held to the plain geometry and warp).  Then it drives
+the main paths: serving (FusedEstimator with a full-width PoseRegNet, then
+MicroBatchServer; phase 4 also runs the estimator with TF32 on for the
+process and requires the TF32-off joints bit for bit, the PCA decode
+being float32 whatever the switch says; phase 6 counts the crop wrapper's
+device operations per estimator call with torch.profiler and fails above
+5) at B = 512 NYU frames, training (the port's main_nyu_posereg_embedding:
+12 steps at B = 128 through the default route, K5, then an epoch through
+K4 with --no-aug-fuse-norm) with a training step on the card against the
+CPU, and realtime serving (phases 12-15: the 'linear' estimator through
+K2 at B = 512, detection and CoM refinement on the card at B = 64, the
+RealtimeHandposePipeline with a full-width ScaleNet CoM refiner over a
+synthetic camera, and the demo main; phase 16 times them).  Phase 10
+times the train step and augment_batch through K4 and through K5 in turns
+at B = 128 and 512 (the measurement behind fuse_norm=None taking K5),
+requires K5 bit-equal to K4's unfused path on the same draws, and counts
+device operations per call with torch.profiler (augment_batch via K5
+fails above AUGMENT_K5_OPS).  Phases 17-18 drive the measuring path, the
+probe scripts deepprior_tpu_torch.prof.prof_bench (K6) and prof_warp_bf16
+(K7), then hold each probe against its plain version and its library call
+(K6 in turns with its call) and time K7 in turns with K4 at B = 128 and
+512; phase 19 times K1, K2, K4 and K5 alone against their bounds from the
+byte models (K5 at each cluster size in turns), with their launches per
+estimator call and train step; phase 20 runs the profiling helpers on the
+estimator at B = 1 (dispatch included, and its CUDA graph: the device
+floor) and holds a replayed CUDA graph of the estimator to the eager call
+bit for bit.  Every phase raises on failure, so the exit code is 0 only
+when all passed.  The last line is {"ok": true, "device": {...}}; the
+line before it carries each kernel's launches, error, times and bound as
+JSON.
 
---profile adds phase 11: torch.profiler over the train step and its
-stages (augment via K4, forward + backward, optimizer) at B = 128 and 512,
-printing host ms, device busy ms, busy share and launches per call, and
-the kernels that take the most device time and the most launches.
+--profile adds phase 11: torch.profiler over the train step (via K4 and
+via K5) and its stages (augment via K4 and via K5, forward + backward,
+optimizer) at B = 128 and 512, printing host ms, device busy ms, busy
+share and launches per call, and the kernels that take the most device
+time and the most launches.
 
 Needs one CUDA card; without one it exits non-zero before any result.
 Imports nothing of jax or of the JAX package.
@@ -308,6 +318,31 @@ def main(argv=None):
         f"PCA (30, 42): kernel launches {launches}, joints finite, crops "
         f"== plain gather, joints |d| <= 1e-3 mm; bf16 GPU vs f32 CPU "
         f"relative pose max |d| {dev_mm:.4f} mm (extent {extent:.2f} mm)")
+    # the PCA decode is float32 whatever the process's TF32 switch says:
+    # with TF32 on for the process the estimator (its bf16 model untouched
+    # by the switch) gives the TF32-off joints bit for bit; a decode through
+    # a float32 matmul under the switch shows what that guards against
+    backends = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = [bk.allow_tf32 for bk in backends]
+    for bk in backends:
+        bk.allow_tf32 = True
+    try:
+        tf32_outs = [est(depth_d, com_d, **kw) for kw in calls]
+        with torch.inference_mode():
+            emb = est.model(outs[0][2][:, None]).float()
+            leak = emb @ est.prior.components + est.prior.mean
+        torch.cuda.synchronize()
+    finally:
+        for bk, value in zip(backends, saved):
+            bk.allow_tf32 = value
+    for (joints, _, _), (tf32_joints, _, _) in zip(outs, tf32_outs):
+        if not torch.equal(joints, tf32_joints):
+            raise AssertionError("joints with TF32 on for the process differ from TF32 off "
+                                 f"by {(joints - tf32_joints).abs().max().item()} mm")
+    leak_mm = (leak - est.prior.inverse_transform(emb)).abs().max().item() * cube[2] / 2.0
+    log(f"[4 TF32] estimator with TF32 on for the process (cuDNN and cuBLAS): joints "
+        f"== TF32 off bit for bit in both calls; a decode through a float32 matmul "
+        f"under TF32 would move them by up to {leak_mm:.6f} mm")
 
     # ---------------------------------------------------------------- 5
     depth_np, com_np = depth_u.cpu().numpy(), com_u.cpu().numpy()
@@ -444,6 +479,12 @@ def main(argv=None):
         flush=True)
 
 
+# device operations of one augment_batch call via K5, at most (phase 10
+# counts them with torch.profiler: 53 at B = 128 and 512 on an H100, where
+# the call via K4 runs 416)
+AUGMENT_K5_OPS = 56
+
+
 def alternate(plain_fn, kernel_fn, iters, timer=time_ms):
     """Mean ms of each, timed in the order plain, kernel, kernel, plain."""
     t_plain, t_kernel = [], []
@@ -513,8 +554,7 @@ def training_phases(dev, tag, log, profile=False):
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
     from deepprior_tpu_torch.ops import hopper_warp as hw
     from deepprior_tpu_torch.ops.augment import (
-        NV_VAL, augment_batch, augment_geometry, sample_augment_params)
-    from deepprior_tpu_torch.ops.crop import com_to_bounds
+        CUDA_FUSES_NORM, NV_VAL, augment_batch, augment_geometry, sample_augment_params)
     from deepprior_tpu_torch.prior import fit_pose_prior
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
 
@@ -564,6 +604,29 @@ def training_phases(dev, tag, log, profile=False):
     got = check4("NV markers", nv, rotation_matrix_2d(center, ang))
     if (got == NV_VAL).any():
         raise AssertionError("K4 let an NV marker through")
+    def check5(label, crops, prm, com, cube, m, aug_modes, z1):
+        """K5, its geometry computed in the kernel, against augment_geometry
+        + warp_norm_plain on identical GPU inputs at every cluster size: the
+        patches and the fields it writes for the labels, bit for bit."""
+        geo = augment_geometry(prm, com, cube, m, cam, aug_modes, crops.shape[1:], z1)
+        want = hw.warp_norm_plain(crops, hw.warp_norm_params(geo.a_fwd, geo.norm), 0.0,
+                                  NV_VAL)
+        side = dict(new_com=geo.new_com, new_cube=geo.new_cube, m_out=geo.m_out,
+                    com3d=geo.com3d, new_com3d_c=geo.new_com3d_c, rot=geo.rot,
+                    is_mode=torch.stack([geo.is_mode[k] for k in hw.MODES], 1))
+        for cl in hw.CLUSTER_SIZES:
+            args = hw.warp_norm_args(crops, prm, com, cube, m, cam, aug_modes, z1)
+            got = hw.launch_warp_norm(crops, args, 0.0, NV_VAL, cluster=cl)
+            torch.cuda.synchronize()
+            err["warp_norm"] = max(err["warp_norm"], (got.out - want).abs().max().item())
+            bad = [k for k, v in side.items() if not torch.equal(getattr(got, k), v)]
+            if not torch.equal(got.out, want) or bad:
+                raise AssertionError(
+                    f"K5 {label}, cluster {cl}: kernel != plain on "
+                    f"{int((got.out != want).sum())} pixels; side outputs differ: {bad}")
+        cases.append(f"K5 {label}")
+        return want
+
     params = sample_augment_params(gen, b, len(modes))
     for z1 in (False, True):
         d = data[z1]
@@ -574,24 +637,39 @@ def training_phases(dev, tag, log, profile=False):
         if not torch.equal(hw.hopper_warp_patch(img, geo.a_fwd, nv_val=NV_VAL,
                                                 block_k=4), ref):
             raise AssertionError("block_k=4 changed K4's output")
-        k5_params = hw.warp_norm_params(geo.a_fwd, geo.norm)
-        got = hw.warp(d.crops, k5_params, 0.0, NV_VAL, fused=True)
-        want = hw.warp_norm_plain(d.crops, k5_params, 0.0, NV_VAL)
-        unfused = hw.warp_norm_epilogue(ref, premax, geo.norm)
-        torch.cuda.synchronize()
-        err["warp_norm"] = max(err["warp_norm"], (got - want).abs().max().item())
-        if not torch.equal(got, want):
-            raise AssertionError(f"K5 norm_zero_one={z1}: kernel != plain on "
-                                 f"{int((got != want).sum())} pixels")
-        cases.append(f"K5 norm_zero_one={z1}")
-        n_diff = int((got != unfused).sum())
-        log(f"[7 warp kernels] K5 vs the unfused pipeline with K4, "
-            f"norm_zero_one={z1}: {n_diff} of {got.numel()} pixels differ")
-        if n_diff > 1e-4 * got.numel():
-            raise AssertionError(f"K5 differs from the unfused pipeline on {n_diff} pixels")
+        want = check5(f"B={b} synthetic crops, modes {'/'.join(modes)}, "
+                      f"norm_zero_one={z1}", d.crops, params, d.com, d.cube, d.m, modes, z1)
+        if not torch.equal(want, hw.warp_norm_epilogue(ref, premax, geo.norm)):
+            raise AssertionError(f"K5 norm_zero_one={z1} differs from the unfused "
+                                 f"pipeline with K4")
+    # rotations at +-90/180/270 deg, sc draws, com and sc samples whose CoMs
+    # lie within 20 px of each border of the frame
+    mi, off, rot, sc = (t.clone() for t in params)
+    mi[:8] = modes.index("rot")
+    rot[:8] = torch.tensor([90.0, 180.0, -90.0, -180.0, 270.0, 0.0, 45.0, -135.0],
+                           device=dev)
+    mi[8:16] = modes.index("sc")
+    sc[8:16] = torch.linspace(0.9, 1.1, 8, device=dev)
+    mi[16:32] = torch.tensor([modes.index("com"), modes.index("sc")] * 8, device=dev)
+    com_b = data[False].com.clone()
+    edge = torch.rand(16, generator=gen, device=dev) * 20.0
+    com_b[16:20, 0] = edge[:4]
+    com_b[20:24, 0] = cam.width - 1 - edge[4:8]
+    com_b[24:28, 1] = edge[8:12]
+    com_b[28:32, 1] = cam.height - 1 - edge[12:]
+    for z1 in (False, True):
+        d = data[z1]
+        check5(f"rot +-90/180/270 deg, sc 0.9-1.1, com/sc CoMs within 20 px of the "
+               f"borders, norm_zero_one={z1}", d.crops, (mi, off, rot, sc), com_b, d.cube,
+               d.m, modes, z1)
+    check5("one (3,) cube read at stride 0, aug_modes com/com/rot", data[False].crops,
+           (mi % 3, off, rot, sc), data[False].com, data[False].cube[0], data[False].m,
+           ("com", "com", "rot"), False)
     log(f"[7 warp kernels] {len(cases)} cases bit-exact (torch.equal): "
-        f"{'; '.join(cases)}; max |kernel - plain| K4 {err['warp_patch']}, "
-        f"K5 {err['warp_norm']}")
+        f"{'; '.join(cases)}; K5 at cluster sizes {hw.CLUSTER_SIZES} (default "
+        f"{hw.CLUSTER}) with its geometry in the kernel, its side outputs == "
+        f"augment_geometry's, and == the unfused pipeline with K4; max |kernel - "
+        f"plain| K4 {err['warp_patch']}, K5 {err['warp_norm']}")
 
     # ---------------------------------------------------------------- 8
     def train_main(extra, epochs):
@@ -613,23 +691,30 @@ def training_phases(dev, tag, log, profile=False):
                 raise AssertionError(f"{name}: non-finite test error")
         return counts, costs, results, wall
 
+    # the default route (fuse_norm=None) for 3 epochs, then one epoch of the
+    # other kernel through the main's flag
+    if CUDA_FUSES_NORM:
+        default, other, flag = "warp_norm", "warp_patch", "--no-aug-fuse-norm"
+    else:
+        default, other, flag = "warp_patch", "warp_norm", "--aug-fuse-norm"
     counts, costs, results, wall = train_main([], 3)
     steps = costs.size
-    if counts != {"warp_patch": steps, "warp_norm": 0}:
-        raise AssertionError(f"12 unfused steps launched {counts}")
-    k4_launches = counts["warp_patch"]
+    if counts != {default: steps, other: 0}:
+        raise AssertionError(f"{steps} steps of the default route launched {counts}")
+    main_launches = {default: counts[default]}
     log(f"[8 train main] main_nyu_posereg_embedding, synthetic NYU 640x480, nmax 512, "
         f"B=128, {steps} steps, PoseRegNet hidden 1024 f32 + dropout, PCA 30 of "
-        f"50k sampled poses, reference ADAM, aug com/rot/none: launches {counts}, "
+        f"50k sampled poses, reference ADAM, aug com/rot/none, the default "
+        f"fuse_norm=None ({default}): launches {counts}, "
         f"costs {costs[0]:.4f} -> {costs[-1]:.4f} (all finite), "
         + ", ".join(f"{k} mean {v.getMeanError():.3f} mm max {v.getMaxError():.3f} mm"
                     for k, v in results.items())
         + f"; {wall:.1f} s with data and prior")
-    counts, costs, results, wall = train_main(["--aug-fuse-norm"], 1)
-    if counts != {"warp_patch": 0, "warp_norm": costs.size}:
-        raise AssertionError(f"fused epoch launched {counts}")
-    k5_launches = counts["warp_norm"]
-    log(f"[8 train main] one epoch with --aug-fuse-norm: launches {counts}, "
+    counts, costs, results, wall = train_main([flag], 1)
+    if counts != {default: 0, other: costs.size}:
+        raise AssertionError(f"one epoch with {flag} launched {counts}")
+    main_launches[other] = counts[other]
+    log(f"[8 train main] one epoch with {flag}: launches {counts}, "
         f"costs {', '.join(f'{c:.4f}' for c in costs)}")
 
     # ---------------------------------------------------------------- 9
@@ -666,12 +751,16 @@ def training_phases(dev, tag, log, profile=False):
 
     # --------------------------------------------------------------- 10
     timings = {}
+    modes3 = ("com", "rot", "none")
     for bsz in (128, 512):
         rep = bsz // b
         dd = TrainData(*(t.repeat((rep,) + (1,) * (t.dim() - 1)) for t in data[False]))
-        tr = Trainer(PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=1024)),
-                     TrainConfig(batch_size=bsz), cam, prior=pri, device=dev)
-        st = tr.init_state()
+        trainers = {}
+        for fuse in (False, True):
+            tr = Trainer(PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=1024)),
+                         TrainConfig(batch_size=bsz, aug_fuse_norm=fuse), cam, prior=pri,
+                         device=dev)
+            trainers[fuse] = (tr, tr.init_state())
         idx = torch.randperm(dd.n, generator=gen, device=dev)[:bsz]
         batch = dd.take(idx)
         aug_gen = torch.Generator(dev).manual_seed(1)
@@ -679,38 +768,57 @@ def training_phases(dev, tag, log, profile=False):
         aug = lambda **kw: augment_batch(  # noqa: E731
             aug_gen, batch["crops"], batch["gt3d_crop"], batch["com"], batch["cube"],
             batch["m"], cam, **kw)
-        step_ms = time_ms(lambda: tr._train_step_core(st, dd.take(idx), aug_gen,
-                                                      drop_gen, 1e-4), iters=20)
-        aug_plain, aug_k4 = alternate(lambda: aug(use_pallas=False),
-                                      lambda: aug(use_pallas=True), 20)
-        geo = augment_geometry(sample_augment_params(gen, bsz, 3), batch["com"],
-                               batch["cube"], batch["m"], cam, ("com", "rot", "none"),
+
+        def step(fuse):
+            tr, st = trainers[fuse]
+            return tr._train_step_core(st, dd.take(idx), aug_gen, drop_gen, 1e-4)
+
+        # the measurement behind fuse_norm=None: the train step and augment
+        # through K4 and through K5 in turns, and K5 bit-equal to K4's
+        # unfused pipeline on the same draws
+        step4, step5 = alternate(lambda: step(False), lambda: step(True), 20)
+        aug4, aug5 = alternate(lambda: aug(use_pallas=True, fuse_norm=False),
+                               lambda: aug(use_pallas=True, fuse_norm=True), 20)
+        aug_gather = time_ms(lambda: aug(use_pallas=False), iters=20)
+        drawn = sample_augment_params(gen, bsz, len(modes3))
+        via4 = aug(use_pallas=True, fuse_norm=False, params=drawn)
+        via5 = aug(use_pallas=True, fuse_norm=True, params=drawn)
+        if not all(torch.equal(x, y) for x, y in zip(via4, via5)):
+            raise AssertionError(f"B={bsz}: augment_batch via K5 != via K4 on the same draws")
+        # device operations per call, counted by torch.profiler
+        ops = {name: len(device_ops(fn)) for name, fn in (
+            ("augment via K4", lambda: aug(use_pallas=True, fuse_norm=False)),
+            ("augment via K5", lambda: aug(use_pallas=True, fuse_norm=True)),
+            ("step via K4", lambda: step(False)), ("step via K5", lambda: step(True)))}
+        if ops["augment via K5"] > AUGMENT_K5_OPS:
+            raise AssertionError(f"augment_batch via K5 ran {ops['augment via K5']} device "
+                                 f"operations, above its ceiling {AUGMENT_K5_OPS}")
+        # the kernels alone (events, dispatch included) and with their
+        # arguments, against their plain versions
+        geo = augment_geometry(drawn, batch["com"], batch["cube"], batch["m"], cam, modes3,
                                (128, 128))
         img, _ = hw.unnormalize(batch["crops"], geo.norm)
         p6 = hw.warp_patch_params(geo.a_fwd)
-        k5_params = hw.warp_norm_params(geo.a_fwd, geo.norm)
         k4_plain, k4 = alternate(lambda: hw.warp_patch_plain(img, p6, 0.0, NV_VAL),
                                  lambda: hw.launch_warp(img, p6, 0.0, NV_VAL), 50)
         wrap_plain, wrap_k4 = alternate(
             lambda: hw.warp_patch_plain(img, hw.warp_patch_params(geo.a_fwd), 0.0, NV_VAL),
             lambda: hw.hopper_warp_patch(img, geo.a_fwd, nv_val=NV_VAL), 50)
-        k5_plain, k5 = alternate(
-            lambda: hw.warp_norm_plain(batch["crops"], k5_params, 0.0, NV_VAL),
-            lambda: hw.launch_warp(batch["crops"], k5_params, 0.0, NV_VAL, fused=True),
-            50)
-        # K5's wrapper from the per-sample scalars, as augment_batch has them
-        _, _, _, _, zs, ze = com_to_bounds(geo.new_com, batch["cube"], cam.fx,
-                                           cam.fy, (cam.height, cam.width))
-        norm_args = (geo.a_fwd, batch["com"][:, 2], batch["cube"][:, 2],
-                     geo.is_mode["com"] | geo.is_mode["sc"], zs, ze,
-                     geo.new_com[:, 2], geo.new_cube[:, 2])
+        k5_in = (batch["crops"], drawn, batch["com"], batch["cube"], batch["m"], cam, modes3)
+        args5 = hw.warp_norm_args(*k5_in)
+
+        def plain5():
+            g = augment_geometry(drawn, batch["com"], batch["cube"], batch["m"], cam, modes3,
+                                 (128, 128))
+            return hw.warp_norm_plain(batch["crops"], hw.warp_norm_params(g.a_fwd, g.norm),
+                                      0.0, NV_VAL)
+
+        k5 = time_ms(lambda: hw.launch_warp_norm(batch["crops"], args5, 0.0, NV_VAL), iters=50)
         wrap5_plain, wrap_k5 = alternate(
-            lambda: hw.warp_norm_plain(
-                batch["crops"],
-                hw.warp_norm_params(geo.a_fwd, hw.norm_params(*norm_args[1:])),
-                0.0, NV_VAL),
-            lambda: hw.hopper_warp_norm(batch["crops"], *norm_args, nv_val=NV_VAL), 50)
+            plain5, lambda: hw.launch_warp_norm(batch["crops"], hw.warp_norm_args(*k5_in),
+                                                0.0, NV_VAL), 50)
         crops, labels = aug()[:2]
+        tr, st = trainers[CUDA_FUSES_NORM]
         y = tr._targets(labels)
         model, opt = st.model, st.optimizer
         model.train()
@@ -724,38 +832,48 @@ def training_phases(dev, tag, log, profile=False):
         fb_ms = time_ms(fwd_bwd, iters=20)
         opt_ms = time_ms(opt.step, iters=20)
         timings[bsz] = dict(wrap_k4=wrap_k4, wrap_plain=wrap_plain, k4=k4,
-                            wrap_k5=wrap_k5, wrap5_plain=wrap5_plain, k5=k5)
-        log(f"[10 timing] {tag} train step B={bsz}: {step_ms:.4f} ms = "
-            f"{bsz / (step_ms / 1e3):.1f} samples/s; augment via K4 {aug_k4:.4f} ms "
-            f"vs via the gather warp {aug_plain:.4f} ms; K4 alone {k4:.4f} ms vs "
-            f"plain K4 {k4_plain:.4f} ms (with params: {wrap_k4:.4f} vs "
-            f"{wrap_plain:.4f} ms); K5 alone {k5:.4f} ms vs plain unfused "
-            f"{k5_plain:.4f} ms (with params: {wrap_k5:.4f} vs {wrap5_plain:.4f} "
-            f"ms); forward + backward {fb_ms:.4f} ms; optimizer "
+                            wrap_k5=wrap_k5, wrap5_plain=wrap5_plain, k5=k5,
+                            faster=aug5 < aug4)
+        log(f"[10 timing] {tag} train step B={bsz} (in turns): via K4 {step4:.4f} ms = "
+            f"{bsz / (step4 / 1e3):.1f} samples/s, via K5 {step5:.4f} ms = "
+            f"{bsz / (step5 / 1e3):.1f} samples/s; augment_batch (in turns) via K4 "
+            f"{aug4:.4f} ms, via K5 {aug5:.4f} ms ({aug4 / aug5:.2f}x), via the gather "
+            f"warp {aug_gather:.4f} ms; K5 == K4's unfused path on the same draws (all 5 "
+            f"outputs, torch.equal); device operations per call: "
+            + ", ".join(f"{k} {v}" for k, v in ops.items())
+            + f"; K4 alone {k4:.4f} ms vs plain {k4_plain:.4f} ms (with params: "
+            f"{wrap_k4:.4f} vs {wrap_plain:.4f} ms); K5 alone {k5:.4f} ms, with its args "
+            f"{wrap_k5:.4f} ms vs plain augment_geometry + warp_norm_plain "
+            f"{wrap5_plain:.4f} ms; forward + backward {fb_ms:.4f} ms; optimizer "
             f"{opt_ms:.4f} ms")
         if profile:
             for label, fn in (
-                    ("train step", lambda: tr._train_step_core(
-                        st, dd.take(idx), aug_gen, drop_gen, 1e-4)),
-                    ("augment via K4", lambda: aug(use_pallas=True)),
+                    ("train step via K4", lambda: step(False)),
+                    ("train step via K5", lambda: step(True)),
+                    ("augment via K4", lambda: aug(use_pallas=True, fuse_norm=False)),
+                    ("augment via K5", lambda: aug(use_pallas=True, fuse_norm=True)),
                     ("forward + backward", fwd_bwd),
                     ("optimizer", opt.step)):
                 profile_stage(f"{tag} {label} B={bsz}", fn, 10, log)
+    held = all(t["faster"] for t in timings.values())
+    log(f"[10 default] fuse_norm=None takes {'K5' if CUDA_FUSES_NORM else 'K4'} on CUDA; "
+        f"this run: augment via K5 {'faster' if held else 'NOT faster'} than via K4 at "
+        f"B=128 and 512 and bit-equal to it: the default "
+        f"{'holds' if held == CUDA_FUSES_NORM else 'is contradicted'}")
 
     t = timings[128]
     return [
         {"name": "warp_patch", "route": "cuda",
          "source": "deepprior_tpu_torch/csrc/warp.cu",
          "replaces": "deepprior_tpu/ops/pallas_warp.py:293",
-         "launches": k4_launches, "max_abs_err": err["warp_patch"],
+         "launches": main_launches["warp_patch"], "max_abs_err": err["warp_patch"],
          "ms": t["wrap_k4"], "plain_ms": t["wrap_plain"], "kernel_only_ms": t["k4"]},
         {"name": "warp_norm", "route": "cuda",
          "source": "deepprior_tpu_torch/csrc/warp.cu",
          "replaces": "deepprior_tpu/ops/pallas_warp.py:150",
-         "launches": k5_launches, "max_abs_err": err["warp_norm"],
+         "launches": main_launches["warp_norm"], "max_abs_err": err["warp_norm"],
          "ms": t["wrap_k5"], "plain_ms": t["wrap5_plain"], "kernel_only_ms": t["k5"]},
     ]
-
 
 
 def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
@@ -1306,22 +1424,35 @@ def roofline_phases(dev, tag, log, model, prior, kernels, batch=512,
         rep = bsz // data.n
         batch = TrainData(*(t.repeat((rep,) + (1,) * (t.dim() - 1)) for t in data)).take(
             torch.arange(bsz, device=dev))
-        geo = augment_geometry(sample_augment_params(gen, bsz, 3), batch["com"],
-                               batch["cube"], batch["m"], cam, ("com", "rot", "none"),
-                               (128, 128))
+        drawn = sample_augment_params(gen, bsz, 3)
+        geo = augment_geometry(drawn, batch["com"], batch["cube"], batch["m"], cam,
+                               ("com", "rot", "none"), (128, 128))
         img, _ = hw.unnormalize(batch["crops"], geo.norm)
         p6 = hw.warp_patch_params(geo.a_fwd)
+        # K5 from the draws, its geometry included; its bytes as warp_bytes
+        # counts them from the (B, 15) params the kernel computes itself
         k5_params = hw.warp_norm_params(geo.a_fwd, geo.norm)
+        args5 = hw.warp_norm_args(batch["crops"], drawn, batch["com"], batch["cube"],
+                                  batch["m"], cam, ("com", "rot", "none"))
         k4_ms, k5_ms = alternate(
             lambda: hw.launch_warp(img, p6, 0.0, NV_VAL),
-            lambda: hw.launch_warp(batch["crops"], k5_params, 0.0, NV_VAL, fused=True), 50,
-            graph_ms)
+            lambda: hw.launch_warp_norm(batch["crops"], args5, 0.0, NV_VAL), 50, graph_ms)
+        # the other cluster sizes, each in turns with the default
+        sizes = []
+        for cl in hw.CLUSTER_SIZES:
+            if cl != hw.CLUSTER:
+                default_ms, cl_ms = alternate(
+                    lambda: hw.launch_warp_norm(batch["crops"], args5, 0.0, NV_VAL),
+                    lambda cl=cl: hw.launch_warp_norm(batch["crops"], args5, 0.0, NV_VAL,
+                                                      cluster=cl), 50, graph_ms)
+                sizes.append(f"cluster {cl} {cl_ms:.4f} ms vs {hw.CLUSTER} {default_ms:.4f}")
+        log(f"[19 K5 cluster] {tag} B={bsz}: " + "; ".join(sizes))
         rows += [("warp_patch", bsz, k4_ms, hw.warp_bytes(p6, (128, 128)),
                   hw.FP32_OPS_PER_PIXEL["warp_patch"] * bsz * 128 * 128),
                  ("warp_norm", bsz, k5_ms, hw.warp_bytes(k5_params, (128, 128), fused=True),
                   hw.FP32_OPS_PER_PIXEL["warp_norm"] * bsz * 128 * 128)]
     full = data.take(torch.arange(data.n, device=dev))
-    for fuse, name in ((None, "warp_patch"), (True, "warp_norm")):
+    for fuse, name in ((False, "warp_patch"), (True, "warp_norm")):
         # no prior: the net regresses the 14 joints' 42 coordinates
         tr = Trainer(PoseRegNet(PoseRegNetConfig(num_joints=14, n_dims=3, hidden=1024)),
                      TrainConfig(batch_size=data.n, aug_fuse_norm=fuse), cam, device=dev)

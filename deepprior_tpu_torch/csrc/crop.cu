@@ -17,8 +17,8 @@
 // Design.  One block per (sample, tile of kTileRows output rows), 256
 // threads as 8 rows x 32 four-pixel quads.
 //   1. Prologue: thread 0 computes the sample's geometry into shared
-//      memory (ops/crop.py::com_to_bounds, _embed_geometry, the
-//      normalization constants) and the first block of the sample writes
+//      memory (geometry.cuh::sample_geometry: ops/crop.py::com_to_bounds,
+//      _embed_geometry, the normalization constants) and the first block of the sample writes
 //      M (_transform_matrix).
 //   2. The index map is separable: the source column depends on the output
 //      column only, the source row on the output row only.  The block
@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "geometry.cuh"
+
 namespace {
 
 constexpr int kQuadThreads = 32;  // threadIdx.x: 4-pixel quads of a row
@@ -67,11 +69,9 @@ constexpr int kTileRows = kRowThreads * kRowsPerThread;  // rows per block
 constexpr int kThreads = kQuadThreads * kRowThreads;
 constexpr int kMaxSmem = 48 * 1024;  // dynamic shared memory without opt-in
 
-// one sample's geometry, computed once per block by its prologue
-struct Geometry {
-  float xstart, ystart, wb, hb, off_x, off_y, sz_w, sz_h;
-  float zstart, zend, com_z, cube_z, cube_half, lo, bg, min_d, max_d;
-};
+using dp::exact_floor_div;
+using dp::Geometry;
+using dp::sample_geometry;
 
 // K2's two taps along one axis: source indices (columns, or row offsets
 // row * w), -1 for a tap outside the frame and both -1 outside the embedded
@@ -80,16 +80,6 @@ struct __align__(16) Taps {
   int t0, t1;
   float f, g;
 };
-
-// floor(a / b) for integer-valued a (|a| < 2^23) and b > 0; the same
-// correction step as ops/crop.py::_exact_floor_div
-__device__ __forceinline__ float exact_floor_div(float a, float b) {
-  float q = floorf(__fdiv_rn(a, b));
-  const float r = __fsub_rn(a, __fmul_rn(q, b));
-  if (r >= b) q = __fadd_rn(q, 1.0f);
-  if (r < 0.0f) q = __fsub_rn(q, 1.0f);
-  return q;
-}
 
 // ops/crop.py::normalize_crop of a depth value that is not 0
 __device__ __forceinline__ float scale_depth(float d, const Geometry& g,
@@ -103,74 +93,6 @@ __device__ __forceinline__ float scale_depth(float d, const Geometry& g,
 __device__ __forceinline__ float normalize(float d, const Geometry& g,
                                            bool zero_one) {
   return d == 0.0f ? g.bg : scale_depth(d, g, zero_one);
-}
-
-// The sample's geometry and its crop transform m (row-major 3x3):
-// ops/crop.py::com_to_bounds (:76-110), _embed_geometry (:124-139),
-// _transform_matrix (:150-157) and normalize_crop's constants, op for op.
-__device__ Geometry sample_geometry(const float* com, const float* cube,
-                                    float fx, float fy, int h, int w, int dh,
-                                    int dw, float* m) {
-  const float u = com[0], v = com[1], d = com[2];
-  Geometry g;
-  // torch.isclose(d, 0): |d - 0| <= atol + rtol * |0|, atol 1e-8 in float32
-  const bool ill = fabsf(d) <= 1e-8f;
-  const float safe_d = ill ? 1.0f : d;
-  const float ux = __fdiv_rn(__fmul_rn(u, safe_d), fx);
-  const float vy = __fdiv_rn(__fmul_rn(v, safe_d), fy);
-  const float hx = __fmul_rn(cube[0], 0.5f);  // cube / 2.0: exact halving
-  const float hy = __fmul_rn(cube[1], 0.5f);
-  g.cube_z = cube[2];
-  g.cube_half = __fmul_rn(g.cube_z, 0.5f);
-  float xs = floorf(__fadd_rn(
-      __fmul_rn(__fdiv_rn(__fsub_rn(ux, hx), safe_d), fx), 0.5f));
-  float xe = floorf(__fadd_rn(
-      __fmul_rn(__fdiv_rn(__fadd_rn(ux, hx), safe_d), fx), 0.5f));
-  float ys = floorf(__fadd_rn(
-      __fmul_rn(__fdiv_rn(__fsub_rn(vy, hy), safe_d), fy), 0.5f));
-  float ye = floorf(__fadd_rn(
-      __fmul_rn(__fdiv_rn(__fadd_rn(vy, hy), safe_d), fy), 0.5f));
-  g.zstart = __fsub_rn(d, g.cube_half);
-  g.zend = __fadd_rn(d, g.cube_half);
-  if (ill) {  // the centred half-frame crop
-    xs = static_cast<float>(w / 4);
-    xe = static_cast<float>(w / 4 + w / 2);
-    ys = static_cast<float>(h / 4);
-    ye = static_cast<float>(h / 4 + h / 2);
-    g.zstart = 10.0f;
-    g.zend = 1500.0f;
-  }
-  // aspect-preserving resize, centred on the (dw, dh) canvas
-  const float fdw = static_cast<float>(dw), fdh = static_cast<float>(dh);
-  const float wb = __fsub_rn(xe, xs), hb = __fsub_rn(ye, ys);
-  float scale;
-  if (wb > hb) {
-    scale = __fdiv_rn(fdw, wb);
-    g.sz_w = fdw;
-    g.sz_h = exact_floor_div(__fmul_rn(hb, fdw), wb);
-  } else {
-    scale = __fdiv_rn(fdh, hb);
-    g.sz_w = exact_floor_div(__fmul_rn(wb, fdh), hb);
-    g.sz_h = fdh;
-  }
-  g.off_x = floorf(__fsub_rn(__fmul_rn(fdw, 0.5f), __fmul_rn(g.sz_w, 0.5f)));
-  g.off_y = floorf(__fsub_rn(__fmul_rn(fdh, 0.5f), __fmul_rn(g.sz_h, 0.5f)));
-  g.xstart = xs;
-  g.ystart = ys;
-  g.wb = wb;
-  g.hb = hb;
-  g.com_z = d;
-  g.lo = __fsub_rn(d, g.cube_half);
-  m[0] = scale;
-  m[1] = 0.0f;
-  m[2] = __fadd_rn(__fmul_rn(-scale, xs), g.off_x);
-  m[3] = 0.0f;
-  m[4] = scale;
-  m[5] = __fadd_rn(__fmul_rn(-scale, ys), g.off_y);
-  m[6] = 0.0f;
-  m[7] = 0.0f;
-  m[8] = 1.0f;
-  return g;
 }
 
 // K1's source index along one axis for output coordinate o: the nearest

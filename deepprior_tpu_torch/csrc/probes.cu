@@ -27,17 +27,22 @@
 // K7 replaces the TPU probe prof_warp_bf16.py::make(variant).warp (:63): a
 // general nearest warp whose selection the TPU writes as one-hot matmuls in
 // float32 at HIGHEST ('f32') or as three manual bf16 passes ('split').  Here
-// it is one thread per output pixel: the source coordinate
-// ((i00*u) + (i01*v)) + i02 in _rn intrinsics (no FMA contraction), then
-// floor(x + 0.5), the bounds test and one load straight from global memory,
-// 0 outside.  'split' rebuilds the value from its three bf16 parts
-// a1 = bf16(v), a2 = bf16(v - a1), a3 = bf16(v - a1 - a2) as
-// (a1 + a2) + a3, the sum of the three passes; on values whose mantissa
-// fits 24 bits in three bf16 parts that is the value itself.
-// What bounds it: bytes, the sampled source pixels and the output, and
-// the latency of the scattered loads.  K4 (csrc/warp.cu) computes the same
-// map but stages the whole patch in shared memory first; K7 beside K4 says
-// what staging buys on this card.
+// each block takes a 32x32 tile of one sample's output, and each thread 4
+// consecutive pixels of one row: the source coordinate ((i00*u) + (i01*v)) +
+// i02 in _rn intrinsics (no FMA contraction), floor(x + 0.5), the bounds
+// test and one load straight from global memory, 0 outside, then one
+// 16-byte store.  A warp covers 16x8 output pixels and the block 32x32, so
+// under any rotation a warp's loads fall on a few source rows and the
+// block's on a footprint of about 46x46 pixels that stays in L1; the
+// indices come from bit operations, with no division per pixel.  'split'
+// rebuilds the value from its three bf16 parts a1 = bf16(v), a2 = bf16(v -
+// a1), a3 = bf16(v - a1 - a2) as (a1 + a2) + a3, the sum of the three
+// passes; on values whose mantissa fits 24 bits in three bf16 parts that is
+// the value itself.
+// What bounds it: bytes, the sampled source pixels and the output, and the
+// latency of the scattered loads.  K4 (csrc/warp.cu) computes the same map
+// but stages the whole patch in shared memory first; K7 stays the arm that
+// stages nothing, so K7 beside K4 says what staging buys on this card.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libprobes.so probes.cu   (ops/_build.py does this)
@@ -56,7 +61,8 @@ constexpr int kRowVecs = kCorner / 4;   // 16-byte vectors per output row
 constexpr int kVecsPerThread = 4;
 constexpr int kBlockVecs = kBandThreads * kVecsPerThread;
 constexpr int kBlocksPerSample = kCorner * kRowVecs / kBlockVecs;
-constexpr int kWarpThreads = 256;
+constexpr int kTile = 32;  // K7: a block's (kTile, kTile) output pixels
+constexpr int kWarpThreads = kTile / 4 * kTile;  // one thread a 4-pixel quad
 
 enum Body { kTrivial = 0, kSelect = 1, kSelectBf16 = 2 };
 enum Constant { kConstCorner, kConstSelRow, kConstSelCol };
@@ -104,39 +110,55 @@ __device__ __forceinline__ float bf16_part(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// grid (ceil(h * w / kWarpThreads), b).  params (b, 6): the inverse
+// grid (ceil(w / kTile), ceil(h / kTile), b).  params (b, 6): the inverse
 // transform's top two rows (ops/hopper_warp.py PATCH_PARAMS order).
 template <bool kSplit>
 __global__ void __launch_bounds__(kWarpThreads)
 warp_general_kernel(const float* __restrict__ src,
                     const float* __restrict__ params,
                     float* __restrict__ out, int h, int w) {
-  const int b = blockIdx.y;
-  const int n = h * w;
-  const int pix = blockIdx.x * kWarpThreads + threadIdx.x;
-  if (pix >= n) return;
+  // lane -> 4 quads x 8 rows of a warp, warp -> 2 x 4 warps of the tile
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int u0 = blockIdx.x * kTile + 4 * (((warp & 1) << 2) | (lane & 3));
+  const int v = blockIdx.y * kTile + (((warp >> 1) << 3) | (lane >> 2));
+  if (u0 >= w || v >= h) return;
+  const int b = blockIdx.z;
   const float* prm = params + static_cast<int64_t>(b) * 6;
-  const int iv = pix / w;
-  const float u = static_cast<float>(pix - iv * w);
-  const float v = static_cast<float>(iv);
-  const float x = __fadd_rn(__fadd_rn(__fmul_rn(prm[0], u), __fmul_rn(prm[1], v)), prm[2]);
-  const float y = __fadd_rn(__fadd_rn(__fmul_rn(prm[3], u), __fmul_rn(prm[4], v)), prm[5]);
-  const float p = floorf(__fadd_rn(x, 0.5f));
-  const float q = floorf(__fadd_rn(y, 0.5f));
-  float val = 0.0f;
-  if (p >= 0.0f && p < static_cast<float>(w) && q >= 0.0f &&
-      q < static_cast<float>(h)) {
-    val = __ldg(src + static_cast<int64_t>(b) * n +
-                static_cast<int64_t>(q) * w + static_cast<int64_t>(p));
-    if (kSplit) {
-      const float a1 = bf16_part(val);
-      const float r1 = __fsub_rn(val, a1);
-      const float a2 = bf16_part(r1);
-      const float a3 = bf16_part(__fsub_rn(r1, a2));
-      val = __fadd_rn(__fadd_rn(a1, a2), a3);
+  const float* img = src + static_cast<int64_t>(b) * h * w;
+  const float fv = static_cast<float>(v);
+  const float x0 = __fmul_rn(prm[1], fv), y0 = __fmul_rn(prm[4], fv);
+  float res[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    res[j] = 0.0f;
+    if (u0 + j >= w) continue;
+    const float u = static_cast<float>(u0 + j);
+    const float x = __fadd_rn(__fadd_rn(__fmul_rn(prm[0], u), x0), prm[2]);
+    const float y = __fadd_rn(__fadd_rn(__fmul_rn(prm[3], u), y0), prm[5]);
+    const float p = floorf(__fadd_rn(x, 0.5f));
+    const float q = floorf(__fadd_rn(y, 0.5f));
+    if (p >= 0.0f && p < static_cast<float>(w) && q >= 0.0f &&
+        q < static_cast<float>(h)) {
+      float val = __ldg(img + static_cast<int>(q) * w + static_cast<int>(p));
+      if (kSplit) {
+        const float a1 = bf16_part(val);
+        const float r1 = __fsub_rn(val, a1);
+        const float a2 = bf16_part(r1);
+        const float a3 = bf16_part(__fsub_rn(r1, a2));
+        val = __fadd_rn(__fadd_rn(a1, a2), a3);
+      }
+      res[j] = val;
     }
   }
-  out[static_cast<int64_t>(b) * n + pix] = val;
+  float* row = out + static_cast<int64_t>(b) * h * w + static_cast<int64_t>(v) * w;
+  if ((w & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    *reinterpret_cast<float4*>(row + u0) = make_float4(res[0], res[1], res[2], res[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (u0 + j < w) row[u0 + j] = res[j];
+    }
+  }
 }
 
 }  // namespace
@@ -181,7 +203,7 @@ int dp_band_probe(const float* dpt, const int* offsets, float* out, int b,
 int dp_warp_general(const float* src, const float* params, float* out, int b,
                     int h, int w, int split, void* stream) {
   if (b == 0 || h * w == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((h * w + kWarpThreads - 1) / kWarpThreads, b);
+  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (split) {
     warp_general_kernel<true><<<grid, kWarpThreads, 0, s>>>(src, params, out, h, w);

@@ -1,98 +1,114 @@
-// Per-sample affine patch warp (K4) and the fused augmentation epilogue (K5).
+// Per-sample affine patch warp (K4) and the fused augmentation warp (K5).
 //
 // Replaces the TPU kernels deepprior_tpu/ops/pallas_warp.py::
 // pallas_warp_patch (_sep_warp_kernel / _warp_kernel, K4) and
 // pallas_warp_norm (K5).  The Pallas kernels select source pixels with
 // one-hot bf16x3 matmuls in row chunks, and split separable from general
-// transforms, because the TPU has no vector gather.  On Hopper a gather from
-// shared memory is one load, exact by construction, so both kernels are the
-// same loop: one block per sample stages the sample's patch in shared memory
-// (64 KB at 128x128, so above the 48 KB default), then every thread gathers
-// its output pixels from it.  A separable sample needs no branch: with
-// i01 = i10 = 0 the general map adds exact zeros.
+// transforms, because the TPU has no vector gather.  On Hopper a gather
+// from shared memory is one load, exact by construction, and a separable
+// sample needs no branch: with i01 = i10 = 0 the general map adds exact
+// zeros.
 //
-// K5 (kFusedNorm) unnormalizes each source pixel as it is staged
-// (img * s_in + t_in), takes the per-sample maximum of the unnormalized
-// source (premax) as a block reduction during the same pass, and after the
-// gather applies the recrop z-threshold (com/sc samples only), premax -> zend,
-// 0 -> zend, the clip to [zstart, zend] and the renormalization
-// (val - t_out) / s_out: nettrainer.py:948-997 in one read and one write of
-// the patch batch.
+// K4 (warp_patch_kernel): one 512-thread block per sample stages the
+// sample's patch in shared memory (64 KB at 128x128, so above the 48 KB
+// default), then every thread gathers its output pixels from it.
 //
-// What bounds it: the patch batch is read once and written once (128 KB per
-// 128x128 sample); the gather from shared memory and a few dozen flops per
-// pixel are cheap next to that.  At a few hundred samples it is one wave of
-// blocks, so latency of the staging load, not bandwidth, sets its time.
+// K5 (warp_norm_kernel) is augment_batch's whole image path in one launch:
+// from the augmentation draws (mode, offset, angle, scale), the crop's com,
+// cube and transform it computes each sample's geometry itself, then
+// unnormalizes the patch (img * s_in + t_in), takes its maximum (premax),
+// warps it with the NV mask, applies the recrop z-threshold (com/sc samples
+// only), premax -> zend, 0 -> zend, the clip to [zstart, zend] and the
+// renormalization (val - t_out) / s_out: nettrainer.py:948-997 in one read
+// and one write of the patch batch.
+//   Design: one thread-block cluster of C blocks per sample (C = 2 by
+//   default; 4 and 8 are taken too).  Block rank r owns ceil(h / C)
+//   contiguous rows of the sample's output.
+//   1. Each block copies its rows once from device memory into the shared
+//      memory of every block of the cluster, with one multicast bulk copy
+//      (cp.async.bulk, the TMA engine) completing on each block's mbarrier,
+//      so every block holds the whole patch and the source is read once.
+//      Meanwhile its thread 0 computes the sample's warp and normalization
+//      constants (sample_params: ops/augment.py::augment_geometry ->
+//      hopper_warp.warp_patch_params -> norm_params, op for op, with
+//      geometry.cuh), and rank 0 writes the per-sample fields the labels
+//      need.
+//   2. Each block takes the premax of the whole unnormalized patch from its
+//      shared memory.
+//   3. It gathers its output rows from its shared memory in 32x32 tiles,
+//      each thread 4 consecutive pixels with no division per pixel (a warp
+//      covers 16x8 pixels), runs the epilogue and writes them with one
+//      16-byte store.
+//   4. A cluster barrier keeps every block until the copies into its peers
+//      have landed.
+//
+// What bounds them: bytes, the patch batch read once and written once (128
+// KB per 128x128 sample; K4 only the source pixels its map reaches).  K4's
+// one 512-thread block per sample leaves the staging latency exposed at a
+// few hundred samples.  K5's prologue replaces the ~400 small launches that
+// the geometry takes in eager PyTorch; at B = 128 its phases (copy and
+// prologue, premax, then about 50 instructions a pixel of gather and
+// epilogue) run one after the other on every SM, so latency and issue, not
+// bytes, set its time (PERF.md holds the measured alternatives: gathers
+// from the peers' shared memory, from L1/L2, private copies per block).
 //
 // Exactness: the source coordinate is ((i00*u) + (i01*v)) + i02 and the
-// epilogue follows the plain version (ops/hopper_warp.py) op for op, with the
-// _rn intrinsics so that nvcc contracts no multiply-add into an FMA.  Like the
-// Pallas kernel, and unlike the gather warp ops/crop.py::warp_patch, it does
-// not divide by the projective sz (an affine transform has sz = 1 up to an
-// ulp).  The output equals the plain version bit for bit.  Build without
-// --use_fast_math and without -prec-div=false.
+// epilogue follows the plain version (ops/hopper_warp.py) op for op, with
+// the _rn intrinsics so that nvcc contracts no multiply-add into an FMA.
+// Like the Pallas kernel, and unlike the gather warp ops/crop.py::
+// warp_patch, neither divides by the projective sz (an affine transform has
+// sz = 1 up to an ulp).  The outputs equal the plain versions bit for bit.
+// Build without --use_fast_math and without -prec-div=false.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libwarp.so warp.cu   (ops/_build.py does this)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "geometry.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
-
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-
-// one row of the (B, n) float32 params tensor per sample; the order is fixed
-// by deepprior_tpu_torch/ops/hopper_warp.py (PATCH_PARAMS, NORM_PARAMS)
-enum Param {
-  kI00, kI01, kI02, kI10, kI11, kI12, kNumPatchParams,
-  kSIn = kNumPatchParams, kTIn, kThresh, kZsT, kZeT, kZStart2, kZEnd2,
-  kTOut, kSOut, kNumNormParams
-};
 
 // NaN-propagating max, as torch.amax / jnp.max reduce
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-template <bool kFusedNorm>
+// NYU's invalid-depth marker -> border
+__device__ __forceinline__ float nv_mask(float val, float border, int use_nv,
+                                         float nv_val, float nv_thresh) {
+  return use_nv && fabsf(__fsub_rn(val, nv_val)) <= nv_thresh ? border : val;
+}
+
+// ---------------------------------------------------------------------------
+// K4
+// ---------------------------------------------------------------------------
+constexpr int kThreads = 512;
+
+// one row of the (B, kNumPatchParams) float32 params per sample: the
+// inverse transform's top two rows, in the order of
+// deepprior_tpu_torch/ops/hopper_warp.py::PATCH_PARAMS
+enum PatchParam { kI00, kI01, kI02, kI10, kI11, kI12, kNumPatchParams };
+
 __global__ void __launch_bounds__(kThreads)
-warp_kernel(const float* __restrict__ src, const float* __restrict__ params,
-            float* __restrict__ out, int h, int w, float border, int use_nv,
-            float nv_val, float nv_thresh) {
+warp_patch_kernel(const float* __restrict__ src,
+                  const float* __restrict__ params, float* __restrict__ out,
+                  int h, int w, float border, int use_nv, float nv_val,
+                  float nv_thresh) {
   extern __shared__ float tile[];  // the sample's (h, w) source patch
-  __shared__ float warp_max[kWarps];
   const int b = blockIdx.x;
   const int n = h * w;
-  const float* prm =
-      params + static_cast<int64_t>(b) * (kFusedNorm ? kNumNormParams
-                                                     : kNumPatchParams);
+  const float* prm = params + static_cast<int64_t>(b) * kNumPatchParams;
   const float* img = src + static_cast<int64_t>(b) * n;
-
-  // stage the source patch (unnormalized for K5) and take its maximum
-  float premax = -CUDART_INF_F;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float val = __ldg(img + i);
-    if (kFusedNorm) {
-      val = __fadd_rn(__fmul_rn(val, prm[kSIn]), prm[kTIn]);
-      premax = nan_max(premax, val);
-    }
-    tile[i] = val;
-  }
-  if (kFusedNorm) {
-    for (int off = 16; off > 0; off >>= 1)
-      premax = nan_max(premax, __shfl_xor_sync(0xffffffffu, premax, off));
-    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = premax;
-  }
+  for (int i = threadIdx.x; i < n; i += kThreads) tile[i] = __ldg(img + i);
   __syncthreads();
-  if (kFusedNorm) {
-    premax = warp_max[0];
-    for (int i = 1; i < kWarps; ++i) premax = nan_max(premax, warp_max[i]);
-  }
 
   const float i00 = prm[kI00], i01 = prm[kI01], i02 = prm[kI02];
   const float i10 = prm[kI10], i11 = prm[kI11], i12 = prm[kI12];
@@ -111,36 +127,409 @@ warp_kernel(const float* __restrict__ src, const float* __restrict__ params,
         q >= 0.0f && q < static_cast<float>(h)) {
       val = tile[static_cast<int>(q) * w + static_cast<int>(p)];
     }
-    // NYU's invalid-depth marker -> border
-    if (use_nv && fabsf(__fsub_rn(val, nv_val)) <= nv_thresh) val = border;
-    if (kFusedNorm) {
-      // recrop z-threshold, com/sc samples only (augment.py order)
-      if (prm[kThresh] > 0.0f) {
-        const float zs = prm[kZsT];
-        if (val < zs && val != 0.0f) val = zs;
-        if (val > prm[kZeT]) val = 0.0f;
-      }
-      // premax/zero -> far face, clip, renormalize (nettrainer.py:985-997)
-      const float lo = prm[kZStart2], hi = prm[kZEnd2];
-      if (val == premax) val = hi;
-      if (val == 0.0f) val = hi;
-      if (val < lo) val = lo;
-      if (val > hi) val = hi;
-      val = __fdiv_rn(__fsub_rn(val, prm[kTOut]), prm[kSOut]);
-    }
-    dst[pix] = val;
+    dst[pix] = nv_mask(val, border, use_nv, nv_val, nv_thresh);
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
+constexpr int kNormThreads = 256;
+constexpr int kNormWarps = kNormThreads / 32;
+constexpr int kTile = 32;  // the gather's tiles of kTile x kTile pixels
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kNumModes = 4;    // ops/augment.py::VALID_MODES
+enum Mode { kNone, kCom, kRot, kSc };
+
+// the augmentation draws (ops/augment.py::sample_augment_params) and the
+// crops they act on, per sample: com (b, 3), the cube (3 floats at stride
+// cube_stride: 0 for one cube), m (b, 3, 3)
+struct Inputs {
+  const int64_t* mode_idx;
+  const float* off;
+  const float* rot;
+  const float* sc;
+  const float* com;
+  const float* cube;
+  int cube_stride;
+  const float* m;
+};
+
+// the camera, the frame's size and the slots of aug_modes that hold each
+// of VALID_MODES (bit i of masks[k]: aug_modes[i] is mode k)
+struct Frame {
+  dp::Camera cam;
+  int h, w;
+  unsigned int masks[kNumModes];
+  int norm_zero_one;
+};
+
+// the per-sample fields of augment_geometry that the labels read
+struct SideOutputs {
+  float* new_com;      // (b, 3)
+  float* new_cube;     // (b, 3)
+  float* m_out;        // (b, 3, 3)
+  float* com3d;        // (b, 3)
+  float* new_com3d_c;  // (b, 3)
+  float* rot;          // (b,)
+  bool* is_mode;       // (b, kNumModes)
+};
+
+// a sample's warp (the inverse transform's top two rows) and its
+// normalization columns (hopper_warp.norm_params)
+struct SampleParams {
+  float i00, i01, i02, i10, i11, i12;
+  float s_in, t_in, zs_t, ze_t, zstart2, zend2, t_out, s_out;
+  int thresh;
+};
+
+// the head of a block's dynamic shared memory, then the sample's (h, w)
+// patch at offset kHeadBytes
+struct Shared {
+  uint64_t bar;  // the mbarrier the patch's bulk copies complete on
+  float warp_max[kNormWarps];
+  SampleParams prm;
+};
+constexpr int kHeadBytes = (sizeof(Shared) + 15) / 16 * 16;
+
+// The sample's constants from its draws, as ops/augment.py::
+// augment_geometry (:201-268), hopper_warp.warp_patch_params and
+// norm_params (:86-119) compute them on the card, op for op; with `side`,
+// also the fields the labels need.
+__device__ __forceinline__ SampleParams sample_params(int b, const Inputs& in,
+                                                     const Frame& fr, int ph,
+                                                     int pw, bool side,
+                                                     const SideOutputs& so) {
+  // every input first, unconditionally, so that the loads are in flight
+  // together
+  const int64_t mi = in.mode_idx[b];
+  const float off_in[3] = {in.off[3 * b], in.off[3 * b + 1], in.off[3 * b + 2]};
+  const float rot_in = in.rot[b], sc_in = in.sc[b];
+  float com[3], cube[3], m[9];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    com[k] = in.com[3 * b + k];
+    cube[k] = in.cube[in.cube_stride * b + k];
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) m[k] = in.m[9 * b + k];
+  // the mode masks and the draws of the modes not drawn zeroed
+  bool is[kNumModes];
+#pragma unroll
+  for (int k = 0; k < kNumModes; ++k) {
+    is[k] = mi >= 0 && mi < 32 && ((fr.masks[k] >> mi) & 1u);
+  }
+  const bool recrop = is[kCom] || is[kSc];
+  float off[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) off[k] = is[kCom] ? off_in[k] : 0.0f;
+  // torch.remainder(rot, 360.0) as PyTorch's CUDA kernel computes it
+  float rot = fmodf(is[kRot] ? rot_in : 0.0f, 360.0f);
+  if (rot != 0.0f && rot < 0.0f) rot = __fadd_rn(rot, 360.0f);
+  const float sc = is[kSc] ? sc_in : 1.0f;
+
+  // com shifted in metric space (com mode), cube scaled (sc mode)
+  float com3d[3], new_com3d_c[3], new_com_c[3], new_com[3], new_cube[3];
+  dp::img_to_3d(fr.cam, com, com3d);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) new_com3d_c[k] = __fadd_rn(com3d[k], off[k]);
+  dp::three_d_to_img(fr.cam, new_com3d_c, new_com_c);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    new_com[k] = is[kCom] ? new_com_c[k] : com[k];
+    new_cube[k] = is[kSc] ? __fmul_rn(cube[k], sc) : cube[k];
+  }
+
+  // the new crop transform (crop_transform on the new com and cube) and
+  // the re-threshold's z-range (com_to_bounds with the original cube)
+  float m_new[9], m_unused[9];
+  dp::sample_geometry(new_com, new_cube, fr.cam.fx, fr.cam.fy, fr.h, fr.w,
+                      ph, pw, m_new);
+  const dp::Geometry zg = dp::sample_geometry(
+      new_com, cube, fr.cam.fx, fr.cam.fy, fr.h, fr.w, ph, pw, m_unused);
+
+  // the forward patch -> patch warp: com/sc M_new . M^-1, rot R(-rot)
+  // about the patch centre, none the identity; then its inverse
+  float a_fwd[9], m_inv[9];
+  dp::inv3x3(m, m_inv);
+  if (recrop) {
+    dp::matmul3x3(m_new, m_inv, a_fwd);
+  } else if (is[kRot]) {
+    dp::rotation_matrix_2d(static_cast<float>(pw / 2),
+                           static_cast<float>(ph / 2), rot, a_fwd);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) a_fwd[k] = k % 4 == 0 ? 1.0f : 0.0f;
+  }
+  float a_inv[9];
+  dp::inv3x3(a_fwd, a_inv);
+
+  SampleParams p;
+  p.i00 = a_inv[0];
+  p.i01 = a_inv[1];
+  p.i02 = a_inv[2];
+  p.i10 = a_inv[3];
+  p.i11 = a_inv[4];
+  p.i12 = a_inv[5];
+  // norm_params: unnormalize by the crop's com and cube, renormalize by
+  // the new ones; the re-threshold only for com/sc samples
+  const float com_z = com[2], cube_z = cube[2];
+  const float half = __fmul_rn(cube_z, 0.5f);
+  p.s_in = fr.norm_zero_one ? cube_z : half;
+  p.t_in = fr.norm_zero_one ? __fsub_rn(com_z, half) : com_z;
+  const float nz = new_com[2], ncz = new_cube[2];
+  const float nhalf = __fmul_rn(ncz, 0.5f);
+  p.zend2 = __fadd_rn(nz, nhalf);
+  p.zstart2 = __fsub_rn(nz, nhalf);
+  p.t_out = fr.norm_zero_one ? p.zstart2 : nz;
+  p.s_out = fr.norm_zero_one ? ncz : nhalf;
+  p.thresh = recrop;
+  p.zs_t = zg.zstart;
+  p.ze_t = zg.zend;
+
+  if (side) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      so.new_com[3 * b + k] = new_com[k];
+      so.new_cube[3 * b + k] = new_cube[k];
+      so.com3d[3 * b + k] = com3d[k];
+      so.new_com3d_c[3 * b + k] = new_com3d_c[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) so.m_out[9 * b + k] = recrop ? m_new[k] : m[k];
+    so.rot[b] = rot;
+#pragma unroll
+    for (int k = 0; k < kNumModes; ++k) so.is_mode[kNumModes * b + k] = is[k];
+  }
+  return p;
+}
+
+// The source index of 4 consecutive output pixels (u0.., v): the nearest
+// source pixel of each (floor(x + 0.5), cv2's rounding) as q * w + p, or
+// -1 outside the patch
+__device__ __forceinline__ void source4(int* idx, int h, int w, int u0, int v,
+                                        const SampleParams& p) {
+  const float fv = static_cast<float>(v);
+  const float x0 = __fmul_rn(p.i01, fv), y0 = __fmul_rn(p.i11, fv);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float u = static_cast<float>(u0 + j);
+    const float x = __fadd_rn(__fadd_rn(__fmul_rn(p.i00, u), x0), p.i02);
+    const float y = __fadd_rn(__fadd_rn(__fmul_rn(p.i10, u), y0), p.i12);
+    const float sx = floorf(__fadd_rn(x, 0.5f));
+    const float sy = floorf(__fadd_rn(y, 0.5f));
+    const bool inside = u0 + j < w && sx >= 0.0f &&
+                        sx < static_cast<float>(w) && sy >= 0.0f &&
+                        sy < static_cast<float>(h);
+    idx[j] = inside ? static_cast<int>(sy) * w + static_cast<int>(sx) : -1;
+  }
+}
+
+// The values at `idx` of the staged patch (normalized, border where -1),
+// unnormalized, with the NV mask and the recrop z-threshold (com/sc
+// samples only): ops/hopper_warp.py::warp_norm_plain up to the premax
+__device__ __forceinline__ void fetch4(float* val, const float* tile,
+                                       const int* idx, const SampleParams& p,
+                                       float border, int use_nv, float nv_val,
+                                       float nv_thresh) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float d = border;
+    if (idx[j] >= 0) d = __fadd_rn(__fmul_rn(tile[idx[j]], p.s_in), p.t_in);
+    d = nv_mask(d, border, use_nv, nv_val, nv_thresh);
+    if (p.thresh) {  // augment.py order
+      if (d < p.zs_t && d != 0.0f) d = p.zs_t;
+      if (d > p.ze_t) d = 0.0f;
+    }
+    val[j] = d;
+  }
+}
+
+// the rest of K5's epilogue on 4 gathered values and their 16-byte store
+// (nettrainer.py:985-997): premax/zero -> far face, clip, renormalize
+__device__ __forceinline__ void finish4(float* __restrict__ row, int u0, int w,
+                                        bool vec, const float* val,
+                                        float premax, const SampleParams& p) {
+  float res[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float d = val[j];
+    if (d == premax) d = p.zend2;
+    if (d == 0.0f) d = p.zend2;
+    if (d < p.zstart2) d = p.zstart2;
+    if (d > p.zend2) d = p.zend2;
+    res[j] = __fdiv_rn(__fsub_rn(d, p.t_out), p.s_out);
+  }
+  if (vec) {
+    *reinterpret_cast<float4*>(row + u0) = make_float4(res[0], res[1], res[2], res[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (u0 + j < w) row[u0 + j] = res[j];
+    }
+  }
+}
+
+// The cluster barrier in two halves, so that work goes on between them;
+// arrive releases this thread's writes, wait acquires the cluster's.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The mbarrier that counts the bytes of the patch's bulk copies: init for
+// one arrival, made visible to the cluster's copies
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(a) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// the one arrival, announcing `bytes` to come
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("{ .reg .b64 st; mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1; }"
+               :: "r"(a), "r"(bytes) : "memory");
+}
+
+// until the barrier's first phase has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
+                 "selp.u32 %0, 1, 0, p; }" : "=r"(done) : "r"(a) : "memory");
+  }
+}
+
+// One bulk copy (the TMA engine) of `bytes` from global `src` to `dst` in
+// the shared memory of every block of the cluster in `mask`, each
+// completing on that block's barrier at the same offset as `bar`.  bytes,
+// src and dst are multiples of 16.
+__device__ __forceinline__ void bulk_copy_multicast(float* dst, const float* src,
+                                                    uint32_t bytes, uint64_t* bar,
+                                                    uint16_t mask) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const uint32_t m = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;"
+      :: "r"(d), "l"(src), "r"(bytes), "r"(m), "h"(mask) : "memory");
+}
+
+// grid (C, b), cluster (C, 1, 1), kNormThreads threads; block rank r owns
+// the rows_per = ceil(h / C) rows from r * rows_per
+__global__ void __launch_bounds__(kNormThreads)
+warp_norm_kernel(const float* __restrict__ src, Inputs in, Frame fr, int h,
+                 int w, int rows_per, float border, int use_nv, float nv_val,
+                 float nv_thresh, float* __restrict__ out, SideOutputs so) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  float* tile = reinterpret_cast<float*>(smem + kHeadBytes);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = rank * rows_per;
+  const int n_rows = max(0, min(rows_per, h - row0));
+  const int n = h * w;
+  const float* img = src + static_cast<int64_t>(b) * n;
+  float* dst = out + static_cast<int64_t>(b) * n;
+  // the bulk copies move 16-byte units from 16-byte aligned addresses
+  const bool vec = (w & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(src) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+
+  // 1. stage the sample's patch in every block of the cluster: each block
+  //    copies its rows once from device memory to all of them (one
+  //    multicast bulk copy) and waits for the whole patch on its barrier;
+  //    thread 0 computes the sample's constants while the rows are in
+  //    flight.  The cluster barrier first makes every block's barrier
+  //    ready for its peers' copies.
+  if (tid == 0 && vec) mbar_init(&sh.bar);
+  cluster_arrive();
+  cluster_wait();
+  if (tid == 0) {
+    if (vec) {
+      mbar_expect(&sh.bar, static_cast<uint32_t>(n) * sizeof(float));
+      if (n_rows > 0) {
+        bulk_copy_multicast(tile + row0 * w, img + static_cast<int64_t>(row0) * w,
+                            static_cast<uint32_t>(n_rows * w) * sizeof(float),
+                            &sh.bar, static_cast<uint16_t>((1u << n_ranks) - 1));
+      }
+    }
+    sh.prm = sample_params(b, in, fr, h, w, rank == 0, so);
+  }
+  if (!vec) {
+    for (int i = tid; i < n; i += kNormThreads) tile[i] = __ldg(img + i);
+  } else {
+    mbar_wait(&sh.bar);
+  }
+
+  // 2. the premax: every block the maximum of the whole unnormalized patch
+  //    (norm_params' s_in and t_in, which each thread computes itself)
+  const float com_z = in.com[3 * b + 2];
+  const float cube_z = in.cube[in.cube_stride * b + 2];
+  const float half = __fmul_rn(cube_z, 0.5f);
+  const float s_in = fr.norm_zero_one ? cube_z : half;
+  const float t_in = fr.norm_zero_one ? __fsub_rn(com_z, half) : com_z;
+  __syncthreads();  // the scalar staging, and the constants
+  float pmax = -CUDART_INF_F;
+  if (vec) {
+    const float4* tile4 = reinterpret_cast<const float4*>(tile);
+    for (int i = tid; i < n >> 2; i += kNormThreads) {
+      const float4 v = tile4[i];
+      pmax = nan_max(pmax, __fadd_rn(__fmul_rn(v.x, s_in), t_in));
+      pmax = nan_max(pmax, __fadd_rn(__fmul_rn(v.y, s_in), t_in));
+      pmax = nan_max(pmax, __fadd_rn(__fmul_rn(v.z, s_in), t_in));
+      pmax = nan_max(pmax, __fadd_rn(__fmul_rn(v.w, s_in), t_in));
+    }
+  } else {
+    for (int i = tid; i < n; i += kNormThreads) {
+      pmax = nan_max(pmax, __fadd_rn(__fmul_rn(tile[i], s_in), t_in));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    pmax = nan_max(pmax, __shfl_xor_sync(0xffffffffu, pmax, off));
+  }
+  if (lane == 0) sh.warp_max[warp] = pmax;
+  __syncthreads();
+  float premax = sh.warp_max[0];
+#pragma unroll
+  for (int i = 1; i < kNormWarps; ++i) premax = nan_max(premax, sh.warp_max[i]);
+  const SampleParams p = sh.prm;
+
+  // 3. the block's output rows in 32x32 tiles, 4 pixels a thread, gathered
+  //    from the staged patch: a warp covers 16x8 pixels, so under any
+  //    rotation its loads fall on a few source rows; one 16-byte store
+  const int qx = 4 * (((warp & 1) << 2) | (lane & 3));
+  const int ry = ((warp >> 1) << 3) | (lane >> 2);
+  for (int ty = ry; ty < n_rows; ty += kTile) {
+    for (int u0 = qx; u0 < w; u0 += kTile) {
+      int idx[4];
+      float val[4];
+      source4(idx, h, w, u0, row0 + ty, p);
+      fetch4(val, tile, idx, p, border, use_nv, nv_val, nv_thresh);
+      finish4(dst + static_cast<int64_t>(row0 + ty) * w, u0, w, vec, val, premax, p);
+    }
+  }
+  // 4. no block leaves while its copies may still be landing in its peers
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The kernels stage a patch in dynamic shared memory, and above 48 KB a
+// kernel must opt in, per device: each always opts in to the size it
+// launches with, so only the device's per-block maximum bounds it.  The
+// attribute is set once per device and kernel, and again only for a larger
+// size; a refused size fails here, not at launch.
 constexpr int kMaxDevices = 64;
 
-// The tile lives in dynamic shared memory.  Dynamic plus static (warp_max)
-// shared memory above 48 KB needs the kernel to opt in, per device, so the
-// kernel always opts in to the dynamic size it launches with: then only the
-// device's per-block maximum bounds the total.  The attribute is set once per
-// device and template instance, and again only for a larger patch; a refused
-// size fails here, not at launch.
-template <bool kFusedNorm>
+template <auto kKernel>
 cudaError_t opt_in_smem(size_t smem) {
   // static storage: zero before the first call; two threads racing here at
   // worst both set the attribute
@@ -149,25 +538,10 @@ cudaError_t opt_in_smem(size_t smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && granted[dev].load() >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(warp_kernel<kFusedNorm>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err == cudaSuccess && dev < kMaxDevices) granted[dev].store(smem);
   return err;
-}
-
-template <bool kFusedNorm>
-int launch(const float* src, const float* params, float* out, int b, int h,
-           int w, float border, int use_nv, float nv_val, float nv_thresh,
-           void* stream) {
-  if (b == 0 || h * w == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(h) * w * sizeof(float);
-  const cudaError_t err = opt_in_smem<kFusedNorm>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  warp_kernel<kFusedNorm><<<b, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      src, params, out, h, w, border, use_nv, nv_val, nv_thresh);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -181,21 +555,80 @@ extern "C" {
 int dp_warp_patch(const float* patch, const float* params, float* out, int b,
                   int h, int w, float border, int use_nv, float nv_val,
                   float nv_thresh, void* stream) {
-  return launch<false>(patch, params, out, b, h, w, border, use_nv, nv_val,
-                       nv_thresh, stream);
+  if (b == 0 || h * w == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(h) * w * sizeof(float);
+  const cudaError_t err = opt_in_smem<warp_patch_kernel>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  warp_patch_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      patch, params, out, h, w, border, use_nv, nv_val, nv_thresh);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K5: normalized patch (b, h, w) -> augmented normalized patch, params
-// (b, kNumNormParams).  Same contract as dp_warp_patch.
-int dp_warp_norm(const float* patch, const float* params, float* out, int b,
-                 int h, int w, float border, int use_nv, float nv_val,
-                 float nv_thresh, void* stream) {
-  return launch<true>(patch, params, out, b, h, w, border, use_nv, nv_val,
-                      nv_thresh, stream);
+// K5: normalized patches (b, h, w) -> augmented normalized patches `out`,
+// from the draws mode_idx (b,) int64, off (b, 3), rot (b,), sc (b,), the
+// crops' com (b, 3), cube (3 floats at stride cube_stride, 0: one cube) and
+// m (b, 3, 3), the camera (fx, fy, ux, uy, flip_y) and frame (img_h, img_w),
+// and mask_<mode>, the slots of aug_modes that hold that mode (bit i: slot
+// i).  Also writes new_com, new_cube, com3d, new_com3d_c (b, 3), m_out
+// (b, 3, 3), rot_out (b,) and is_mode (b, 4) bool.  Launches one cluster of
+// `cluster` blocks (1 to kMaxCluster) per sample on `stream` and returns the
+// cudaError_t of the launch.  All buffers are contiguous device memory,
+// float32 but for mode_idx and is_mode; b <= 65535.
+int dp_warp_norm(const float* patch, const int64_t* mode_idx,
+                 const float* off, const float* rot, const float* sc,
+                 const float* com, const float* cube, int cube_stride,
+                 const float* m, float fx, float fy, float ux, float uy,
+                 int flip_y, int img_h, int img_w, int mask_none,
+                 int mask_com, int mask_rot, int mask_sc, int norm_zero_one,
+                 float border, int use_nv, float nv_val, float nv_thresh,
+                 float* out, float* new_com, float* new_cube,
+                 float* m_out, float* com3d, float* new_com3d_c,
+                 float* rot_out, bool* is_mode, int b, int h, int w,
+                 int cluster, void* stream) {
+  if (b == 0 || h * w == 0) return static_cast<int>(cudaSuccess);
+  if (cluster < 1 || cluster > kMaxCluster || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = kHeadBytes + static_cast<size_t>(h) * w * sizeof(float);
+  cudaError_t err = opt_in_smem<warp_norm_kernel>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Inputs in{mode_idx, off, rot, sc, com, cube, cube_stride, m};
+  Frame fr;
+  fr.cam = dp::Camera{fx, fy, ux, uy, flip_y};
+  fr.h = img_h;
+  fr.w = img_w;
+  const int masks[kNumModes] = {mask_none, mask_com, mask_rot, mask_sc};
+  for (int k = 0; k < kNumModes; ++k) fr.masks[k] = static_cast<unsigned int>(masks[k]);
+  fr.norm_zero_one = norm_zero_one;
+  const SideOutputs so{new_com, new_cube, m_out, com3d, new_com3d_c, rot_out,
+                       is_mode};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, b);
+  cfg.blockDim = dim3(kNormThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, warp_norm_kernel, patch, in, fr, h, w,
+                           (h + cluster - 1) / cluster, border, use_nv, nv_val,
+                           nv_thresh, out, so);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-int dp_warp_num_params(int fused) {
-  return fused ? kNumNormParams : kNumPatchParams;
+// the compile-time layout the wrapper checks its own against: K4's params
+// per sample (0) and K5's mode count (1)
+int dp_warp_constant(int which) {
+  switch (which) {
+    case 0: return kNumPatchParams;
+    case 1: return kNumModes;
+    default: return -1;
+  }
 }
 
 const char* dp_warp_error_string(int err) {

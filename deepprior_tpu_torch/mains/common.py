@@ -67,9 +67,11 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    default="nearest",
                    help="augmentation warp interpolation (handdetector.py:"
                         "731-737, 785-791); linear runs the gather warp")
-    p.add_argument("--aug-fuse-norm", action="store_true",
-                   help="run the augmentation through the fused warp kernel "
-                        "(K5, TrainConfig.aug_fuse_norm)")
+    p.add_argument("--aug-fuse-norm", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="the augmentation through the fused warp kernel K5 "
+                        "(--aug-fuse-norm) or through K4 (--no-aug-fuse-norm); "
+                        "unset, K5 on a CUDA device (TrainConfig.aug_fuse_norm)")
     p.add_argument("--weightreg", type=float, default=0.0,
                    help="L2 weight-decay factor; > 0 forces decay on even "
                         "for dropout models")
@@ -167,7 +169,7 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
         n_epochs=args.epochs, aug_modes=tuple(args.aug_modes), seed=args.seed,
         weightreg_factor=wr, model_has_dropout=wr <= 0.0,
         validation_frequency=args.validation_frequency,
-        aug_fuse_norm=args.aug_fuse_norm or None, aug_resize=args.aug_resize,
+        aug_fuse_norm=args.aug_fuse_norm, aug_resize=args.aug_resize,
     )
     trainer = Trainer(model, cfg, camera, prior=prior, device=device)
     state = trainer.init_state()

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` compiles on first use into a shared library
 with a plain C interface, in ``deepprior_tpu_torch/_build/``.  The file
-name carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once.  Nothing builds at import.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds and an unchanged
+one loads at once.  Nothing builds at import.
 """
 
 from __future__ import annotations
@@ -47,13 +48,22 @@ def find_nvcc() -> str:
     )
 
 
+def source_digest(source: str, csrc: str = CSRC) -> str:
+    """The hash a build of ``csrc/<source>`` is keyed on: the source, every
+    shared header (``*.cuh``) and the flags."""
+    with open(os.path.join(csrc, source), "rb") as f:
+        text = f.read()
+    for header in sorted(n for n in os.listdir(csrc) if n.endswith(".cuh")):
+        with open(os.path.join(csrc, header), "rb") as f:
+            text += f.read()
+    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content hash) and load it."""
     path = os.path.join(CSRC, source)
-    with open(path, "rb") as f:
-        text = f.read()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = source_digest(source)
     stem = os.path.splitext(source)[0]
     lib = os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
     if not os.path.exists(lib):

@@ -17,9 +17,11 @@ NetTrainer.augmentCrop, src/trainer/nettrainer.py:919-997):
   faces as nettrainer.py:985-997 does.
 
 All modes run as one warp with a per-sample transform, then per-sample
-labels: no data-dependent control flow.  On a CUDA tensor the warp is the
-hand-written kernel K4 (or K5 with ``fuse_norm``, ops/hopper_warp.py); on
-the CPU it is the gather ``warp_patch`` (ops/crop.py).
+labels: no data-dependent control flow.  On a CUDA tensor the warp is a
+hand-written kernel (ops/hopper_warp.py, ``warp_route``): K5, which
+computes the per-sample geometry from the draws itself and fuses the
+un/renormalization, or K4 after ``augment_geometry`` in PyTorch; on the
+CPU it is the gather ``warp_patch`` (ops/crop.py).
 
 Random draws come from an explicit ``torch.Generator``.  torch and JAX
 draw different numbers from one seed, so ``params`` accepts pre-drawn
@@ -42,7 +44,11 @@ from deepprior_tpu_torch.geometry import (
 from deepprior_tpu_torch.ops import hopper_warp
 from deepprior_tpu_torch.ops.crop import com_to_bounds, crop_transform, warp_patch
 
-VALID_MODES = ("none", "com", "rot", "sc")
+# the augmentation modes, in the order K5 takes them
+VALID_MODES = hopper_warp.MODES
+# what fuse_norm=None means on a CUDA tensor: K5 (chip_smoke.py phase 10
+# times augment_batch through K5 and through K4 in turns)
+CUDA_FUSES_NORM = True
 # NYU's invalid-depth marker survives in patches; the reference masks
 # values close to it back to background after warping (handdetector.py:793)
 NV_VAL = 32000.0
@@ -99,11 +105,13 @@ def augment_batch(
     com:        (B, 3) crop CoM in image coords (u, v, d)
     cube:       (B, 3) metric cubes in mm
     m:          (B, 3, 3) crop transforms (full frame -> patch)
-    use_pallas: the warp kernel (True) or the gather warp (False); None
-                takes the kernel on a CUDA tensor and the gather on the CPU.
-                True on a CPU tensor runs the kernel's plain version.
-    fuse_norm:  K5, the kernel with the un/renormalization fused in, on the
-                kernel path.  None keeps the JAX package's default, off.
+    use_pallas: the warp kernels (True) or the gather warp (False); None
+                takes the kernels on a CUDA tensor and the gather on the
+                CPU.  True on a CPU tensor runs the kernels' plain versions.
+    fuse_norm:  on the kernel path, K5 (True: the geometry and the
+                un/renormalization in the kernel) or K4 (False).  None
+                takes K5 on a CUDA tensor (``CUDA_FUSES_NORM``) and K4's
+                plain version on the CPU (``warp_route``).
     block_k:    the TPU kernel's samples-per-grid-step knob: accepted,
                 without effect.
     resize:     'nearest' (the reference default) or 'linear' (the 4-tap
@@ -134,7 +142,6 @@ def augment_batch(
             raise ValueError("block_k blocks the warp kernel, which is "
                              "nearest-only; block_k must be None with "
                              "resize='linear'")
-        use_pallas = False
     crops_norm = torch.as_tensor(crops_norm, dtype=torch.float32)
     dev = crops_norm.device
     gt3d_crop = torch.as_tensor(gt3d_crop, dtype=torch.float32, device=dev)
@@ -143,28 +150,38 @@ def augment_batch(
         params = sample_augment_params(generator, b, len(aug_modes),
                                        sigma_com, sigma_sc, rot_range,
                                        device=dev)
-    geo = augment_geometry(params, com, cube, m, camera, aug_modes, (h, w),
-                           norm_zero_one)
 
     # ---- one warp for the whole batch ----
-    if use_pallas is None:
-        use_pallas = dev.type == "cuda"
-    if use_pallas:
-        # the kernels read the inverse transforms; the gather warp inverts
-        # a_fwd itself
-        patch_params = hopper_warp.warp_patch_params(geo.a_fwd)
-    if use_pallas and fuse_norm:
-        out = hopper_warp.warp(crops_norm,
-                               torch.cat([patch_params, geo.norm], dim=1),
-                               0.0, NV_VAL, fused=True)
+    route = warp_route(dev.type, use_pallas, fuse_norm, resize)
+    if route == "k5" and dev.type == "cuda":
+        # K5 computes the geometry from the draws and writes the fields the
+        # labels need
+        args = hopper_warp.warp_norm_args(crops_norm, params, com, cube, m, camera,
+                                          aug_modes, norm_zero_one)
+        k5 = hopper_warp.launch_warp_norm(crops_norm.contiguous(), args, 0.0, NV_VAL)
+        out = k5.out
+        geo = AugmentGeometry(
+            {name: k5.is_mode[:, i] for i, name in enumerate(VALID_MODES)},
+            k5.rot, args.com, k5.com3d, k5.new_com3d_c, k5.new_com, k5.new_cube,
+            k5.m_out, None, None)
     else:
-        img_mm, premax = hopper_warp.unnormalize(crops_norm, geo.norm)
-        if use_pallas:
-            warped = hopper_warp.warp(img_mm, patch_params, 0.0, NV_VAL)
+        geo = augment_geometry(params, com, cube, m, camera, aug_modes, (h, w),
+                               norm_zero_one)
+        if route == "k5":  # K5's plain version
+            out = hopper_warp.warp_norm_plain(
+                crops_norm, hopper_warp.warp_norm_params(geo.a_fwd, geo.norm),
+                0.0, NV_VAL)
         else:
-            warped = warp_patch(img_mm, geo.a_fwd, border=0.0, nv_val=NV_VAL,
-                                use_bilinear=(resize == "linear"))
-        out = hopper_warp.warp_norm_epilogue(warped, premax, geo.norm)
+            img_mm, premax = hopper_warp.unnormalize(crops_norm, geo.norm)
+            if route == "k4":
+                # the kernel reads the inverse transforms; the gather warp
+                # inverts a_fwd itself
+                warped = hopper_warp.warp(img_mm, hopper_warp.warp_patch_params(geo.a_fwd),
+                                          0.0, NV_VAL)
+            else:
+                warped = warp_patch(img_mm, geo.a_fwd, border=0.0, nv_val=NV_VAL,
+                                    use_bilinear=(resize == "linear"))
+            out = hopper_warp.warp_norm_epilogue(warped, premax, geo.norm)
 
     # ---- labels ----
     com3d, is_mode = geo.com3d, geo.is_mode
@@ -183,8 +200,27 @@ def augment_batch(
     return out, labels_norm, geo.new_com, geo.new_cube, geo.m_out
 
 
+def warp_route(device_type: str, use_pallas: Optional[bool] = None,
+               fuse_norm: Optional[bool] = None, resize: str = "nearest") -> str:
+    """The warp ``augment_batch`` runs on a tensor of ``device_type``:
+    'k5' (the fused kernel, or its plain version on the CPU), 'k4' (the
+    affine warp kernel, or its plain version, between the un- and
+    renormalization in PyTorch) or 'gather' (``ops.crop.warp_patch``, the
+    only one with resize='linear')."""
+    if resize == "linear":
+        return "gather"
+    if use_pallas is None:
+        use_pallas = device_type == "cuda"
+    if not use_pallas:
+        return "gather"
+    if fuse_norm is None:
+        fuse_norm = CUDA_FUSES_NORM and device_type == "cuda"
+    return "k5" if fuse_norm else "k4"
+
+
 class AugmentGeometry(NamedTuple):
-    """The per-sample geometry of one augmented batch (``augment_geometry``)."""
+    """The per-sample geometry of one augmented batch (``augment_geometry``;
+    on K5's path the kernel writes it, without a_fwd and norm)."""
 
     is_mode: Dict[str, torch.Tensor]  # (B,) bool per mode name
     rot: torch.Tensor  # (B,) degrees, mod 360, 0 where not 'rot'
@@ -194,8 +230,8 @@ class AugmentGeometry(NamedTuple):
     new_com: torch.Tensor  # (B, 3) the CoMs after augmentation
     new_cube: torch.Tensor  # (B, 3) the cubes after augmentation
     m_out: torch.Tensor  # (B, 3, 3) the crop transforms after augmentation
-    a_fwd: torch.Tensor  # (B, 3, 3) forward patch -> patch warps
-    norm: torch.Tensor  # (B, 9) the un/renormalization columns (NORM_COLS)
+    a_fwd: Optional[torch.Tensor]  # (B, 3, 3) forward patch -> patch warps
+    norm: Optional[torch.Tensor]  # (B, 9) the un/renormalization columns
 
 
 def augment_geometry(params, com, cube, m, camera: Camera,

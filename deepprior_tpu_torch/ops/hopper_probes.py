@@ -28,9 +28,10 @@ from deepprior_tpu_torch.ops.hopper_warp import warp_patch_params, warp_patch_pl
 LAUNCHES = {"band_trivial": 0, "band_select": 0, "band_select_bf16": 0,
             "warp_general": 0, "warp_general_split": 0}
 # float32 operations per output pixel, counted from csrc/probes.cu (each
-# add, multiply, floor, compare and bf16 conversion as one)
+# add, multiply, floor, compare and bf16 conversion as one; K7's row terms
+# i01 * v and i11 * v once for its 4 pixels)
 FP32_OPS_PER_PIXEL = {"band_trivial": 0, "band_select": 0, "band_select_bf16": 2,
-                      "warp_general": 16, "warp_general_split": 26}
+                      "warp_general": 15, "warp_general_split": 25}
 
 # the band bodies, in the order of csrc/probes.cu's Body enum
 BODIES = ("trivial", "select", "select_bf16")

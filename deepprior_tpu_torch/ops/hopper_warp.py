@@ -1,22 +1,22 @@
 """The augmentation warps K4 and K5 as hand-written CUDA kernels.
 
-Counterparts of deepprior_tpu/ops/pallas_warp.py: ``hopper_warp_patch``
-of ``pallas_warp_patch`` (K4, the per-sample affine patch warp) and
-``hopper_warp_norm`` of ``pallas_warp_norm`` (K5, unnormalize + premax +
-warp + recrop threshold + renormalize in one pass).  The kernel source is
-csrc/warp.cu; ops/_build.py compiles it with nvcc on first use and this
-module calls it through ctypes.
+Counterparts of deepprior_tpu/ops/pallas_warp.py: K4 of
+``pallas_warp_patch`` (the per-sample affine patch warp) and K5 of
+``pallas_warp_norm`` (unnormalize + premax + warp + recrop threshold +
+renormalize in one pass).  The kernel source is csrc/warp.cu (with the
+shared csrc/geometry.cuh); ops/_build.py compiles it with nvcc on first
+use and this module calls it through ctypes.
 
-ops/augment.py calls ``warp`` with params it builds from
-``warp_patch_params`` and ``norm_params``; the two JAX-signature wrappers
-serve the parity tests.
-
-The per-sample parameters (the inverse transforms from ``inv3x3`` and,
-for K5, the normalization scalars) are computed in plain PyTorch outside
-the kernel, as the JAX wrappers compute them, so that the kernel and its
-plain version (``warp_patch_plain``, ``warp_norm_plain``) read the same
-bits and agree bit for bit.  Like the Pallas kernel, neither divides by
-the projective sz; ops/crop.py::warp_patch, the gather warp, does.
+K4 takes the inverse transforms from ``warp_patch_params``, computed in
+plain PyTorch as the JAX wrapper computes them.  K5 takes the
+augmentation's draws and the crops' com, cube and M (``warp_norm_args``)
+and computes each sample's geometry itself, bit for bit as
+ops/augment.py::augment_geometry -> ``warp_patch_params`` ->
+``norm_params`` compute it, and writes the per-sample fields the labels
+need (``launch_warp_norm``).  Their plain versions are
+``warp_patch_plain`` and, for K5, augment_geometry + ``warp_norm_plain``.
+Like the Pallas kernel, neither divides by the projective sz;
+ops/crop.py::warp_patch, the gather warp, does.
 
 On a CPU tensor the wrappers run the plain version.  On a CUDA tensor
 they launch the kernel or raise: there is no fallback.
@@ -26,9 +26,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Sequence
 
 import torch
 
+from deepprior_tpu_torch.camera import Camera
 from deepprior_tpu_torch.geometry import inv3x3
 from deepprior_tpu_torch.ops.crop import _gather_patch, nv_threshold
 from deepprior_tpu_torch.utils.flops import distinct_per_row
@@ -36,21 +38,33 @@ from deepprior_tpu_torch.utils.flops import distinct_per_row
 # kernel launches since the last reset, per kernel; chip_smoke.py reads
 # them to show that the main path went through the kernels
 LAUNCHES = {"warp_patch": 0, "warp_norm": 0}
+# K5's blocks per sample (one thread-block cluster; 8 is the portable
+# maximum) and the size it launches with unless told otherwise: 2 measured
+# fastest on an H100 (PERF.md)
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER = 2
 # float32 operations per output pixel, counted from csrc/warp.cu (each add,
-# multiply, divide, floor, min, max and compare as one; K5's staging pass
-# included): the arithmetic side of the kernels' roofline
-FP32_OPS_PER_PIXEL = {"warp_patch": 19, "warp_norm": 32}
+# multiply, divide, floor, abs, min, max and compare as one): K4 the map
+# (16) and the NV mask (3); K5 the map (14, its row terms once a row), the
+# unnormalization (2), the NV mask (3), the recrop threshold (3) and the
+# rest of the epilogue (6), and the premax pass (3 a pixel), which each of
+# the CLUSTER blocks of a sample runs over the whole patch; its per-sample
+# prologue spread over the pixels is below one.  The arithmetic side of
+# the kernels' roofline
+FP32_OPS_PER_PIXEL = {"warp_patch": 19, "warp_norm": 28 + 3 * CLUSTER}
 
-# columns of the params tensors, in the order of csrc/warp.cu's Param enum:
-# K4 takes the inverse transform's top two rows, K5 those and then the
-# normalization columns
+# columns of the params tensors: K4 takes the inverse transform's top two
+# rows; the plain K5 those and then the normalization columns, which K5
+# computes itself
 PATCH_PARAMS = ("i00", "i01", "i02", "i10", "i11", "i12")
 NORM_COLS = ("s_in", "t_in", "thresh", "zs_t", "ze_t", "zstart2", "zend2",
              "t_out", "s_out")
-NORM_PARAMS = PATCH_PARAMS + NORM_COLS
-# a block stages one sample's patch in shared memory (csrc/warp.cu): the
-# card's 227 KB per block, less room for the kernel's static reduction slots
+# the augmentation modes, in the order of csrc/warp.cu's Mode enum
+MODES = ("none", "com", "rot", "sc")
+# K4 and K5 stage one sample's patch in one block's shared memory: the
+# card's 227 KB per block, less a margin for K5's barrier and constants
 MAX_PATCH_BYTES = 227 * 1024 - 1024
+_MAX_GRID_Y = 65535
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,23 +73,27 @@ def build() -> ctypes.CDLL:
     from deepprior_tpu_torch.ops._build import load_library
 
     lib = load_library("warp.cu")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # patch, params, out, b, h, w, border, use_nv, nv_val, nv_thresh, stream
+    lib.dp_warp_patch.argtypes = [ptr] * 3 + [i32] * 3 + [f32, i32, f32, f32] + [ptr]
+    # patch, mode_idx, off, rot, sc, com, cube, cube_stride, m, fx, fy, ux,
+    # uy, flip_y, img_h, img_w, 4 mode masks, norm_zero_one, border, use_nv,
+    # nv_val, nv_thresh, out, new_com, new_cube, m_out, com3d, new_com3d_c,
+    # rot_out, is_mode, b, h, w, cluster, stream
+    lib.dp_warp_norm.argtypes = (
+        [ptr] * 7 + [i32, ptr] + [f32] * 4 + [i32] * 3 + [i32] * 4 + [i32]
+        + [f32, i32, f32, f32] + [ptr] * 8 + [i32] * 4 + [ptr])
     for fn in (lib.dp_warp_patch, lib.dp_warp_norm):
-        fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float]
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    lib.dp_warp_num_params.argtypes = [ctypes.c_int]
-    lib.dp_warp_num_params.restype = ctypes.c_int
-    lib.dp_warp_error_string.argtypes = [ctypes.c_int]
+        fn.restype = i32
+    lib.dp_warp_constant.argtypes = [i32]
+    lib.dp_warp_constant.restype = i32
+    lib.dp_warp_error_string.argtypes = [i32]
     lib.dp_warp_error_string.restype = ctypes.c_char_p
-    for fused, names in ((0, PATCH_PARAMS), (1, NORM_PARAMS)):
-        if lib.dp_warp_num_params(fused) != len(names):
-            raise RuntimeError(
-                f"csrc/warp.cu takes {lib.dp_warp_num_params(fused)} params "
-                f"per sample (fused={fused}), this wrapper builds {len(names)}"
-            )
+    got = (lib.dp_warp_constant(0), lib.dp_warp_constant(1))
+    if got != (len(PATCH_PARAMS), len(MODES)):
+        raise RuntimeError(
+            f"csrc/warp.cu takes {got[0]} params per sample and {got[1]} modes, "
+            f"this wrapper {len(PATCH_PARAMS)} and {len(MODES)}")
     return lib
 
 
@@ -120,8 +138,8 @@ def norm_params(com_z, cube_z, thresh, zs_t, ze_t, new_com_z, new_cube_z,
 
 
 def warp_norm_params(m_fwd, norm) -> torch.Tensor:
-    """K5's (B, 15) params (``NORM_PARAMS``): ``warp_patch_params(m_fwd)``
-    followed by the normalization columns ``norm`` (B, 9)."""
+    """The plain K5's (B, 15) params: ``warp_patch_params(m_fwd)`` followed
+    by the normalization columns ``norm`` (B, 9, ``NORM_COLS``)."""
     return torch.cat([warp_patch_params(m_fwd), norm], dim=1).contiguous()
 
 
@@ -210,28 +228,33 @@ def warp_norm_plain(patch_norm, params, border: float = 0.0, nv_val=None):
 
 
 # ---------------------------------------------------------------------------
-# the kernels
+# K4
 # ---------------------------------------------------------------------------
-def launch_warp(patch, params, border: float = 0.0, nv_val=None,
-                fused: bool = False):
-    """Run K4 (fused=False) or K5 on CUDA tensors: patch (B, H, W) float32
-    and params (B, 6) or (B, 15) -> (B, H, W)."""
-    name = "warp_norm" if fused else "warp_patch"
-    n_params = len(NORM_PARAMS if fused else PATCH_PARAMS)
+def _nv_args(nv_val):
+    """(use_nv, nv_val, its float32 threshold) as the kernels take them."""
+    if nv_val is None:
+        return 0, 0.0, 0.0
+    return 1, float(nv_val), nv_threshold(nv_val)
+
+
+def launch_warp(patch, params, border: float = 0.0, nv_val=None):
+    """Run K4 on CUDA tensors: patch (B, H, W) float32 and params (B, 6)
+    -> (B, H, W)."""
+    n_params = len(PATCH_PARAMS)
     if patch.device.type != "cuda" or params.device != patch.device:
         raise ValueError(
-            f"{name} needs patch and params on one CUDA device, got "
+            f"warp_patch needs patch and params on one CUDA device, got "
             f"{patch.device} and {params.device}"
         )
     if patch.dtype != torch.float32 or params.dtype != torch.float32:
-        raise TypeError(f"{name} takes float32, got {patch.dtype} and {params.dtype}")
+        raise TypeError(f"warp_patch takes float32, got {patch.dtype} and {params.dtype}")
     if patch.dim() != 3 or params.shape != (patch.shape[0], n_params):
         raise ValueError(
             f"bad shapes: patch {tuple(patch.shape)} (want (B, H, W)), params "
             f"{tuple(params.shape)} (want (B, {n_params}))"
         )
     if not (patch.is_contiguous() and params.is_contiguous()):
-        raise ValueError(f"{name} needs contiguous patch and params")
+        raise ValueError("warp_patch needs contiguous patch and params")
     b, h, w = patch.shape
     if h * w * 4 > MAX_PATCH_BYTES:
         raise ValueError(
@@ -240,38 +263,172 @@ def launch_warp(patch, params, border: float = 0.0, nv_val=None,
         )
     lib = build()
     out = torch.empty_like(patch)
-    fn = lib.dp_warp_norm if fused else lib.dp_warp_patch
-    use_nv = nv_val is not None
     with torch.cuda.device(patch.device):
         stream = torch.cuda.current_stream(patch.device).cuda_stream
-        err = fn(
-            patch.data_ptr(), params.data_ptr(), out.data_ptr(), b, h, w,
-            float(border), int(use_nv), float(nv_val) if use_nv else 0.0,
-            nv_threshold(nv_val) if use_nv else 0.0, stream,
-        )
+        err = lib.dp_warp_patch(patch.data_ptr(), params.data_ptr(), out.data_ptr(),
+                                b, h, w, float(border), *_nv_args(nv_val), stream)
     if err != 0:
         raise RuntimeError(
-            f"{name} kernel launch failed: {lib.dp_warp_error_string(err).decode()}"
+            f"warp_patch kernel launch failed: {lib.dp_warp_error_string(err).decode()}"
         )
-    LAUNCHES[name] += 1
+    LAUNCHES["warp_patch"] += 1
     return out
 
 
-def warp(patch, params, border: float = 0.0, nv_val=None, fused: bool = False):
-    """K4 (fused=False) or K5 from precomputed params: the kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+def warp(patch, params, border: float = 0.0, nv_val=None):
+    """K4 from the inverse transforms ``params`` (B, 6): the kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
     if patch.device.type == "cpu":
-        plain = warp_norm_plain if fused else warp_patch_plain
-        return plain(patch, params, border, nv_val)
+        return warp_patch_plain(patch, params, border, nv_val)
     if patch.device.type != "cuda":
         raise ValueError(f"the warp kernels run on cpu or cuda, not {patch.device}")
-    return launch_warp(patch.contiguous(), params.contiguous(), border, nv_val,
-                       fused)
+    return launch_warp(patch.contiguous(), params.contiguous(), border, nv_val)
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+class WarpNormOut(NamedTuple):
+    """What one K5 launch writes: the augmented patches and the per-sample
+    fields of ops/augment.py::augment_geometry that the labels need."""
+
+    out: torch.Tensor          # (B, H, W) augmented normalized patches
+    new_com: torch.Tensor      # (B, 3)
+    new_cube: torch.Tensor     # (B, 3)
+    m_out: torch.Tensor        # (B, 3, 3)
+    com3d: torch.Tensor        # (B, 3)
+    new_com3d_c: torch.Tensor  # (B, 3)
+    rot: torch.Tensor          # (B,) degrees, mod 360, 0 where not 'rot'
+    is_mode: torch.Tensor      # (B, 4) bool, one column per mode of MODES
+
+
+class WarpNormArgs(NamedTuple):
+    """A K5 launch's tensors besides the patches, from ``warp_norm_args``."""
+
+    mode_idx: torch.Tensor  # (B,) int64: the slot of aug_modes drawn
+    off: torch.Tensor       # (B, 3) com shifts in mm
+    rot: torch.Tensor       # (B,) angles in degrees
+    sc: torch.Tensor        # (B,) cube scales
+    com: torch.Tensor       # (B, 3) the crops' CoMs
+    cube: torch.Tensor      # (B, 3), or (3,) read at stride 0
+    cube_stride: int        # 3, or 0 for one cube for all samples
+    m: torch.Tensor         # (B, 3, 3) the crops' transforms
+    camera: Camera
+    masks: tuple            # per mode of MODES, bit i set if aug_modes[i] is it
+    norm_zero_one: bool
+    outs: WarpNormOut       # allocated here, written by the launch
+
+
+def warp_norm_args(patch, params, com, cube, m, camera: Camera,
+                   aug_modes: Sequence[str], norm_zero_one: bool = False
+                   ) -> WarpNormArgs:
+    """K5's arguments for patches ``patch`` (B, H, W): the draws ``params``
+    (mode_idx, off, rot, sc) as ``sample_augment_params`` returns them,
+    mode_idx as int64 and the rest, com, cube and m as contiguous float32
+    on the patches' device (already so: no copy); the cube as (B, 3) or as
+    one (3,) cube read at stride 0, as ``hopper_crop.crop_args`` takes it;
+    the mode masks of ``aug_modes``; and the outputs, allocated here.
+    Works on any device: the CPU tests check it.  Nothing here reads a
+    device value back to the host."""
+    b = patch.shape[0]
+    dev = patch.device
+
+    def f32(a, shape, name):
+        t = torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        return t
+
+    mode_idx, off, rot, sc = params
+    mode_idx = torch.as_tensor(mode_idx, device=dev).to(torch.int64).contiguous()
+    if mode_idx.shape != (b,):
+        raise ValueError(f"mode_idx must be ({b},), got {tuple(mode_idx.shape)}")
+    off, rot, sc = f32(off, (b, 3), "off"), f32(rot, (b,), "rot"), f32(sc, (b,), "sc")
+    com, m = f32(com, (b, 3), "com"), f32(m, (b, 3, 3), "m")
+    cube = torch.as_tensor(cube, dtype=torch.float32, device=dev)
+    if cube.dim() == 2 and (cube.shape[0] == 1 or cube.stride(0) == 0):
+        cube = cube[0]  # one cube, expanded over the batch
+    if cube.shape == (3,):
+        cube, stride = cube.contiguous(), 0
+    elif cube.shape == (b, 3):
+        cube, stride = cube.contiguous(), 3
+    else:
+        raise ValueError(f"cube must be (3,) or (B, 3), got {tuple(cube.shape)}")
+    for md in aug_modes:
+        if md not in MODES:
+            raise ValueError(f"unknown augmentation mode {md!r}")
+    if len(aug_modes) > 31:
+        raise ValueError(f"K5 takes at most 31 aug_modes slots, got {len(aug_modes)}")
+    masks = tuple(sum(1 << i for i, md in enumerate(aug_modes) if md == name)
+                  for name in MODES)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    outs = WarpNormOut(empty(*patch.shape), empty(b, 3), empty(b, 3), empty(b, 3, 3),
+                       empty(b, 3), empty(b, 3), empty(b),
+                       empty(b, len(MODES), dtype=torch.bool))
+    return WarpNormArgs(mode_idx, off, rot, sc, com, cube, stride, m, camera, masks,
+                        bool(norm_zero_one), outs)
+
+
+def launch_warp_norm(patch, args: WarpNormArgs, border: float = 0.0, nv_val=None,
+                     cluster: int = CLUSTER) -> WarpNormOut:
+    """Run K5 on CUDA tensors: normalized patches (B, H, W) float32 and
+    ``warp_norm_args``' tensors -> ``args.outs``, written by one launch of
+    one thread-block cluster of ``cluster`` blocks (``CLUSTER_SIZES``) per
+    sample, each staging the whole patch in its shared memory
+    (``MAX_PATCH_BYTES``).  A refused launch raises."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
+    tensors = [t for t in (patch, *args[:8], *args.outs) if isinstance(t, torch.Tensor)]
+    if patch.device.type != "cuda" or any(t.device != patch.device for t in tensors):
+        raise ValueError(
+            f"warp_norm needs every tensor on one CUDA device, got "
+            f"{sorted({str(t.device) for t in tensors})}")
+    dtypes = {id(args.mode_idx): torch.int64, id(args.outs.is_mode): torch.bool}
+    if any(t.dtype != dtypes.get(id(t), torch.float32) for t in tensors):
+        raise TypeError(f"warp_norm takes float32 (mode_idx int64, is_mode bool), got "
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("warp_norm needs contiguous tensors")
+    if patch.dim() != 3 or args.outs.out.shape != patch.shape:
+        raise ValueError(f"patch must be (B, H, W) like args.outs.out, got "
+                         f"{tuple(patch.shape)} and {tuple(args.outs.out.shape)}")
+    b, h, w = patch.shape
+    if args.mode_idx.shape != (b,):
+        raise ValueError(f"args are for {args.mode_idx.shape[0]} samples, patch has {b}")
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit {_MAX_GRID_Y}")
+    if h * w * 4 > MAX_PATCH_BYTES:
+        raise ValueError(
+            f"a {h}x{w} float32 patch ({h * w * 4} bytes) does not fit in one "
+            f"block's shared memory ({MAX_PATCH_BYTES} bytes)")
+    lib = build()
+    cam, o = args.camera, args.outs
+    with torch.cuda.device(patch.device):
+        stream = torch.cuda.current_stream(patch.device).cuda_stream
+        err = lib.dp_warp_norm(
+            patch.data_ptr(), args.mode_idx.data_ptr(), args.off.data_ptr(),
+            args.rot.data_ptr(), args.sc.data_ptr(), args.com.data_ptr(),
+            args.cube.data_ptr(), args.cube_stride, args.m.data_ptr(),
+            float(cam.fx), float(cam.fy), float(cam.ux), float(cam.uy),
+            int(cam.flip_y), int(cam.height), int(cam.width), *args.masks,
+            int(args.norm_zero_one), float(border), *_nv_args(nv_val),
+            o.out.data_ptr(), o.new_com.data_ptr(), o.new_cube.data_ptr(),
+            o.m_out.data_ptr(), o.com3d.data_ptr(), o.new_com3d_c.data_ptr(),
+            o.rot.data_ptr(), o.is_mode.data_ptr(), b, h, w, cluster, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"warp_norm kernel launch failed: {lib.dp_warp_error_string(err).decode()}")
+    LAUNCHES["warp_norm"] += 1
+    return o
 
 
 # The JAX package's signatures, for the parity tests and chip_smoke.py, which
 # hold the port against pallas_warp_patch / pallas_warp_norm call for call.
-# The training path calls ``warp`` with the params ops/augment.py builds.
+# The training path calls ``warp`` and ``launch_warp_norm``.
 def hopper_warp_patch(patch, m_fwd, border: float = 0.0, nv_val=None,
                       block_k=None):
     """K4 with the signature of the JAX ``pallas_warp_patch``: patch
@@ -282,18 +439,24 @@ def hopper_warp_patch(patch, m_fwd, border: float = 0.0, nv_val=None,
     callers carry over, and without effect."""
     patch = torch.as_tensor(patch, dtype=torch.float32)
     params = warp_patch_params(torch.as_tensor(m_fwd, device=patch.device))
-    return warp(patch, params, border, nv_val, fused=False)
+    return warp(patch, params, border, nv_val)
 
 
 def hopper_warp_norm(patch_norm, m_fwd, com_z, cube_z, thresh, zs_t, ze_t,
                      new_com_z, new_cube_z, norm_zero_one: bool = False,
                      border: float = 0.0, nv_val=None):
-    """K5 with the signature of the JAX ``pallas_warp_norm``: normalized
-    patches (B, H, W) -> augmented normalized patches; the per-sample
-    scalars (B,) as ``norm_params`` takes them.  A test seam: the training
-    path calls ``warp``."""
+    """K5's function with the signature of the JAX ``pallas_warp_norm``:
+    normalized patches (B, H, W) -> augmented normalized patches; the
+    per-sample scalars (B,) as ``norm_params`` takes them.  A test seam for
+    CPU tensors, where it runs ``warp_norm_plain``: K5 computes these
+    scalars itself from the augmentation draws, so on the card the path is
+    ``warp_norm_args`` + ``launch_warp_norm`` (ops/augment.py)."""
     patch_norm = torch.as_tensor(patch_norm, dtype=torch.float32)
-    norm = norm_params(torch.as_tensor(com_z, device=patch_norm.device), cube_z,
-                       thresh, zs_t, ze_t, new_com_z, new_cube_z, norm_zero_one)
-    params = warp_norm_params(torch.as_tensor(m_fwd, device=patch_norm.device), norm)
-    return warp(patch_norm, params, border, nv_val, fused=True)
+    if patch_norm.device.type != "cpu":
+        raise ValueError(
+            "hopper_warp_norm runs the plain K5 on cpu tensors; K5 on the card "
+            "takes the augmentation draws: warp_norm_args + launch_warp_norm")
+    norm = norm_params(com_z, cube_z, thresh, zs_t, ze_t, new_com_z, new_cube_z,
+                       norm_zero_one)
+    params = warp_norm_params(torch.as_tensor(m_fwd), norm)
+    return warp_norm_plain(patch_norm, params, border, nv_val)

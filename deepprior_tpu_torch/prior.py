@@ -20,13 +20,34 @@ from deepprior_tpu_torch.camera import Camera
 from deepprior_tpu_torch.geometry import rotate_points_2d_np, rotate_points_3d_np
 
 
+# rows per product in ``_product_f32``: bounds its (rows, K, M) intermediate
+_PRODUCT_ROWS = 8192
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (N, K) @ b (K, M) in float32 on every device, as the reference's
+    matmuls at Precision.HIGHEST: the products summed over K, no matmul.
+
+    A float32 matmul on CUDA follows the process's TF32 switch, which
+    PyTorch keeps once per backend and lets two APIs write
+    (``torch.backends.cuda.matmul.allow_tf32`` and its successor
+    ``fp32_precision``; after the new one sets a value, reading the old
+    one raises).  A product and a sum read neither, so nothing is scoped
+    around them and concurrent callers (``MicroBatchServer``'s worker)
+    race on no process state."""
+    if a.shape[0] <= _PRODUCT_ROWS:
+        return torch.sum(a[:, :, None] * b, dim=1)
+    return torch.cat([_product_f32(a[i:i + _PRODUCT_ROWS], b)
+                      for i in range(0, a.shape[0], _PRODUCT_ROWS)])
+
+
 class PCAPrior:
     """Fitted linear pose prior: decode(e) = e @ components + mean.
 
     components (n_components, J*3) and mean (J*3,) may be numpy arrays or
-    tensors; they are held as float32 tensors.  Both matmuls are float32;
-    on CUDA that needs ``torch.backends.cuda.matmul.allow_tf32`` False
-    (PyTorch's default): TF32 would keep about three decimal digits.
+    tensors; they are held as float32 tensors.  Both products compute in
+    float32 whatever the process's TF32 settings (``_product_f32``): TF32
+    would keep about three decimal digits.
     """
 
     def __init__(self, components, mean, device=None):
@@ -42,11 +63,12 @@ class PCAPrior:
 
     def transform(self, poses_flat: torch.Tensor) -> torch.Tensor:
         """(N, J*3) normalized poses -> (N, n_components) embeddings."""
-        return (poses_flat.to(torch.float32) - self.mean) @ self.components.T
+        return _product_f32(poses_flat.to(torch.float32) - self.mean,
+                            self.components.T)
 
     def inverse_transform(self, embedded: torch.Tensor) -> torch.Tensor:
         """(N, n_components) -> (N, J*3), the appended decode layer."""
-        return embedded.to(torch.float32) @ self.components + self.mean
+        return _product_f32(embedded.to(torch.float32), self.components) + self.mean
 
 
 def fit_pca(data: np.ndarray, n_components: int = 30) -> PCAPrior:

@@ -3,7 +3,7 @@
 Counterpart of deepprior_tpu/train/trainer.py (reference NetTrainer,
 src/trainer/nettrainer.py:75-997).  The training set lives on the device;
 each step indexes it with a device index tensor, augments on the device
-(ops/augment.py: the warp kernel K4, or K5, on a CUDA device), projects
+(ops/augment.py: the warp kernel K5, or K4, on a CUDA device), projects
 the targets through the PCA prior, runs the forward and backward pass and
 the reference optimizer's update.  The losses of an epoch stay on the
 device and are fetched once at its end, as the JAX epoch scan returns
@@ -64,8 +64,9 @@ class TrainConfig(NamedTuple):
     sigma_sc: float = 0.02
     rot_range: float = 180.0
     norm_zero_one: bool = False
-    # K5, the warp kernel with the un/renormalization fused in; None =
-    # augment_batch's default (off), as in the JAX package
+    # True: K5, the warp kernel that computes the augmentation geometry and
+    # fuses the un/renormalization; False: K4; None = augment_batch's
+    # default (K5 on a CUDA device, ops/augment.py::warp_route)
     aug_fuse_norm: Optional[bool] = None
     # the TPU warp kernel's samples per grid step; accepted, no effect
     aug_block_k: Optional[int] = None

@@ -330,3 +330,59 @@ def test_main_rejects_tpu_only_flags(tmp_path, flag, capsys):
     with pytest.raises(SystemExit):
         main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path)] + flag)
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("api", ["allow_tf32", "fp32_precision"])
+def test_pca_prior_computes_in_float32_with_tf32_on(api):
+    """With TF32 turned on for the process, in either of PyTorch's two
+    spellings of the switch, PCAPrior's products run no matmul (the op the
+    switch governs) and match a float64 product to float32 round-off; a
+    bf16 Trainer step with the prior (no float32 scope of its own) leaves
+    the caller's settings as they were."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    if api == "allow_tf32":
+        flags, on = ((cudnn, "allow_tf32"), (matmul, "allow_tf32")), True
+    else:
+        flags, on = ((cudnn.conv, "fp32_precision"), (matmul, "fp32_precision")), "tf32"
+    saved = [getattr(obj, attr) for obj, attr in flags]
+    rng = np.random.default_rng(4)
+    comps = rng.standard_normal((30, 42)).astype(np.float32)
+    mean = rng.standard_normal(42).astype(np.float32)
+    emb = rng.standard_normal((9, 30)).astype(np.float32)
+    poses = rng.standard_normal((9, 42)).astype(np.float32)
+    prior = tprior.PCAPrior(comps, mean)
+    try:
+        for obj, attr in flags:
+            setattr(obj, attr, on)
+        with Ops() as ops:
+            dec = prior.inverse_transform(torch.from_numpy(emb))
+            enc = prior.transform(torch.from_numpy(poses))
+        assert not ops.seen & {"mm", "addmm", "bmm", "baddbmm", "matmul", "linear"}, ops.seen
+        c64 = comps.astype(np.float64)
+        np.testing.assert_allclose(dec.numpy(), emb @ c64 + mean, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(enc.numpy(), (poses - mean.astype(np.float64)) @ c64.T,
+                                   rtol=1e-5, atol=1e-5)
+        model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=64,
+                                            dtype=torch.bfloat16))
+        data = TrainData.from_sequence(make_sequence(NYU_CAMERA, 4, seed=7)).to("cpu")
+        trainer = Trainer(model, TrainConfig(batch_size=4), NYU_CAMERA, prior=prior,
+                          device="cpu")
+        state, loss = trainer._train_step_core(
+            trainer.init_state(), data.take(torch.arange(4)),
+            torch.Generator().manual_seed(0), torch.Generator().manual_seed(1), 1e-4)
+        assert np.isfinite(float(loss))
+        assert [getattr(obj, attr) for obj, attr in flags] == [on, on]
+    finally:
+        for (obj, attr), value in zip(flags, saved):
+            setattr(obj, attr, value)
