@@ -14,7 +14,8 @@ MicroBatchServer; phase 4 also runs the estimator with TF32 on for the
 process and requires the TF32-off joints bit for bit, the PCA decode
 being float32 whatever the switch says; phase 6 counts the crop wrapper's
 device operations per estimator call with torch.profiler and fails above
-5) at B = 512 NYU frames, training (the port's main_nyu_posereg_embedding:
+5, and times the float32 PCA decode against a float32 matmul at B = 1)
+at B = 512 NYU frames, training (the port's main_nyu_posereg_embedding:
 12 steps at B = 128 through the default route, K5, then an epoch through
 K4 with --no-aug-fuse-norm) with a training step on the card against the
 CPU, and realtime serving (phases 12-15: the 'linear' estimator through
@@ -30,11 +31,10 @@ probe scripts deepprior_tpu_torch.prof.prof_bench (K6) and prof_warp_bf16
 (K7), then hold each probe against its plain version and its library call
 (K6 in turns with its call) and time K7 in turns with K4 at B = 128 and
 512; phase 19 times K1, K2, K4 and K5 alone against their bounds from the
-byte models (K5 at each cluster size in turns), with their launches per
-estimator call and train step; phase 20 runs the profiling helpers on the
-estimator at B = 1 (dispatch included, and its CUDA graph: the device
-floor) and holds a replayed CUDA graph of the estimator to the eager call
-bit for bit.  Every phase raises on failure, so the exit code is 0 only
+byte models, with their launches per estimator call and train step;
+phase 20 runs the profiling helpers on the estimator at B = 1 (dispatch
+included, and its CUDA graph: the device floor), holds a replayed CUDA
+graph of the estimator to the eager call bit for bit.  Every phase raises on failure, so the exit code is 0 only
 when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
 JSON.
@@ -414,6 +414,17 @@ def main(argv=None):
         f"{len(wrapper_ops)} device operations ({'; '.join(op[:48] for op in wrapper_ops)}); "
         f"the whole estimator call: {len(est_ops)} ("
         + "; ".join(f"{n}x {k}" for k, n in kinds.most_common(8)) + ")")
+    # what the float32 PCA decode costs a B=1 call: its products against a
+    # float32 matmul (TF32 off) on the same embedding, in turns
+    pca = est.prior
+    emb = torch.randn((1, pca.components.shape[0]), generator=torch.Generator(dev).manual_seed(6),
+                      device=dev)
+    decodes = (lambda: emb @ pca.components + pca.mean, lambda: pca.inverse_transform(emb))
+    mm_ms, prod_ms = alternate(*decodes, 50, graph_ms)
+    mm_ops, prod_ops = (len(device_ops(fn)) for fn in decodes)
+    log(f"[6 decode] {tag} the B=1 PCA decode (CUDA graphs, in turns): float32 products "
+        f"{prod_ms:.4f} ms in {prod_ops} device operations, a float32 matmul {mm_ms:.4f} ms "
+        f"in {mm_ops}")
     # alternate plain, kernel, kernel, plain within this one call
     t_plain, t_kernel = [], []
     for fn, acc in ((plain_crop, t_plain), (kernel_crop, t_kernel),
@@ -480,8 +491,8 @@ def main(argv=None):
 
 
 # device operations of one augment_batch call via K5, at most (phase 10
-# counts them with torch.profiler: 53 at B = 128 and 512 on an H100, where
-# the call via K4 runs 416)
+# counts them with torch.profiler: 53-54 at B = 128 and 512 on an H100,
+# where the call via K4 runs 416-417)
 AUGMENT_K5_OPS = 56
 
 
@@ -496,7 +507,8 @@ def alternate(plain_fn, kernel_fn, iters, timer=time_ms):
 
 def device_ops(fn):
     """The names of the device operations (kernels, copies, memsets) of one
-    fn() call, from torch.profiler, after one warm-up call."""
+    fn() call, from torch.profiler, after one warm-up call; raises if the
+    profiler saw none, so that no count reads 0 by default."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -505,7 +517,10 @@ def device_ops(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if is_device_op(e)]
+    names = [e.name for e in prof.events() if is_device_op(e)]
+    if not names:
+        raise AssertionError("torch.profiler saw no device operation")
+    return names
 
 
 def graph_outputs(fn):
@@ -553,8 +568,9 @@ def training_phases(dev, tag, log, profile=False):
     from deepprior_tpu_torch.mains import main_nyu_posereg_embedding
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
     from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.crop import crop_transform
     from deepprior_tpu_torch.ops.augment import (
-        CUDA_FUSES_NORM, NV_VAL, augment_batch, augment_geometry, sample_augment_params)
+        NV_VAL, augment_batch, augment_geometry, sample_augment_params)
     from deepprior_tpu_torch.prior import fit_pose_prior
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
 
@@ -606,24 +622,23 @@ def training_phases(dev, tag, log, profile=False):
         raise AssertionError("K4 let an NV marker through")
     def check5(label, crops, prm, com, cube, m, aug_modes, z1):
         """K5, its geometry computed in the kernel, against augment_geometry
-        + warp_norm_plain on identical GPU inputs at every cluster size: the
-        patches and the fields it writes for the labels, bit for bit."""
+        + warp_norm_plain on identical GPU inputs: the patches and the
+        fields it writes for the labels, bit for bit."""
         geo = augment_geometry(prm, com, cube, m, cam, aug_modes, crops.shape[1:], z1)
         want = hw.warp_norm_plain(crops, hw.warp_norm_params(geo.a_fwd, geo.norm), 0.0,
                                   NV_VAL)
         side = dict(new_com=geo.new_com, new_cube=geo.new_cube, m_out=geo.m_out,
                     com3d=geo.com3d, new_com3d_c=geo.new_com3d_c, rot=geo.rot,
                     is_mode=torch.stack([geo.is_mode[k] for k in hw.MODES], 1))
-        for cl in hw.CLUSTER_SIZES:
-            args = hw.warp_norm_args(crops, prm, com, cube, m, cam, aug_modes, z1)
-            got = hw.launch_warp_norm(crops, args, 0.0, NV_VAL, cluster=cl)
-            torch.cuda.synchronize()
-            err["warp_norm"] = max(err["warp_norm"], (got.out - want).abs().max().item())
-            bad = [k for k, v in side.items() if not torch.equal(getattr(got, k), v)]
-            if not torch.equal(got.out, want) or bad:
-                raise AssertionError(
-                    f"K5 {label}, cluster {cl}: kernel != plain on "
-                    f"{int((got.out != want).sum())} pixels; side outputs differ: {bad}")
+        args = hw.warp_norm_args(crops, prm, com, cube, m, cam, aug_modes, z1)
+        got = hw.launch_warp_norm(crops, args, 0.0, NV_VAL)
+        torch.cuda.synchronize()
+        err["warp_norm"] = max(err["warp_norm"], (got.out - want).abs().max().item())
+        bad = [k for k, v in side.items() if not torch.equal(getattr(got, k), v)]
+        if not torch.equal(got.out, want) or bad:
+            raise AssertionError(
+                f"K5 {label}: kernel != plain on {int((got.out != want).sum())} "
+                f"pixels; side outputs differ: {bad}")
         cases.append(f"K5 {label}")
         return want
 
@@ -665,11 +680,19 @@ def training_phases(dev, tag, log, profile=False):
     check5("one (3,) cube read at stride 0, aug_modes com/com/rot", data[False].crops,
            (mi % 3, off, rot, sc), data[False].com, data[False].cube[0], data[False].m,
            ("com", "com", "rot"), False)
+    # 62x66 patches: rows of 66 floats take the kernel's 4-byte staging and
+    # stores, not its 16-byte ones
+    m_odd = crop_transform(data[True].com, data[True].cube, cam.fx, cam.fy,
+                           (cam.height, cam.width), (66, 62))
+    odd = torch.rand((b, 62, 66), generator=gen, device=dev)
+    odd[torch.rand(odd.shape, generator=gen, device=dev) < 0.25] = 1.0
+    check5("62x66 patches (4-byte staging), modes com/rot/sc/none, norm_zero_one=True",
+           odd, params, data[True].com, data[True].cube, m_odd, modes, True)
     log(f"[7 warp kernels] {len(cases)} cases bit-exact (torch.equal): "
-        f"{'; '.join(cases)}; K5 at cluster sizes {hw.CLUSTER_SIZES} (default "
-        f"{hw.CLUSTER}) with its geometry in the kernel, its side outputs == "
-        f"augment_geometry's, and == the unfused pipeline with K4; max |kernel - "
-        f"plain| K4 {err['warp_patch']}, K5 {err['warp_norm']}")
+        f"{'; '.join(cases)}; K5 one block per sample with its geometry in the "
+        f"kernel, its side outputs == augment_geometry's, and == the unfused "
+        f"pipeline with K4; max |kernel - plain| K4 {err['warp_patch']}, K5 "
+        f"{err['warp_norm']}")
 
     # ---------------------------------------------------------------- 8
     def train_main(extra, epochs):
@@ -691,12 +714,9 @@ def training_phases(dev, tag, log, profile=False):
                 raise AssertionError(f"{name}: non-finite test error")
         return counts, costs, results, wall
 
-    # the default route (fuse_norm=None) for 3 epochs, then one epoch of the
-    # other kernel through the main's flag
-    if CUDA_FUSES_NORM:
-        default, other, flag = "warp_norm", "warp_patch", "--no-aug-fuse-norm"
-    else:
-        default, other, flag = "warp_patch", "warp_norm", "--aug-fuse-norm"
+    # the default route (fuse_norm=None: K5) for 3 epochs, then one epoch
+    # of K4 through the main's flag
+    default, other, flag = "warp_norm", "warp_patch", "--no-aug-fuse-norm"
     counts, costs, results, wall = train_main([], 3)
     steps = costs.size
     if counts != {default: steps, other: 0}:
@@ -818,7 +838,7 @@ def training_phases(dev, tag, log, profile=False):
             plain5, lambda: hw.launch_warp_norm(batch["crops"], hw.warp_norm_args(*k5_in),
                                                 0.0, NV_VAL), 50)
         crops, labels = aug()[:2]
-        tr, st = trainers[CUDA_FUSES_NORM]
+        tr, st = trainers[True]
         y = tr._targets(labels)
         model, opt = st.model, st.optimizer
         model.train()
@@ -856,10 +876,9 @@ def training_phases(dev, tag, log, profile=False):
                     ("optimizer", opt.step)):
                 profile_stage(f"{tag} {label} B={bsz}", fn, 10, log)
     held = all(t["faster"] for t in timings.values())
-    log(f"[10 default] fuse_norm=None takes {'K5' if CUDA_FUSES_NORM else 'K4'} on CUDA; "
-        f"this run: augment via K5 {'faster' if held else 'NOT faster'} than via K4 at "
-        f"B=128 and 512 and bit-equal to it: the default "
-        f"{'holds' if held == CUDA_FUSES_NORM else 'is contradicted'}")
+    log(f"[10 default] fuse_norm=None takes K5; this run: augment via K5 "
+        f"{'faster' if held else 'NOT faster'} than via K4 at B=128 and 512 and "
+        f"bit-equal to it: the default {'holds' if held else 'is contradicted'}")
 
     t = timings[128]
     return [
@@ -1437,16 +1456,6 @@ def roofline_phases(dev, tag, log, model, prior, kernels, batch=512,
         k4_ms, k5_ms = alternate(
             lambda: hw.launch_warp(img, p6, 0.0, NV_VAL),
             lambda: hw.launch_warp_norm(batch["crops"], args5, 0.0, NV_VAL), 50, graph_ms)
-        # the other cluster sizes, each in turns with the default
-        sizes = []
-        for cl in hw.CLUSTER_SIZES:
-            if cl != hw.CLUSTER:
-                default_ms, cl_ms = alternate(
-                    lambda: hw.launch_warp_norm(batch["crops"], args5, 0.0, NV_VAL),
-                    lambda cl=cl: hw.launch_warp_norm(batch["crops"], args5, 0.0, NV_VAL,
-                                                      cluster=cl), 50, graph_ms)
-                sizes.append(f"cluster {cl} {cl_ms:.4f} ms vs {hw.CLUSTER} {default_ms:.4f}")
-        log(f"[19 K5 cluster] {tag} B={bsz}: " + "; ".join(sizes))
         rows += [("warp_patch", bsz, k4_ms, hw.warp_bytes(p6, (128, 128)),
                   hw.FP32_OPS_PER_PIXEL["warp_patch"] * bsz * 128 * 128),
                  ("warp_norm", bsz, k5_ms, hw.warp_bytes(k5_params, (128, 128), fused=True),

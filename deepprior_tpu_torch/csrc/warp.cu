@@ -21,36 +21,31 @@
 // only), premax -> zend, 0 -> zend, the clip to [zstart, zend] and the
 // renormalization (val - t_out) / s_out: nettrainer.py:948-997 in one read
 // and one write of the patch batch.
-//   Design: one thread-block cluster of C blocks per sample (C = 2 by
-//   default; 4 and 8 are taken too).  Block rank r owns ceil(h / C)
-//   contiguous rows of the sample's output.
-//   1. Each block copies its rows once from device memory into the shared
-//      memory of every block of the cluster, with one multicast bulk copy
-//      (cp.async.bulk, the TMA engine) completing on each block's mbarrier,
-//      so every block holds the whole patch and the source is read once.
-//      Meanwhile its thread 0 computes the sample's warp and normalization
-//      constants (sample_params: ops/augment.py::augment_geometry ->
+//   Design: one block of 512 threads per sample.
+//   1. Its threads stage the sample's (h, w) patch in shared memory with
+//      asynchronous 16-byte copies (cp.async); while they are in flight,
+//      thread 0 computes the sample's warp and normalization constants
+//      (sample_params: ops/augment.py::augment_geometry ->
 //      hopper_warp.warp_patch_params -> norm_params, op for op, with
-//      geometry.cuh), and rank 0 writes the per-sample fields the labels
-//      need.
-//   2. Each block takes the premax of the whole unnormalized patch from its
-//      shared memory.
-//   3. It gathers its output rows from its shared memory in 32x32 tiles,
-//      each thread 4 consecutive pixels with no division per pixel (a warp
-//      covers 16x8 pixels), runs the epilogue and writes them with one
-//      16-byte store.
-//   4. A cluster barrier keeps every block until the copies into its peers
-//      have landed.
+//      geometry.cuh) and writes the per-sample fields the labels need.
+//   2. The block takes the premax of the whole unnormalized patch.
+//   3. It gathers the output from the staged patch in tiles 32 pixels wide
+//      and 64 rows high, each thread 4 consecutive pixels with no division
+//      per pixel (a warp covers 16x8 pixels), runs the epilogue and writes
+//      them with one 16-byte store.
+//   Rows whose width is not a multiple of 4, or unaligned buffers, take
+//   4-byte copies and stores instead.
 //
 // What bounds them: bytes, the patch batch read once and written once (128
 // KB per 128x128 sample; K4 only the source pixels its map reaches).  K4's
 // one 512-thread block per sample leaves the staging latency exposed at a
 // few hundred samples.  K5's prologue replaces the ~400 small launches that
-// the geometry takes in eager PyTorch; at B = 128 its phases (copy and
-// prologue, premax, then about 50 instructions a pixel of gather and
-// epilogue) run one after the other on every SM, so latency and issue, not
-// bytes, set its time (PERF.md holds the measured alternatives: gathers
-// from the peers' shared memory, from L1/L2, private copies per block).
+// the geometry takes in eager PyTorch; its phases (copy and prologue,
+// premax, then about 50 instructions a pixel of gather and epilogue) run
+// one after the other in each block, so latency and issue, not bytes, set
+// its time at B = 128.  Measured slower on an H100 (PERF.md): a cluster
+// of blocks per sample sharing the patch, 256 or 1024 threads, two blocks
+// per sample.
 //
 // Exactness: the source coordinate is ((i00*u) + (i01*v)) + i02 and the
 // epilogue follows the plain version (ops/hopper_warp.py) op for op, with
@@ -63,7 +58,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libwarp.so warp.cu   (ops/_build.py does this)
 
-#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -71,8 +66,6 @@
 #include <atomic>
 
 #include "geometry.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -134,10 +127,10 @@ warp_patch_kernel(const float* __restrict__ src,
 // ---------------------------------------------------------------------------
 // K5
 // ---------------------------------------------------------------------------
-constexpr int kNormThreads = 256;
+constexpr int kNormThreads = 512;
 constexpr int kNormWarps = kNormThreads / 32;
-constexpr int kTile = 32;  // the gather's tiles of kTile x kTile pixels
-constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kTile = 32;  // the gather's tiles are kTile pixels wide
+constexpr int kTileRows = kNormThreads / 8;  // and this many rows high
 constexpr int kNumModes = 4;    // ops/augment.py::VALID_MODES
 enum Mode { kNone, kCom, kRot, kSc };
 
@@ -186,7 +179,6 @@ struct SampleParams {
 // the head of a block's dynamic shared memory, then the sample's (h, w)
 // patch at offset kHeadBytes
 struct Shared {
-  uint64_t bar;  // the mbarrier the patch's bulk copies complete on
   float warp_max[kNormWarps];
   SampleParams prm;
 };
@@ -194,11 +186,11 @@ constexpr int kHeadBytes = (sizeof(Shared) + 15) / 16 * 16;
 
 // The sample's constants from its draws, as ops/augment.py::
 // augment_geometry (:201-268), hopper_warp.warp_patch_params and
-// norm_params (:86-119) compute them on the card, op for op; with `side`,
-// also the fields the labels need.
+// norm_params (:86-119) compute them on the card, op for op; it also
+// writes the fields the labels need.
 __device__ __forceinline__ SampleParams sample_params(int b, const Inputs& in,
                                                      const Frame& fr, int ph,
-                                                     int pw, bool side,
+                                                     int pw,
                                                      const SideOutputs& so) {
   // every input first, unconditionally, so that the loads are in flight
   // together
@@ -287,20 +279,18 @@ __device__ __forceinline__ SampleParams sample_params(int b, const Inputs& in,
   p.zs_t = zg.zstart;
   p.ze_t = zg.zend;
 
-  if (side) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      so.new_com[3 * b + k] = new_com[k];
-      so.new_cube[3 * b + k] = new_cube[k];
-      so.com3d[3 * b + k] = com3d[k];
-      so.new_com3d_c[3 * b + k] = new_com3d_c[k];
-    }
-#pragma unroll
-    for (int k = 0; k < 9; ++k) so.m_out[9 * b + k] = recrop ? m_new[k] : m[k];
-    so.rot[b] = rot;
-#pragma unroll
-    for (int k = 0; k < kNumModes; ++k) so.is_mode[kNumModes * b + k] = is[k];
+  for (int k = 0; k < 3; ++k) {
+    so.new_com[3 * b + k] = new_com[k];
+    so.new_cube[3 * b + k] = new_cube[k];
+    so.com3d[3 * b + k] = com3d[k];
+    so.new_com3d_c[3 * b + k] = new_com3d_c[k];
   }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) so.m_out[9 * b + k] = recrop ? m_new[k] : m[k];
+  so.rot[b] = rot;
+#pragma unroll
+  for (int k = 0; k < kNumModes; ++k) so.is_mode[kNumModes * b + k] = is[k];
   return p;
 }
 
@@ -370,113 +360,42 @@ __device__ __forceinline__ void finish4(float* __restrict__ row, int u0, int w,
   }
 }
 
-// The cluster barrier in two halves, so that work goes on between them;
-// arrive releases this thread's writes, wait acquires the cluster's.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The mbarrier that counts the bytes of the patch's bulk copies: init for
-// one arrival, made visible to the cluster's copies
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(a) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// the one arrival, announcing `bytes` to come
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  asm volatile("{ .reg .b64 st; mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1; }"
-               :: "r"(a), "r"(bytes) : "memory");
-}
-
-// until the barrier's first phase has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
-                 "selp.u32 %0, 1, 0, p; }" : "=r"(done) : "r"(a) : "memory");
-  }
-}
-
-// One bulk copy (the TMA engine) of `bytes` from global `src` to `dst` in
-// the shared memory of every block of the cluster in `mask`, each
-// completing on that block's barrier at the same offset as `bar`.  bytes,
-// src and dst are multiples of 16.
-__device__ __forceinline__ void bulk_copy_multicast(float* dst, const float* src,
-                                                    uint32_t bytes, uint64_t* bar,
-                                                    uint16_t mask) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const uint32_t m = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;"
-      :: "r"(d), "l"(src), "r"(bytes), "r"(m), "h"(mask) : "memory");
-}
-
-// grid (C, b), cluster (C, 1, 1), kNormThreads threads; block rank r owns
-// the rows_per = ceil(h / C) rows from r * rows_per
+// one block of kNormThreads threads per sample
 __global__ void __launch_bounds__(kNormThreads)
 warp_norm_kernel(const float* __restrict__ src, Inputs in, Frame fr, int h,
-                 int w, int rows_per, float border, int use_nv, float nv_val,
+                 int w, float border, int use_nv, float nv_val,
                  float nv_thresh, float* __restrict__ out, SideOutputs so) {
   extern __shared__ __align__(16) unsigned char smem[];
   Shared& sh = *reinterpret_cast<Shared*>(smem);
   float* tile = reinterpret_cast<float*>(smem + kHeadBytes);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int n_ranks = static_cast<int>(cluster.num_blocks());
-  const int b = blockIdx.y;
+  const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = rank * rows_per;
-  const int n_rows = max(0, min(rows_per, h - row0));
   const int n = h * w;
   const float* img = src + static_cast<int64_t>(b) * n;
   float* dst = out + static_cast<int64_t>(b) * n;
-  // the bulk copies move 16-byte units from 16-byte aligned addresses
+  // 16-byte copies and stores need whole float4s per row, aligned
   const bool vec = (w & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(src) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
 
-  // 1. stage the sample's patch in every block of the cluster: each block
-  //    copies its rows once from device memory to all of them (one
-  //    multicast bulk copy) and waits for the whole patch on its barrier;
-  //    thread 0 computes the sample's constants while the rows are in
-  //    flight.  The cluster barrier first makes every block's barrier
-  //    ready for its peers' copies.
-  if (tid == 0 && vec) mbar_init(&sh.bar);
-  cluster_arrive();
-  cluster_wait();
-  if (tid == 0) {
-    if (vec) {
-      mbar_expect(&sh.bar, static_cast<uint32_t>(n) * sizeof(float));
-      if (n_rows > 0) {
-        bulk_copy_multicast(tile + row0 * w, img + static_cast<int64_t>(row0) * w,
-                            static_cast<uint32_t>(n_rows * w) * sizeof(float),
-                            &sh.bar, static_cast<uint16_t>((1u << n_ranks) - 1));
-      }
+  // 1. stage the sample's patch with asynchronous copies; thread 0 computes
+  //    the sample's constants while they are in flight
+  if (vec) {
+    for (int i = tid; i < n >> 2; i += kNormThreads) {
+      __pipeline_memcpy_async(tile + 4 * i, img + 4 * i, 16);
     }
-    sh.prm = sample_params(b, in, fr, h, w, rank == 0, so);
-  }
-  if (!vec) {
-    for (int i = tid; i < n; i += kNormThreads) tile[i] = __ldg(img + i);
   } else {
-    mbar_wait(&sh.bar);
+    for (int i = tid; i < n; i += kNormThreads) {
+      __pipeline_memcpy_async(tile + i, img + i, 4);
+    }
   }
+  __pipeline_commit();
+  if (tid == 0) sh.prm = sample_params(b, in, fr, h, w, so);
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
-  // 2. the premax: every block the maximum of the whole unnormalized patch
-  //    (norm_params' s_in and t_in, which each thread computes itself)
-  const float com_z = in.com[3 * b + 2];
-  const float cube_z = in.cube[in.cube_stride * b + 2];
-  const float half = __fmul_rn(cube_z, 0.5f);
-  const float s_in = fr.norm_zero_one ? cube_z : half;
-  const float t_in = fr.norm_zero_one ? __fsub_rn(com_z, half) : com_z;
-  __syncthreads();  // the scalar staging, and the constants
+  // 2. the premax: the maximum of the whole unnormalized patch
+  const float s_in = sh.prm.s_in, t_in = sh.prm.t_in;
   float pmax = -CUDART_INF_F;
   if (vec) {
     const float4* tile4 = reinterpret_cast<const float4*>(tile);
@@ -503,23 +422,20 @@ warp_norm_kernel(const float* __restrict__ src, Inputs in, Frame fr, int h,
   for (int i = 1; i < kNormWarps; ++i) premax = nan_max(premax, sh.warp_max[i]);
   const SampleParams p = sh.prm;
 
-  // 3. the block's output rows in 32x32 tiles, 4 pixels a thread, gathered
-  //    from the staged patch: a warp covers 16x8 pixels, so under any
-  //    rotation its loads fall on a few source rows; one 16-byte store
+  // 3. the output rows in tiles 32 pixels wide, 4 pixels a thread,
+  //    gathered from the staged patch: a warp covers 16x8 pixels, so under
+  //    any rotation its loads fall on a few source rows; one 16-byte store
   const int qx = 4 * (((warp & 1) << 2) | (lane & 3));
   const int ry = ((warp >> 1) << 3) | (lane >> 2);
-  for (int ty = ry; ty < n_rows; ty += kTile) {
+  for (int v = ry; v < h; v += kTileRows) {
     for (int u0 = qx; u0 < w; u0 += kTile) {
       int idx[4];
       float val[4];
-      source4(idx, h, w, u0, row0 + ty, p);
+      source4(idx, h, w, u0, v, p);
       fetch4(val, tile, idx, p, border, use_nv, nv_val, nv_thresh);
-      finish4(dst + static_cast<int64_t>(row0 + ty) * w, u0, w, vec, val, premax, p);
+      finish4(dst + static_cast<int64_t>(v) * w, u0, w, vec, val, premax, p);
     }
   }
-  // 4. no block leaves while its copies may still be landing in its peers
-  cluster_arrive();
-  cluster_wait();
 }
 
 // The kernels stage a patch in dynamic shared memory, and above 48 KB a
@@ -570,10 +486,11 @@ int dp_warp_patch(const float* patch, const float* params, float* out, int b,
 // m (b, 3, 3), the camera (fx, fy, ux, uy, flip_y) and frame (img_h, img_w),
 // and mask_<mode>, the slots of aug_modes that hold that mode (bit i: slot
 // i).  Also writes new_com, new_cube, com3d, new_com3d_c (b, 3), m_out
-// (b, 3, 3), rot_out (b,) and is_mode (b, 4) bool.  Launches one cluster of
-// `cluster` blocks (1 to kMaxCluster) per sample on `stream` and returns the
-// cudaError_t of the launch.  All buffers are contiguous device memory,
-// float32 but for mode_idx and is_mode; b <= 65535.
+// (b, 3, 3), rot_out (b,) and is_mode (b, 4) bool.  Launches one block per
+// sample on `stream` and returns the cudaError_t of the launch.  All
+// buffers are contiguous device memory, float32 but for mode_idx and
+// is_mode; kHeadBytes + h * w * 4 bytes must fit in one block's shared
+// memory.
 int dp_warp_norm(const float* patch, const int64_t* mode_idx,
                  const float* off, const float* rot, const float* sc,
                  const float* com, const float* cube, int cube_stride,
@@ -584,13 +501,10 @@ int dp_warp_norm(const float* patch, const int64_t* mode_idx,
                  float* out, float* new_com, float* new_cube,
                  float* m_out, float* com3d, float* new_com3d_c,
                  float* rot_out, bool* is_mode, int b, int h, int w,
-                 int cluster, void* stream) {
+                 void* stream) {
   if (b == 0 || h * w == 0) return static_cast<int>(cudaSuccess);
-  if (cluster < 1 || cluster > kMaxCluster || b > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const size_t smem = kHeadBytes + static_cast<size_t>(h) * w * sizeof(float);
-  cudaError_t err = opt_in_smem<warp_norm_kernel>(smem);
+  const cudaError_t err = opt_in_smem<warp_norm_kernel>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Inputs in{mode_idx, off, rot, sc, com, cube, cube_stride, m};
   Frame fr;
@@ -602,22 +516,8 @@ int dp_warp_norm(const float* patch, const int64_t* mode_idx,
   fr.norm_zero_one = norm_zero_one;
   const SideOutputs so{new_com, new_cube, m_out, com3d, new_com3d_c, rot_out,
                        is_mode};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, b);
-  cfg.blockDim = dim3(kNormThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, warp_norm_kernel, patch, in, fr, h, w,
-                           (h + cluster - 1) / cluster, border, use_nv, nv_val,
-                           nv_thresh, out, so);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  warp_norm_kernel<<<b, kNormThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      patch, in, fr, h, w, border, use_nv, nv_val, nv_thresh, out, so);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,8 @@ labels: no data-dependent control flow.  On a CUDA tensor the warp is a
 hand-written kernel (ops/hopper_warp.py, ``warp_route``): K5, which
 computes the per-sample geometry from the draws itself and fuses the
 un/renormalization, or K4 after ``augment_geometry`` in PyTorch; on the
-CPU it is the gather ``warp_patch`` (ops/crop.py).
+CPU it is the gather ``warp_patch`` (ops/crop.py) unless the kernels'
+plain versions are asked for.
 
 Random draws come from an explicit ``torch.Generator``.  torch and JAX
 draw different numbers from one seed, so ``params`` accepts pre-drawn
@@ -46,9 +47,6 @@ from deepprior_tpu_torch.ops.crop import com_to_bounds, crop_transform, warp_pat
 
 # the augmentation modes, in the order K5 takes them
 VALID_MODES = hopper_warp.MODES
-# what fuse_norm=None means on a CUDA tensor: K5 (chip_smoke.py phase 10
-# times augment_batch through K5 and through K4 in turns)
-CUDA_FUSES_NORM = True
 # NYU's invalid-depth marker survives in patches; the reference masks
 # values close to it back to background after warping (handdetector.py:793)
 NV_VAL = 32000.0
@@ -108,10 +106,10 @@ def augment_batch(
     use_pallas: the warp kernels (True) or the gather warp (False); None
                 takes the kernels on a CUDA tensor and the gather on the
                 CPU.  True on a CPU tensor runs the kernels' plain versions.
-    fuse_norm:  on the kernel path, K5 (True: the geometry and the
-                un/renormalization in the kernel) or K4 (False).  None
-                takes K5 on a CUDA tensor (``CUDA_FUSES_NORM``) and K4's
-                plain version on the CPU (``warp_route``).
+    fuse_norm:  on the kernel path, K5 (True or None: the geometry and
+                the un/renormalization in the kernel) or K4 (False); on a
+                CPU tensor their plain versions, which agree bit for bit
+                (chip_smoke.py phase 10 times the two kernels in turns).
     block_k:    the TPU kernel's samples-per-grid-step knob: accepted,
                 without effect.
     resize:     'nearest' (the reference default) or 'linear' (the 4-tap
@@ -203,19 +201,17 @@ def augment_batch(
 def warp_route(device_type: str, use_pallas: Optional[bool] = None,
                fuse_norm: Optional[bool] = None, resize: str = "nearest") -> str:
     """The warp ``augment_batch`` runs on a tensor of ``device_type``:
-    'k5' (the fused kernel, or its plain version on the CPU), 'k4' (the
-    affine warp kernel, or its plain version, between the un- and
-    renormalization in PyTorch) or 'gather' (``ops.crop.warp_patch``, the
-    only one with resize='linear')."""
+    'k5' (the fused kernel, or its plain version on the CPU; the default of
+    the kernel path), 'k4' (the affine warp kernel, or its plain version,
+    between the un- and renormalization in PyTorch) or 'gather'
+    (``ops.crop.warp_patch``, the only one with resize='linear')."""
     if resize == "linear":
         return "gather"
     if use_pallas is None:
         use_pallas = device_type == "cuda"
     if not use_pallas:
         return "gather"
-    if fuse_norm is None:
-        fuse_norm = CUDA_FUSES_NORM and device_type == "cuda"
-    return "k5" if fuse_norm else "k4"
+    return "k4" if fuse_norm is False else "k5"
 
 
 class AugmentGeometry(NamedTuple):

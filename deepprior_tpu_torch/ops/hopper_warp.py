@@ -38,20 +38,14 @@ from deepprior_tpu_torch.utils.flops import distinct_per_row
 # kernel launches since the last reset, per kernel; chip_smoke.py reads
 # them to show that the main path went through the kernels
 LAUNCHES = {"warp_patch": 0, "warp_norm": 0}
-# K5's blocks per sample (one thread-block cluster; 8 is the portable
-# maximum) and the size it launches with unless told otherwise: 2 measured
-# fastest on an H100 (PERF.md)
-CLUSTER_SIZES = (2, 4, 8)
-CLUSTER = 2
 # float32 operations per output pixel, counted from csrc/warp.cu (each add,
 # multiply, divide, floor, abs, min, max and compare as one): K4 the map
 # (16) and the NV mask (3); K5 the map (14, its row terms once a row), the
 # unnormalization (2), the NV mask (3), the recrop threshold (3) and the
-# rest of the epilogue (6), and the premax pass (3 a pixel), which each of
-# the CLUSTER blocks of a sample runs over the whole patch; its per-sample
+# rest of the epilogue (6), and the premax pass (3); its per-sample
 # prologue spread over the pixels is below one.  The arithmetic side of
 # the kernels' roofline
-FP32_OPS_PER_PIXEL = {"warp_patch": 19, "warp_norm": 28 + 3 * CLUSTER}
+FP32_OPS_PER_PIXEL = {"warp_patch": 19, "warp_norm": 31}
 
 # columns of the params tensors: K4 takes the inverse transform's top two
 # rows; the plain K5 those and then the normalization columns, which K5
@@ -62,9 +56,8 @@ NORM_COLS = ("s_in", "t_in", "thresh", "zs_t", "ze_t", "zstart2", "zend2",
 # the augmentation modes, in the order of csrc/warp.cu's Mode enum
 MODES = ("none", "com", "rot", "sc")
 # K4 and K5 stage one sample's patch in one block's shared memory: the
-# card's 227 KB per block, less a margin for K5's barrier and constants
+# card's 227 KB per block, less a margin for K5's constants
 MAX_PATCH_BYTES = 227 * 1024 - 1024
-_MAX_GRID_Y = 65535
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,10 +72,10 @@ def build() -> ctypes.CDLL:
     # patch, mode_idx, off, rot, sc, com, cube, cube_stride, m, fx, fy, ux,
     # uy, flip_y, img_h, img_w, 4 mode masks, norm_zero_one, border, use_nv,
     # nv_val, nv_thresh, out, new_com, new_cube, m_out, com3d, new_com3d_c,
-    # rot_out, is_mode, b, h, w, cluster, stream
+    # rot_out, is_mode, b, h, w, stream
     lib.dp_warp_norm.argtypes = (
         [ptr] * 7 + [i32, ptr] + [f32] * 4 + [i32] * 3 + [i32] * 4 + [i32]
-        + [f32, i32, f32, f32] + [ptr] * 8 + [i32] * 4 + [ptr])
+        + [f32, i32, f32, f32] + [ptr] * 8 + [i32] * 3 + [ptr])
     for fn in (lib.dp_warp_patch, lib.dp_warp_norm):
         fn.restype = i32
     lib.dp_warp_constant.argtypes = [i32]
@@ -372,15 +365,12 @@ def warp_norm_args(patch, params, com, cube, m, camera: Camera,
                         bool(norm_zero_one), outs)
 
 
-def launch_warp_norm(patch, args: WarpNormArgs, border: float = 0.0, nv_val=None,
-                     cluster: int = CLUSTER) -> WarpNormOut:
+def launch_warp_norm(patch, args: WarpNormArgs, border: float = 0.0,
+                     nv_val=None) -> WarpNormOut:
     """Run K5 on CUDA tensors: normalized patches (B, H, W) float32 and
     ``warp_norm_args``' tensors -> ``args.outs``, written by one launch of
-    one thread-block cluster of ``cluster`` blocks (``CLUSTER_SIZES``) per
-    sample, each staging the whole patch in its shared memory
+    one block per sample, which stages the whole patch in its shared memory
     (``MAX_PATCH_BYTES``).  A refused launch raises."""
-    if cluster not in CLUSTER_SIZES:
-        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     tensors = [t for t in (patch, *args[:8], *args.outs) if isinstance(t, torch.Tensor)]
     if patch.device.type != "cuda" or any(t.device != patch.device for t in tensors):
         raise ValueError(
@@ -398,8 +388,6 @@ def launch_warp_norm(patch, args: WarpNormArgs, border: float = 0.0, nv_val=None
     b, h, w = patch.shape
     if args.mode_idx.shape != (b,):
         raise ValueError(f"args are for {args.mode_idx.shape[0]} samples, patch has {b}")
-    if b > _MAX_GRID_Y:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit {_MAX_GRID_Y}")
     if h * w * 4 > MAX_PATCH_BYTES:
         raise ValueError(
             f"a {h}x{w} float32 patch ({h * w * 4} bytes) does not fit in one "
@@ -417,7 +405,7 @@ def launch_warp_norm(patch, args: WarpNormArgs, border: float = 0.0, nv_val=None
             int(args.norm_zero_one), float(border), *_nv_args(nv_val),
             o.out.data_ptr(), o.new_com.data_ptr(), o.new_cube.data_ptr(),
             o.m_out.data_ptr(), o.com3d.data_ptr(), o.new_com3d_c.data_ptr(),
-            o.rot.data_ptr(), o.is_mode.data_ptr(), b, h, w, cluster, stream,
+            o.rot.data_ptr(), o.is_mode.data_ptr(), b, h, w, stream,
         )
     if err != 0:
         raise RuntimeError(

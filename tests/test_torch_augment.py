@@ -96,20 +96,20 @@ def test_augment_linear_matches_jax(batch):
 
 
 def test_kernel_paths_on_cpu(batch):
-    """use_pallas=True runs K4's plain version (no /sz); fuse_norm=True
-    K5's, which equals the unfused pipeline bit for bit; block_k changes
-    nothing."""
+    """use_pallas=True with fuse_norm=False runs K4's plain version (no
+    /sz); fuse_norm=True K5's, which equals the unfused pipeline bit for
+    bit; block_k changes nothing."""
     crops, gt3d, com, cube, m = batch
     cn = torch.from_numpy(_normed(crops, com, cube, False))
     params = taug.sample_augment_params(torch.Generator().manual_seed(3), B, 4)
     kw = dict(aug_modes=MODES["all"], params=params)
     gather = taug.augment_batch(None, cn, gt3d, com, cube, m, NYU_CAMERA, **kw)
     k4 = taug.augment_batch(None, cn, gt3d, com, cube, m, NYU_CAMERA,
-                            use_pallas=True, **kw)
+                            use_pallas=True, fuse_norm=False, **kw)
     k5 = taug.augment_batch(None, cn, gt3d, com, cube, m, NYU_CAMERA,
                             use_pallas=True, fuse_norm=True, **kw)
     k4b = taug.augment_batch(None, cn, gt3d, com, cube, m, NYU_CAMERA,
-                             use_pallas=True, block_k=4, **kw)
+                             use_pallas=True, fuse_norm=False, block_k=4, **kw)
     bad = int((k4[0] != gather[0]).sum())
     assert bad <= max(1e-4 * k4[0].numel(), 2), bad
     for a, b, c in zip(k4, k5, k4b):
