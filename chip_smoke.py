@@ -34,8 +34,19 @@ probe scripts deepprior_tpu_torch.prof.prof_bench (K6) and prof_warp_bf16
 byte models, with their launches per estimator call and train step;
 phase 20 runs the profiling helpers on the estimator at B = 1 (dispatch
 included, and its CUDA graph: the device floor), holds a replayed CUDA
-graph of the estimator to the eager call bit for bit.  Every phase raises on failure, so the exit code is 0 only
-when all passed.  The last line is {"ok": true, "device": {...}}; the
+graph of the estimator to the eager call bit for bit.  Phases 21-26 (run
+after phase 16) drive the graph-replaying serving path: the registered
+crop operator against launch_crop (K1 and K2, B = 512, and opcheck);
+FusedEstimator.aot_compile at B = 1 and 512 against the eager _pipeline
+on two input batches in turn, its B = 1 call timed in turns with the
+dispatched __call__; MicroBatchServer replaying the graph from pinned
+memory against graph=False on the same 64 requests, then both timed in
+turns (requests/s, p50/p99 latency); the training main's
+network_prior.ckpt through load_serving_net; both artifact kinds at
+batch 64 against _pipeline and through the fixed-config server (export,
+load and first-call times); and serve_http --checkpoint as a subprocess
+answering /healthz and /predict.  Every phase raises on failure, so the
+exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
 JSON.
 
@@ -53,6 +64,7 @@ import argparse
 import copy
 import json
 import math
+import signal
 import subprocess
 import sys
 import threading
@@ -480,8 +492,10 @@ def main(argv=None):
         "kernel_only_ms": launch_ms,
         "wrapper_device_ops_per_call": len(wrapper_ops),
     }]
-    kernels += training_phases(dev, tag, log, profile=args.profile)
+    trained = {}
+    kernels += training_phases(dev, tag, log, profile=args.profile, trained=trained)
     kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
+    serving_phases(dev, tag, log, model, prior, trained)
     kernels += probe_phases(dev, tag, log)
     roofline_phases(dev, tag, log, model, prior, kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -555,11 +569,13 @@ def graph_ms(fn, iters):
                                torch.zeros(1, device="cuda"), iters=iters)
 
 
-def training_phases(dev, tag, log, profile=False):
+def training_phases(dev, tag, log, profile=False, trained=None):
     """Phases 7-10: the warp kernels K4 and K5 against their plain
     versions, the training main path, a training step on the card against
     the CPU, and the training timings; with ``profile``, phase 11.  Returns
-    the kernels' JSON records."""
+    the kernels' JSON records.  ``trained`` (a dict) receives the last
+    training main's state, the PCA prior it fitted and its
+    network_prior.ckpt (phase 24 serves it)."""
     import torch
 
     from deepprior_tpu_torch.camera import NYU_CAMERA
@@ -567,6 +583,7 @@ def training_phases(dev, tag, log, profile=False):
     from deepprior_tpu_torch.geometry import rotation_matrix_2d
     from deepprior_tpu_torch.mains import main_nyu_posereg_embedding
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch import prior as tprior
     from deepprior_tpu_torch.ops import hopper_warp as hw
     from deepprior_tpu_torch.ops.crop import crop_transform
     from deepprior_tpu_torch.ops.augment import (
@@ -697,14 +714,27 @@ def training_phases(dev, tag, log, profile=False):
     # ---------------------------------------------------------------- 8
     def train_main(extra, epochs):
         """The port's flagship entry point, as a user runs it."""
+        fitted = []
+
+        def fit(*a, **kw):  # keeps the prior the main fits
+            fitted.append(real_fit(*a, **kw))
+            return fitted[-1]
+
+        real_fit, tprior.fit_pose_prior = tprior.fit_pose_prior, fit
         hw.LAUNCHES.update(warp_patch=0, warp_norm=0)
         t0 = time.perf_counter()
-        _, results, hist = main_nyu_posereg_embedding.main([
-            "--synthetic", "--epochs", str(epochs), "--batch-size", "128",
-            "--nmax", "512", "--out", "eval/chip_smoke", "--device",
-            str(dev)] + extra)
+        try:
+            state, results, hist = main_nyu_posereg_embedding.main([
+                "--synthetic", "--epochs", str(epochs), "--batch-size", "128",
+                "--nmax", "512", "--out", "eval/chip_smoke", "--device",
+                str(dev)] + extra)
+        finally:
+            tprior.fit_pose_prior = real_fit
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if trained is not None:
+            trained.update(state=state, prior=fitted[-1],
+                           ckpt="eval/chip_smoke/train_EMB_PCA30/network_prior.ckpt")
         counts = dict(hw.LAUNCHES)
         costs = np.asarray(hist["train_cost"])
         if costs.shape != (4 * epochs,) or not np.isfinite(costs).all():
@@ -1214,6 +1244,399 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
             "replaces": "deepprior_tpu/ops/pallas_crop.py:417",
             "launches": k2_launches, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "kernel_only_ms": k2_ms}
+
+
+def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64):
+    """Phases 21-26, the graph-replaying serving path, run after phase 16:
+    (21) the registered crop operator against ``launch_crop`` for K1 and K2
+    at B = 512, and ``torch.library.opcheck`` on the card; (22)
+    ``FusedEstimator.aot_compile`` at B = 1 and B = 512 against the eager
+    ``_pipeline`` on two input batches in turn, and the B = 1 call in turns
+    with the dispatched ``__call__``; (23) ``MicroBatchServer`` replaying the
+    graph from pinned memory against ``graph=False`` on the same 64 requests,
+    then both timed in turns; (24) the training main's network_prior.ckpt
+    through ``load_serving_net``; (25) both artifact kinds at batch 64
+    against ``_pipeline`` and through the fixed-config server; (26)
+    ``serve_http --checkpoint`` as a subprocess.  ``model`` and ``prior`` are
+    phase 4's, ``trained`` phase 8's."""
+    import http.client
+    import io
+    import os
+    import queue
+
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.mains.common import load_serving_net
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.realtime import export as xp
+    from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    cam = NYU_CAMERA
+    hw = (cam.height, cam.width)
+    rng = np.random.default_rng(41)
+    n_unique = 32
+    pairs = [make_depth_frame(cam, rng) for _ in range(n_unique)]
+    depth_np = np.stack([p[0] for p in pairs])
+    com_np = np.stack([p[1] for p in pairs])
+    depth = torch.from_numpy(depth_np).to(dev).repeat(batch // n_unique, 1, 1)
+    com = torch.from_numpy(com_np).to(dev).repeat(batch // n_unique, 1)
+    # a second input batch: the same frames shifted by one sample
+    depth2, com2 = depth.roll(1, 0).contiguous(), com.roll(1, 0).contiguous()
+    counts = hopper_crop.LAUNCHES
+
+    def reset():
+        counts.update(dict.fromkeys(counts, 0))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def scribble():
+        """Fill freed device memory with NaN: a graph that reads memory it
+        does not hold then gives NaN in its next replay."""
+        junk = [torch.full((n,), float("nan"), device=dev)
+                for n in (1, 3, 12, 128, 4096, 1 << 20) for _ in range(8)]
+        del junk
+        torch.cuda.synchronize()
+
+    def eager(est, d, c):
+        with torch.inference_mode():
+            out = est._pipeline(d, c)
+        torch.cuda.synchronize()
+        return out
+
+    # --------------------------------------------------------------- 21
+    op = torch.ops.deepprior_tpu_torch.normalized_crop
+    cubes = {"one cube": torch.tensor([250.0] * 3, device=dev),
+             "per-sample cubes": torch.from_numpy(
+                 rng.uniform(150.0, 450.0, (batch, 3)).astype(np.float32)).to(dev)}
+    for linear in (False, True):
+        for label, cube in cubes.items():
+            reset()
+            got = op(depth, com, cube, float(cam.fx), float(cam.fy), 128, 128, False,
+                     True, linear)
+            want = hopper_crop.launch_crop(
+                depth, hopper_crop.crop_args(depth, com, cube, cam.fx, cam.fy,
+                                             fuse_clamp=True), linear=linear)
+            torch.cuda.synchronize()
+            name = "normalized_crop_linear" if linear else "normalized_crop"
+            if counts[name] != 2 or not same(got, want):
+                raise AssertionError(f"op {name} {label}: launches {dict(counts)}, "
+                                     f"equal {[torch.equal(a, b) for a, b in zip(got, want)]}")
+        torch.library.opcheck(hopper_crop.normalized_crop_op,
+                              (depth[:4], com[:4], cubes["one cube"], float(cam.fx),
+                               float(cam.fy), 128, 128, False, True, linear))
+    log(f"[21 op] B={batch} NYU: torch.ops.deepprior_tpu_torch.normalized_crop == "
+        f"launch_crop bit for bit (crops and M) for K1 and K2, one cube and per-sample "
+        f"cubes, one launch each; torch.library.opcheck passes on the card (torch "
+        f"{torch.__version__})")
+
+    # --------------------------------------------------------------- 22
+    est = FusedEstimator(model, cam, prior=prior, device=dev)
+    if not est.captures:
+        raise AssertionError("the serving estimator does not capture")
+    compiled, capture_s = {}, {}
+    for b in (1, batch):
+        reset()
+        t0 = time.perf_counter()
+        fn = est.aot_compile(b, hw)
+        torch.cuda.synchronize()
+        capture_s[b] = time.perf_counter() - t0
+        at_capture = counts["normalized_crop"]
+        reset()
+        outs = []
+        for d, c in ((depth, com), (depth2, com2)):
+            scribble()
+            outs.append(fn(d[:b], c[:b]))
+        torch.cuda.synchronize()
+        replayed = dict(counts)
+        want = [eager(est, d[:b], c[:b]) for d, c in ((depth, com), (depth2, com2))]
+        if at_capture < 1 or any(replayed.values()):
+            raise AssertionError(f"B={b}: kernel launches at capture {at_capture}, "
+                                 f"in replays {replayed}")
+        if not (same(outs[0], want[0]) and same(outs[1], want[1])):
+            raise AssertionError(f"B={b}: aot_compile's replay != the eager _pipeline")
+        if same(outs[0], outs[1]):
+            raise AssertionError(f"B={b}: two input batches gave one output")
+        compiled[b] = fn
+    d1, c1 = depth_np[:1], com_np[:1]
+
+    def host_ms(call, n=200):
+        runs = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            call()[0].cpu()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(runs[5:])
+
+    turns = {"dispatched": [], "aot": []}
+    for key in ("dispatched", "aot", "aot", "dispatched"):
+        call = ((lambda: est(d1, c1)) if key == "dispatched"
+                else (lambda: compiled[1](d1, c1)))
+        turns[key].append(host_ms(call))
+    stat = {k: (float(np.median(np.concatenate(v))), float(np.mean(np.concatenate(v))),
+                float(np.percentile(np.concatenate(v), 99))) for k, v in turns.items()}
+    log(f"[22 aot_compile] {tag} B=1 and B={batch} NYU: the replayed graph == the eager "
+        f"_pipeline bit for bit on two input batches in turn (joints, CoMs, crops; the "
+        f"first result kept after the second call; freed memory filled with NaN "
+        f"before each call); the crop wrapper ran "
+        f"{at_capture} times at capture (warm-up and capture) and 0 times in replays; "
+        f"capture {capture_s[1]:.3f} s (B=1), {capture_s[batch]:.3f} s (B={batch})")
+    log(f"[22 aot_compile] {tag} B=1 host clock, numpy frame in, joints on the host out "
+        f"(195 calls x2, in turns): aot_compile median {stat['aot'][0]:.4f} ms mean "
+        f"{stat['aot'][1]:.4f} p99 {stat['aot'][2]:.4f}; dispatched __call__ median "
+        f"{stat['dispatched'][0]:.4f} ms mean {stat['dispatched'][1]:.4f} p99 "
+        f"{stat['dispatched'][2]:.4f}; speed-up {stat['dispatched'][0] / stat['aot'][0]:.2f}x")
+    del compiled, fn, outs, want
+
+    # --------------------------------------------------------------- 23
+    def request(i):
+        cube_i = np.full(3, 300.0, np.float32) if i % 3 == 0 else None
+        return depth_np[i % n_unique], com_np[i % n_unique], cube_i, i % 4 == 1
+
+    def serve(graph, n, threads=4, wait_ms=2.0):
+        """n requests from ``threads`` threads; returns (joints (n, J, 3),
+        requests/s, per-request latencies in ms, stats, kernel launches)."""
+        reset()
+        with MicroBatchServer(est, max_batch=max_batch, max_wait_ms=wait_ms,
+                              graph=graph) as srv:
+            if srv.graph != graph:
+                raise AssertionError(f"graph={graph} resolved to {srv.graph}")
+            srv.submit(*request(0)[:2]).result(timeout=300)  # warm
+            t_in, t_out, futs = np.zeros(n), np.zeros(n), [None] * n
+
+            def done(i):
+                return lambda f: t_out.__setitem__(i, time.perf_counter())
+
+            def worker(t):
+                for i in range(t, n, threads):
+                    d, c, cb, mr = request(i)
+                    t_in[i] = time.perf_counter()
+                    futs[i] = srv.submit(d, c, cube=cb, mirror=mr)
+                    futs[i].add_done_callback(done(i))
+
+            t0 = time.perf_counter()
+            pool = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+            for th in pool:
+                th.start()
+            for th in pool:
+                th.join(timeout=300)
+                if th.is_alive():
+                    raise AssertionError("a submitting thread hung")
+            got = np.stack([f.result(timeout=300) for f in futs])
+            wall = time.perf_counter() - t0
+            stats = dict(srv.stats)
+        if stats["errors"]:
+            raise AssertionError(f"server stats {stats}")
+        return got, n / wall, (t_out - t_in) * 1e3, stats, dict(counts)
+
+    graph_j, _, _, graph_stats, graph_launches = serve(True, max_batch, 1, 200.0)
+    eager_j, _, _, eager_stats, eager_launches = serve(False, max_batch, 1, 200.0)
+    if not np.array_equal(graph_j, eager_j):
+        raise AssertionError(f"server: graph != eager joints by "
+                             f"{np.abs(graph_j - eager_j).max()} mm")
+    if graph_launches["normalized_crop"] < 1 or eager_launches["normalized_crop"] < 2:
+        raise AssertionError(f"server launches: graph {graph_launches}, "
+                             f"eager {eager_launches}")
+    log(f"[23 server] {max_batch} requests with mixed cube/mirror: graph + pinned "
+        f"joints == graph=False joints bit for bit (graph: {graph_stats}, crop wrapper "
+        f"{graph_launches['normalized_crop']} launches, all at capture; eager: "
+        f"{eager_stats}, {eager_launches['normalized_crop']} launches)")
+    n_req, runs = 2048, {True: [], False: []}
+    for graph in (False, True, True, False):
+        _, rate, lat, stats, _ = serve(graph, n_req)
+        runs[graph].append((rate, lat, stats))
+    for graph, label in ((True, "graph + pinned"), (False, "eager")):
+        rates = [r for r, _, _ in runs[graph]]
+        lat = np.concatenate([x for _, x, _ in runs[graph]])
+        occ = [s["frames"] / (s["batches"] * max_batch) for _, _, s in runs[graph]]
+        log(f"[23 server] {tag} {label}: {n_req} requests from 4 threads at "
+            f"max_batch {max_batch}, max_wait 2 ms (x2, in turns): "
+            f"{min(rates):.1f}-{max(rates):.1f} requests/s, latency p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms, "
+            f"occupancy {min(occ):.3f}-{max(occ):.3f}")
+
+    # --------------------------------------------------------------- 24
+    state, fitted, ckpt = trained["state"], trained["prior"], trained["ckpt"]
+    loaded_model, loaded_prior = load_serving_net(checkpoint=ckpt, device=dev)
+    want_sd = state.model.state_dict()
+    if (set(loaded_model.state_dict()) != set(want_sd) or not all(
+            torch.equal(v, want_sd[k]) for k, v in loaded_model.state_dict().items())
+            or not torch.equal(loaded_prior.components.cpu(), fitted.components.cpu())
+            or not torch.equal(loaded_prior.mean.cpu(), fitted.mean.cpu())):
+        raise AssertionError("load_serving_net did not restore the trained weights and prior")
+    served = FusedEstimator(loaded_model, cam, prior=loaded_prior, device=dev)
+    direct = FusedEstimator(state.model, cam, prior=fitted, device=dev)
+    a, b = served(depth[:max_batch], com[:max_batch]), direct(depth[:max_batch], com[:max_batch])
+    torch.cuda.synchronize()
+    if not same(a, b) or not torch.isfinite(a[0]).all():
+        raise AssertionError("the checkpoint's estimator != the trained model's")
+    log(f"[24 checkpoint] {ckpt}: load_serving_net restores the trained f32 PoseRegNet "
+        f"(hidden 1024) and the fitted PCA (30, 42) exactly; its estimator's joints == "
+        f"the trained model's bit for bit at B={max_batch}")
+
+    # --------------------------------------------------------------- 25
+    ref = eager(est, depth[:max_batch], com[:max_batch])
+    ref2 = eager(est, depth2[:max_batch], com2[:max_batch])
+    # the first call takes host frames, as a server hands them over
+    host_in = (depth_np[np.arange(max_batch) % n_unique], com_np[np.arange(max_batch) % n_unique])
+    os.makedirs("eval/chip_smoke", exist_ok=True)
+    for kind, write in (("stablehlo", xp.export_serving), ("compiled", xp.precompile_serving)):
+        path = f"eval/chip_smoke/serve_{kind}.dpx"
+        t0 = time.perf_counter()
+        write(est, max_batch, hw, path)
+        export_s = time.perf_counter() - t0
+        reset()
+        t0 = time.perf_counter()
+        art = xp.ArtifactEstimator(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        at_load = counts["normalized_crop"]
+        scribble()
+        reset()
+        t0 = time.perf_counter()
+        got = art(*host_in)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first_launches = counts["normalized_crop"]
+        scribble()
+        got2 = art(depth2[:max_batch], com2[:max_batch])
+        torch.cuda.synchronize()
+        joint_err = max((g[0] - r[0]).abs().max().item() for g, r in ((got, ref), (got2, ref2)))
+        exact = same(got, ref) and same(got2, ref2)
+        if not exact:
+            # an op that torch.export rewrites may round otherwise: the crops
+            # (the kernel) and CoMs stay exact, the joints within the 1e-3 mm gate
+            diff = [n for n, g, r in zip(("joints", "com3d", "crops"), got, ref)
+                    if not torch.equal(g, r)]
+            if "crops" in diff or "com3d" in diff or joint_err > 1e-3:
+                raise AssertionError(f"{kind} artifact != _pipeline in {diff}, "
+                                     f"joints by {joint_err} mm")
+            log(f"[25 artifacts] {kind}: differs from _pipeline in {diff} by at most "
+                f"{joint_err} mm")
+        ran_k1 = (first_launches == 1) if kind == "stablehlo" else (at_load >= 1 and first_launches == 0)
+        if not ran_k1:
+            raise AssertionError(f"{kind}: crop launches at load {at_load}, first call "
+                                 f"{first_launches}")
+        with MicroBatchServer(art, max_batch=art.batch, max_wait_ms=200.0,
+                              frame_shape=art.hw) as srv:
+            futs = [srv.submit(depth_np[i % n_unique], com_np[i % n_unique])
+                    for i in range(max_batch)]
+            served_j = np.stack([f.result(timeout=300) for f in futs])
+            try:
+                srv.submit(depth_np[0], com_np[0], cube=np.full(3, 300.0, np.float32))
+                raise AssertionError("a fixed-config server took a per-request cube")
+            except ValueError as e:
+                if "fixed-config" not in str(e):
+                    raise
+        if not np.array_equal(served_j, got[0].cpu().numpy()):
+            raise AssertionError(f"{kind}: the fixed-config server != the artifact's call")
+        moved = ""
+        if kind == "stablehlo":
+            # the exported program moved to the CPU runs the plain crop there:
+            # the same crops as the card's kernel
+            t0 = time.perf_counter()
+            cpu_fn, _ = xp.load_serving(path, device="cpu")
+            cpu_out = cpu_fn(*host_in)
+            cpu_s = time.perf_counter() - t0
+            if not (torch.equal(cpu_out[2], ref[2].cpu())
+                    and torch.isfinite(cpu_out[0]).all()):
+                raise AssertionError("the artifact moved to the CPU gives other crops")
+            moved = (f"; moved to the CPU (move_to_device_pass) it gives the card's crops "
+                     f"bit for bit, joints within "
+                     f"{(cpu_out[0] - ref[0].cpu()).abs().max().item():.4f} mm (bf16 on "
+                     f"the CPU), {cpu_s:.3f} s to load and run")
+        log(f"[25 artifacts] {tag} {kind} at batch {max_batch} NYU: == _pipeline "
+            f"{'bit for bit' if exact else f'within {joint_err} mm'} on two input "
+            f"batches; K1 launched {at_load} times at load and {first_launches} in the "
+            f"first call; fixed-config MicroBatchServer serves it bit for bit and "
+            f"refuses a per-request cube; export {export_s:.3f} s, load {load_s:.3f} s, "
+            f"first call {first_s * 1e3:.3f} ms ({os.path.getsize(path)} bytes){moved}")
+        del art
+
+    # --------------------------------------------------------------- 26
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepprior_tpu_torch.mains.serve_http", "--checkpoint",
+         ckpt, "--port", "0", "--device", str(dev), "--max-wait-ms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              daemon=True)
+    reader.start()
+    try:
+        port, seen = None, []
+        deadline = time.monotonic() + 240
+        while port is None:
+            try:
+                ln = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"serve_http did not start (exit "
+                                         f"{proc.poll()}): {seen}")
+                continue
+            seen.append(ln.rstrip())
+            if ln.startswith("serving on http://"):
+                port = int(ln.split()[2].rsplit(":", 1)[1])
+
+        def call(method, path, body=None):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                conn.request(method, path, body=body)
+                resp = conn.getresponse()
+                return resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+
+        def npz(i):
+            buf = io.BytesIO()
+            np.savez(buf, depth=depth_np[i], com=com_np[i])
+            return buf.getvalue()
+
+        results = {}
+        posts = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, call("POST", "/predict", npz(i)))) for i in range(4)]
+        for th in posts:
+            th.start()
+        for th in posts:
+            th.join(timeout=300)
+        health = call("GET", "/healthz")
+        bad = call("POST", "/predict", b"not an npz")[0]
+        # the subprocess runs with torch's default TF32 settings (cuDNN's convs
+        # in TF32): the reference takes them too
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            want = [eager(served, torch.from_numpy(depth_np[[i] * max_batch]).to(dev),
+                          torch.from_numpy(com_np[[i] * max_batch]).to(dev))[0][0].cpu().numpy()
+                    for i in range(4)]
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        errs = []
+        for i in range(4):
+            status, out = results.get(i, (None, None))
+            if status != 200:
+                raise AssertionError(f"POST {i}: {status} {out}")
+            errs.append(float(np.abs(np.asarray(out["joints"], np.float32) - want[i]).max()))
+        if max(errs) > 1e-3 or health[0] != 200 or health[1]["stats"]["frames"] < 4 \
+                or bad != 400:
+            raise AssertionError(f"serve_http: joints off by {errs} mm, healthz {health}, "
+                                 f"bad body {bad}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    log(f"[26 serve_http] python -m deepprior_tpu_torch.mains.serve_http --checkpoint "
+        f"{ckpt} --device {dev}: {seen[-1]}; /healthz {health[1]}; 4 concurrent "
+        f"/predict posts answered with the checkpoint estimator's joints (max |d| "
+        f"{max(errs)} mm, the reference with torch's default TF32 as in the "
+        f"subprocess); a bad body 400; stopped with SIGINT, exit {proc.returncode}")
+    del est, served, direct
+    torch.cuda.empty_cache()
 
 
 def probe_phases(dev, tag, log):

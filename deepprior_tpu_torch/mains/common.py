@@ -3,8 +3,9 @@
 ``run_posereg_embedding`` is the flagship recipe (reference
 main_nyu_posereg_embedding.py:38-205) on synthetic data: frames -> PCA
 prior from sampled poses -> PoseRegNet 30-D embedding training with
-augmentation -> decode -> metrics -> results.json.  ``load_serving_net``
-gives the serving entry points their model and prior.
+augmentation -> network_prior.ckpt -> decode -> metrics -> results.json.
+``load_serving_net`` gives the serving entry points their model and
+prior: random weights, or the trained ones from a network_prior.ckpt.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ _TODO = {
     "streamed": "--streamed needs fit_streamed (ROADMAP.md Queue 1 item 13)",
     "accept": "--accept needs the baseline loaders and plots (ROADMAP.md "
               "Queue 1 item 20)",
-    "checkpoint": "--checkpoint needs train/checkpoint.py (ROADMAP.md Queue 1 "
-                  "item 13)",
     "ref_pickle": "reference .pkl weights need utils/refweights.py (ROADMAP.md "
                   "Queue 1 item 14)",
 }
@@ -130,10 +129,14 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     """The flagship recipe on synthetic data.
 
     Returns (state, {seq name: HandposeEvaluation}, training history) and
-    writes <out>/<prefix>/results.json with the JAX main's metrics."""
+    writes <out>/<prefix>/network_prior.ckpt (the trained weights and the
+    PCA prior, fingerprinted with the TrainConfig; ``load_serving_net``
+    reads it) and <out>/<prefix>/results.json with the JAX main's
+    metrics."""
     from deepprior_tpu_torch.eval.metrics import HandposeEvaluation
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
     from deepprior_tpu_torch.prior import fit_pose_prior
+    from deepprior_tpu_torch.train.checkpoint import save_checkpoint
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
 
     check_ported(args)
@@ -177,6 +180,18 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     state, hist = trainer.fit(state, data, val_data=val, log=log)
     log(f"training took {time.time() - t0:.1f}s")
 
+    # save the final net + prior (the reference appends the PCA decode layer
+    # and saves network_prior.pkl, main:148-158)
+    save_checkpoint(
+        os.path.join(outdir, "network_prior.ckpt"),
+        {
+            "params": state.model.state_dict(),
+            "pca_components": prior.components,
+            "pca_mean": prior.mean,
+        },
+        config=cfg._asdict(),
+    )
+
     # test: decode to mm and the metric suite (main:161-205)
     metrics, results = {}, {}
     for seq in tests:
@@ -209,29 +224,40 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
 
 def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
                      device=None):
-    """Model and prior for the serving entry points: the random-weights
-    branch of the JAX ``load_serving_net`` (pipeline smoke mode).
-    PoseRegNet type 0 with a 30-D output (hidden 1024, float32, weights
-    from ``torch.Generator`` seed 0) and a random (30, 42) PCA prior from
-    numpy seed 0.  Trained weights (``checkpoint``, ``ref_pickle``) and
-    ResNet raise NotImplementedError naming their ROADMAP items.
+    """Model and prior for the serving entry points: PoseRegNet type 0 with
+    a 30-D output (hidden 1024, float32).  With ``checkpoint`` (a
+    network_prior.ckpt of ``run_posereg_embedding``) its trained weights
+    and PCA prior; a missing file raises FileNotFoundError.  Without, the
+    random-weights branch of the JAX ``load_serving_net`` (pipeline smoke
+    mode): weights from ``torch.Generator`` seed 0 and a random (30, 42)
+    PCA prior from numpy seed 0.  ``ref_pickle`` and ResNet raise
+    NotImplementedError naming their ROADMAP items.
 
     Returns (model on ``device``, prior)."""
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
     from deepprior_tpu_torch.prior import PCAPrior
+    from deepprior_tpu_torch.train.checkpoint import load_checkpoint
 
     if ref_pickle:
         raise NotImplementedError(_TODO["ref_pickle"])
     if model_name == "resnet":
         raise NotImplementedError(_TODO["resnet"])
-    if checkpoint:
-        raise NotImplementedError(_TODO["checkpoint"])
     device = torch.device(device) if device else default_device()
     model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
-                       generator=torch.Generator().manual_seed(0)).to(device)
-    rng = np.random.default_rng(0)
-    prior = PCAPrior(
-        components=rng.standard_normal((30, 42)).astype(np.float32) * 0.05,
-        mean=np.zeros(42, np.float32),
-    )
-    return model, prior
+                       generator=torch.Generator().manual_seed(0))
+    if checkpoint:
+        tree = {
+            "params": model.state_dict(),
+            "pca_components": np.zeros((30, 42), np.float32),
+            "pca_mean": np.zeros(42, np.float32),
+        }
+        tree, _ = load_checkpoint(checkpoint, tree)
+        model.load_state_dict(tree["params"])
+        prior = PCAPrior(tree["pca_components"], tree["pca_mean"])
+    else:
+        rng = np.random.default_rng(0)
+        prior = PCAPrior(
+            components=rng.standard_normal((30, 42)).astype(np.float32) * 0.05,
+            mean=np.zeros(42, np.float32),
+        )
+    return model.to(device), prior

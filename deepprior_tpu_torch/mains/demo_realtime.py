@@ -5,7 +5,8 @@ synthetic camera, detecting the hand on the device, and reports fps.
     python -m deepprior_tpu_torch.mains.demo_realtime --frames 100 [--threaded] [--comref]
 
 Random weights (PoseRegNet type 0, 30-D PCA prior; with --comref a
-full-width ScaleNet CoM refiner).  --device is the torch device, cuda by
+full-width ScaleNet CoM refiner), or with --checkpoint the trained net and
+prior of a network_prior.ckpt written by the training main.  --device is the torch device, cuda by
 default; without a card the demo raises unless given --device cpu.  The
 camera is the synthetic one; the JAX demo's camera spellings are accepted:
 --device synthetic means the default torch device, and --device capture is
@@ -32,8 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--threaded", action="store_true")
     p.add_argument("--comref", action="store_true",
                    help="ScaleNet CNN CoM refinement in the detect path")
+    p.add_argument("--checkpoint", default=None,
+                   help="trained network_prior.ckpt (random weights if absent)")
     # not ported yet: parsed so that asking for them fails loudly
-    p.add_argument("--checkpoint", default=None)
     p.add_argument("--ref-pickle", default=None)
     p.add_argument("--comref-pickle", default=None)
     p.add_argument("--model", default="poseregnet", choices=["poseregnet", "resnet"])

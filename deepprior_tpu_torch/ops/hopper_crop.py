@@ -19,14 +19,17 @@ and reduction, two clamps, the kernel) and one without it.
 input of the byte model ``crop_bytes`` and the reference the kernel's
 geometry is held to.  On a CPU tensor ``hopper_normalized_crop`` runs the
 plain crop (ops/crop.py::normalized_crop).  On a CUDA tensor it launches
-the kernel or raises: there is no fallback.
+the kernel or raises: there is no fallback.  Both go through one
+registered operator, ``torch.ops.deepprior_tpu_torch.normalized_crop``
+(``normalized_crop_op``), with a fake version for shapes, so that
+``torch.export`` can trace the crop and a CUDA graph can capture it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -230,6 +233,54 @@ def launch_crop(dpt, args: CropArgs, norm_zero_one=False, linear=False):
     return args.out, args.m
 
 
+@torch.library.custom_op("deepprior_tpu_torch::normalized_crop", mutates_args=())
+def normalized_crop_op(
+    dpt: torch.Tensor,
+    com: torch.Tensor,
+    cube: torch.Tensor,
+    fx: float,
+    fy: float,
+    dw: int,
+    dh: int,
+    norm_zero_one: bool,
+    fuse_clamp: bool,
+    linear: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The crop as a registered operator, ``torch.ops.deepprior_tpu_torch.
+    normalized_crop``: what ``torch.export`` and a CUDA graph see of K1/K2.
+    A ctypes call cannot be traced; an operator with a fake (shape-only)
+    version can, and an exported program calls it by name once this module
+    is imported.  Functional: returns fresh (crops (B, dh, dw), M (B, 3, 3)).
+
+    On a CUDA tensor: ``crop_args`` and ``launch_crop``, the hand-written
+    kernel, which raises on a build or launch failure.  On a CPU tensor:
+    the plain crop of ops/crop.py."""
+    raise ValueError(f"normalized_crop runs on cpu or cuda, not {dpt.device}")
+
+
+@normalized_crop_op.register_kernel("cuda")
+def _normalized_crop_cuda(dpt, com, cube, fx, fy, dw, dh, norm_zero_one, fuse_clamp,
+                          linear):
+    args = crop_args(dpt, com, cube, fx, fy, (dw, dh), fuse_clamp)
+    return launch_crop(dpt, args, norm_zero_one, linear=linear)
+
+
+@normalized_crop_op.register_kernel("cpu")
+def _normalized_crop_cpu(dpt, com, cube, fx, fy, dw, dh, norm_zero_one, fuse_clamp,
+                         linear):
+    if fuse_clamp:
+        dpt, _, _ = clamp_depth(dpt)
+    return normalized_crop(dpt, com, cube, fx, fy, (dw, dh), norm_zero_one,
+                           use_bilinear=linear)
+
+
+@normalized_crop_op.register_fake
+def _normalized_crop_fake(dpt, com, cube, fx, fy, dw, dh, norm_zero_one, fuse_clamp,
+                          linear):
+    b = dpt.shape[0]
+    return dpt.new_empty((b, dh, dw)), dpt.new_empty((b, 3, 3))
+
+
 def hopper_normalized_crop(
     dpt,
     com,
@@ -254,15 +305,15 @@ def hopper_normalized_crop(
     com: (B, 3); cube: (3,) or (B, 3); fx, fy: Python numbers.
     win_rows, win_cols and block_k are the TPU kernel's banded-window and
     blocking knobs; accepted so callers carry over, and without effect.
+    Runs the registered operator ``normalized_crop_op``: the kernel on a
+    CUDA tensor, the plain crop on a CPU tensor.
     Returns (crop_norm (B, dh, dw), M (B, 3, 3)).
     """
     dpt = torch.as_tensor(dpt)
-    if dpt.device.type == "cpu":
-        if fuse_clamp:
-            dpt, _, _ = clamp_depth(dpt)
-        return normalized_crop(dpt, com, cube, fx, fy, dsize, norm_zero_one,
-                               use_bilinear=use_bilinear)
-    if dpt.device.type != "cuda":
+    if dpt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hopper_normalized_crop runs on cpu or cuda, not {dpt.device}")
-    args = crop_args(dpt, com, cube, fx, fy, dsize, fuse_clamp)
-    return launch_crop(dpt, args, norm_zero_one, linear=use_bilinear)
+    com = torch.as_tensor(com, dtype=torch.float32, device=dpt.device)
+    cube = torch.as_tensor(cube, dtype=torch.float32, device=dpt.device)
+    dw, dh = dsize
+    return normalized_crop_op(dpt, com, cube, float(fx), float(fy), int(dw), int(dh),
+                              bool(norm_zero_one), bool(fuse_clamp), bool(use_bilinear))

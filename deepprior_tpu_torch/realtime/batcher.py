@@ -9,6 +9,13 @@ arrival), pads the tail to ``max_batch`` by repeating the last request
 pipeline once, and resolves every caller's Future from one copy of the
 joints back to the host.
 
+On a CUDA estimator whose mode captures (``FusedEstimator.captures``) the
+server replays one CUDA graph of the pipeline at the ``max_batch`` shape
+(``FusedEstimator._capture``): it stacks each batch into one pinned host
+buffer, copies it asynchronously into the graph's static buffers, writes
+the per-request cube and mirror, and replays.  ``graph=False`` runs the
+pipeline eagerly instead.
+
 A lone request pays up to ``max_wait_ms`` extra latency; under load the
 batch fills before the deadline.
 """
@@ -48,18 +55,41 @@ class MicroBatchServer:
 
     def __init__(
         self,
-        est: FusedEstimator,
+        est,
         max_batch: int = 64,
         max_wait_ms: float = 2.0,
         frame_shape: Optional[tuple] = None,
+        graph: Optional[bool] = None,
     ):
-        """``frame_shape`` pins the accepted (H, W); by default it is the
+        """``est`` is a FusedEstimator, or an estimator that holds a frozen
+        program (``realtime.export.ArtifactEstimator``, the JAX server's
+        ``variables=None`` mode): it is called ``est(depth, com)``, its
+        configuration is fixed, so per-request cube/mirror raise
+        ValueError, and ``max_batch`` must be its compiled batch.
+
+        ``frame_shape`` pins the accepted (H, W); by default it is the
         estimator's camera resolution, so a stray request with another
         shape fails its own caller with a ValueError instead of locking
-        the server to it."""
+        the server to it.
+
+        ``graph``: replay a CUDA graph of the pipeline (True) or run it
+        eagerly (False); None takes the graph where the estimator
+        ``captures``.  The graph is captured here when the frame shape is
+        known, else at the first batch."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.est = est
+        self._fixed = not isinstance(est, FusedEstimator)
+        if graph is None:
+            graph = not self._fixed and est.captures
+        if graph and (self._fixed or est.device.type != "cuda"):
+            raise ValueError("graph=True needs a FusedEstimator on a CUDA device")
+        self.graph = bool(graph)
+        # the card the worker thread launches on, whichever thread captured
+        self._cuda_index = None
+        if not self._fixed and est.device.type == "cuda":
+            self._cuda_index = (torch.cuda.current_device() if est.device.index is None
+                                else est.device.index)
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self._q: queue.Queue = queue.Queue()
@@ -74,6 +104,10 @@ class MicroBatchServer:
             tuple(frame_shape) if frame_shape is not None else None
         )
         self._tentative_shape: Optional[tuple] = None
+        # the graph and its pinned staging, one per frame shape
+        self._staged: dict = {}
+        if self.graph and self._frame_shape is not None:
+            self._stage(self._frame_shape)
         # orders submit's {check _running, enqueue} against close's
         # {clear _running, enqueue sentinel}, so no Future is left
         # unresolved by a submit racing close
@@ -94,6 +128,11 @@ class MicroBatchServer:
         """Enqueue one frame; returns a Future of the (J, 3) mm joints."""
         if not self._running:
             raise RuntimeError("server is closed")
+        if self._fixed and (cube is not None or mirror):
+            raise ValueError(
+                "per-request cube/mirror need a FusedEstimator (this server's "
+                "estimator holds a fixed-config program)"
+            )
         d = np.asarray(depth, np.float32)
         c = np.asarray(com, np.float32)
         if d.ndim != 2 or c.shape != (3,):
@@ -169,6 +208,8 @@ class MicroBatchServer:
         return items, stop
 
     def _loop(self):
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
         while True:
             items, stop = self._collect()
             # one batch per frame shape: in the cameraless fallback a
@@ -205,28 +246,63 @@ class MicroBatchServer:
                             RuntimeError("server closed")
                         )
 
+    def _stage(self, shape):
+        """The CUDA graph at (max_batch, *shape) and its pinned host buffers
+        for the stacked frames and CoMs, made on first use."""
+        if shape not in self._staged:
+            b = self.max_batch
+            self._staged[shape] = (
+                self.est._capture(b, shape),
+                torch.empty((b, *shape), dtype=torch.float32).pin_memory(),
+                torch.empty((b, 3), dtype=torch.float32).pin_memory(),
+            )
+        return self._staged[shape]
+
     def _run_batch(self, items):
         n = len(items)
         pad = self.max_batch - n
-        dev = self.est.device
         # tail-pad by repeating the last request (netbase.py:290-296);
         # padded rows are computed and discarded
-        depth = np.stack([r.depth for r in items] + [items[-1].depth] * pad)
-        com = np.stack([r.com for r in items] + [items[-1].com] * pad)
-        depth_t = torch.from_numpy(depth).to(dev)
-        com_t = torch.from_numpy(com).to(dev)
-        if any(r.cube is not None or r.mirror for r in items):
+        depths = [r.depth for r in items] + [items[-1].depth] * pad
+        coms = [r.com for r in items] + [items[-1].com] * pad
+        if self._fixed:
+            joints, _, _ = self.est(np.stack(depths), np.stack(coms))
+            self._resolve(items, torch.as_tensor(joints).cpu().numpy())
+            return
+        custom = any(r.cube is not None or r.mirror for r in items)
+        if custom:
             default_cube = self.est.cube.cpu().numpy()
-            cube = np.stack(
+            cube = torch.from_numpy(np.stack(
                 [default_cube if r.cube is None else r.cube for r in items]
                 + [default_cube] * pad
-            )
-            mirror = np.asarray([r.mirror for r in items] + [False] * pad, bool)
-            joints, _, _ = self.est(
-                depth_t, com_t,
-                cube=torch.from_numpy(cube).to(dev),
-                mirror=torch.from_numpy(mirror).to(dev),
-            )
+            ))
+            mirror = torch.from_numpy(
+                np.asarray([r.mirror for r in items] + [False] * pad, bool))
+        if self.graph:
+            with torch.inference_mode():
+                cap, depth_pin, com_pin = self._stage(items[0].depth.shape)
+                # the previous batch's copies from the pinned buffers have
+                # landed: its joints' copy to the host waited for them
+                np.stack(depths, out=depth_pin.numpy())
+                np.stack(coms, out=com_pin.numpy())
+                cap.depth.copy_(depth_pin, non_blocking=True)
+                cap.com.copy_(com_pin, non_blocking=True)
+                if custom:
+                    cap.cube.copy_(cube)
+                    cap.mirror.copy_(mirror)
+                else:
+                    cap.cube.copy_(self.est.cube.expand(self.max_batch, 3))
+                    cap.mirror.zero_()
+                cap.graph.replay()
+                # one copy to the host resolves the whole batch
+                self._resolve(items, cap.outputs[0].cpu().numpy())
+            return
+        dev = self.est.device
+        depth_t = torch.from_numpy(np.stack(depths)).to(dev)
+        com_t = torch.from_numpy(np.stack(coms)).to(dev)
+        if custom:
+            joints, _, _ = self.est(depth_t, com_t, cube=cube.to(dev),
+                                    mirror=mirror.to(dev))
         else:
             joints, _, _ = self.est(depth_t, com_t)
         # one copy to the host resolves the whole batch

@@ -9,24 +9,52 @@ Counterpart of deepprior_tpu/realtime/fused.py.  Per batch:
 On a CUDA device the crop and normalize are one launch of the hand-written
 kernel (ops/hopper_crop.py): K1 for the nearest resize, K2 for 'linear',
 with the clamp fused into it when there is no detection, and on the
-clamped frame after it.  'nd_bilinear' has no kernel in either package and
-runs the plain crop.  On the CPU every step is the plain PyTorch of
-ops/crop.py and ops/com.py.  The pipeline runs eagerly.
+clamped frame after it, through the registered operator
+``torch.ops.deepprior_tpu_torch.normalized_crop``.  'nd_bilinear' has no
+kernel in either package and runs the plain crop.  On the CPU every step
+is the plain PyTorch of ops/crop.py and ops/com.py.
+
+``__call__`` runs the pipeline eagerly.  ``aot_compile(batch, hw)``, the
+counterpart of the JAX estimator's ahead-of-time compile, captures it into
+one CUDA graph over static device buffers and returns a callable that
+copies its inputs in and replays the graph: the host dispatches one
+replay instead of each operation.  ``MicroBatchServer`` replays the same
+capture (``_capture``) with per-request cube and mirror.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from deepprior_tpu_torch.camera import Camera
 from deepprior_tpu_torch.ops.com import detect_closest, refine_com_iterative
 from deepprior_tpu_torch.ops.crop import RESIZE_METHODS, clamp_depth, normalized_crop
-from deepprior_tpu_torch.ops.hopper_crop import hopper_normalized_crop
+from deepprior_tpu_torch.ops.hopper_crop import normalized_crop_op
 from deepprior_tpu_torch.prior import PCAPrior
 
 _CROP_METHODS = ("auto", "pallas", "hopper", "gather", "onehot")
+_CAPTURE_TODO = ("{} does not run under a CUDA graph yet (ROADMAP.md Queue 1 "
+                 "item 7): {}")
+
+
+class Captured(NamedTuple):
+    """One CUDA graph of the pipeline over static device buffers: write the
+    inputs into ``depth``, ``com``, ``cube`` and ``mirror`` (on the device,
+    under ``torch.inference_mode``), replay ``graph``, and read ``outputs``
+    (joints, com3d, crops), which the next replay overwrites.  The graph
+    reads the buffers' memory and ``owner``'s tensors (the weights), so
+    whoever replays it holds this tuple: memory freed and reallocated would
+    feed the next replay garbage."""
+
+    graph: "torch.cuda.CUDAGraph"
+    depth: torch.Tensor   # (B, H, W) raw mm
+    com: torch.Tensor     # (B, 3) image coords
+    cube: Optional[torch.Tensor]    # (B, 3) mm, the constructor's cube until written
+    mirror: Optional[torch.Tensor]  # (B,) bool, False until written
+    outputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    owner: object         # the estimator or program whose weights the graph reads
 
 
 class FusedEstimator:
@@ -131,9 +159,10 @@ class FusedEstimator:
         if kernel:
             # without detection the kernel applies the clamp to the pixels
             # it reads: no full-frame clean pass
-            crops, _ = hopper_normalized_crop(
-                depth, com, cube, cam.fx, cam.fy, self.dsize,
-                fuse_clamp=not clamped, use_bilinear=self.resize == "linear",
+            dw, dh = self.dsize
+            crops, _ = normalized_crop_op(
+                depth, com, cube, float(cam.fx), float(cam.fy), dw, dh, False,
+                not clamped, self.resize == "linear",
             )
         else:
             # 'nd_bilinear' on the kernel route takes the plain gather
@@ -183,3 +212,117 @@ class FusedEstimator:
         else:
             mr = torch.as_tensor(mirror, dtype=torch.bool, device=dev).expand(b)
         return self._pipeline_cfg(depth, com, cb, mr, invx=invx, invy=invy)
+
+    # ------------------------------------------------------------------
+    @property
+    def captures(self) -> bool:
+        """Whether ``aot_compile`` and ``MicroBatchServer`` replay a CUDA
+        graph of this estimator: a CUDA device and a mode that captures."""
+        return self.device.type == "cuda" and self._capture_refused() is None
+
+    def _capture_refused(self) -> Optional[str]:
+        if self.detect:
+            return _CAPTURE_TODO.format(
+                "detect=True", "label_components reads each pass's count on the host")
+        if self.refine_iters:
+            return _CAPTURE_TODO.format(
+                "refine_iters", "the refinement runs ops/com.py's host-synced passes")
+        if self.resize == "nd_bilinear":
+            return _CAPTURE_TODO.format("resize='nd_bilinear'", "it has not been tried")
+        return None
+
+    def _capture(self, batch: int, hw) -> Captured:
+        """Capture ``_pipeline_cfg`` at (batch, *hw) into one CUDA graph
+        (``capture_graph``).  The static buffers are allocated on the
+        device under ``torch.inference_mode`` (write them under it too);
+        the cube starts as the constructor's and mirror as False."""
+        why = self._capture_refused()
+        if why is not None:
+            raise NotImplementedError(why)
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA estimator, not {self.device}")
+        dev = self.device
+        with torch.inference_mode():
+            f32 = dict(dtype=torch.float32, device=dev)
+            depth = torch.zeros((batch, *hw), **f32)
+            com = torch.zeros((batch, 3), **f32)
+            cube = self.cube.expand(batch, 3).clone()
+            mirror = torch.zeros(batch, dtype=torch.bool, device=dev)
+            graph, outputs = capture_graph(
+                lambda: self._pipeline_cfg(depth, com, cube, mirror), dev)
+        return Captured(graph, depth, com, cube, mirror, tuple(outputs), self)
+
+    def aot_compile(self, batch: int, hw):
+        """Counterpart of the JAX estimator's ``aot_compile(variables, batch,
+        hw)``: the fixed configuration (the constructor's cube, no mirror)
+        at a fixed (batch, H, W), made ready ahead of the first frame.
+
+        Returns ``fn(depth (batch, H, W), com (batch, 3)) -> (joints3d_mm,
+        com3d, crops)``; the inputs may be numpy arrays or tensors.  On a
+        CUDA estimator fn replays one CUDA graph (``_capture``,
+        ``replay_fn``): it returns clones that the caller owns, so a later
+        call does not overwrite an earlier result, and serves one thread at
+        a time.  On a CPU estimator fn checks the shapes and runs the
+        pipeline.  ``detect``, ``refine_iters`` and ``'nd_bilinear'`` raise
+        NotImplementedError."""
+        why = self._capture_refused()
+        if why is not None:
+            raise NotImplementedError(why)
+        batch, hw = int(batch), tuple(int(v) for v in hw)
+        if self.device.type == "cuda":
+            return replay_fn(self._capture(batch, hw))
+
+        def fn(depth, com):
+            depth, com = fixed_inputs(depth, com, (batch, *hw))
+            with torch.inference_mode():
+                return self._pipeline(depth, com)
+
+        return fn
+
+
+def capture_graph(fn, device):
+    """One CUDA graph of ``fn()`` on ``device``: one warm-up call on a side
+    stream first, outside the capture (a first call builds the crop kernel
+    with nvcc and sets its attributes, which a capture cannot do).  Returns
+    (graph, fn's outputs in the graph's memory).  A failed capture raises:
+    there is no eager fallback."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = fn()
+    return graph, outputs
+
+
+def fixed_inputs(depth, com, shape):
+    """depth and com as float32 tensors on their devices, checked against
+    the fixed (B, H, W) ``shape`` they were compiled for."""
+    depth = torch.as_tensor(depth, dtype=torch.float32)
+    com = torch.as_tensor(com, dtype=torch.float32)
+    if tuple(depth.shape) != tuple(shape) or tuple(com.shape) != (shape[0], 3):
+        raise ValueError(f"compiled for depth {tuple(shape)} and com {(shape[0], 3)}, "
+                         f"got {tuple(depth.shape)} and {tuple(com.shape)}")
+    return depth, com
+
+
+def replay_fn(cap: Captured):
+    """``fn(depth, com)`` over a captured graph (its cube and mirror, where
+    it has them, stay as they are): checks the shapes, copies the inputs
+    into the static buffers, replays, and returns clones of the outputs
+    that the caller owns.  fn holds ``cap``, and with it every buffer and
+    weight the graph reads.  Serves one thread at a time."""
+    shape = tuple(cap.depth.shape)
+
+    def fn(depth_in, com_in):
+        depth_in, com_in = fixed_inputs(depth_in, com_in, shape)
+        with torch.inference_mode():
+            cap.depth.copy_(depth_in, non_blocking=True)
+            cap.com.copy_(com_in, non_blocking=True)
+            cap.graph.replay()
+            return tuple(t.clone() for t in cap.outputs)
+
+    return fn

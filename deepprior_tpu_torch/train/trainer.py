@@ -42,7 +42,7 @@ from deepprior_tpu_torch.train.prefetch import aligned_epoch_indices
 # the ROADMAP entries of what the port's trainer does not have yet
 _CHECKPOINT_TODO = (
     "training snapshots and resume are not ported yet (ROADMAP.md Queue 1 "
-    "item 13, train/checkpoint.py)"
+    "item 13)"
 )
 _STREAMED_TODO = (
     "streamed training (fit_streamed, DevicePrefetcher) is not ported yet "
@@ -166,18 +166,35 @@ def _l2_penalty(model: nn.Module):
     return total
 
 
+def _tf32_switches():
+    """The process's TF32 switches for cuDNN's convs and cuBLAS's matmuls,
+    and the value that turns each off.  torch >= 2.9 keeps one TF32 state
+    per backend and lets two APIs write it: ``fp32_precision`` and the
+    legacy ``allow_tf32``.  Once the new API holds a value the legacy flag
+    cannot express, reading the legacy flag raises, so the switches are
+    read and written through ``fp32_precision`` wherever this torch has it."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    conv = getattr(cudnn, "conv", None)
+    if hasattr(matmul, "fp32_precision") and hasattr(conv, "fp32_precision"):
+        return ((conv, "fp32_precision"), (matmul, "fp32_precision")), "ieee"
+    return ((cudnn, "allow_tf32"), (matmul, "allow_tf32")), False
+
+
 @contextlib.contextmanager
 def float32_compute():
     """float32 means float32 on the card too: inside the block cuDNN's convs
     and cuBLAS's matmuls do not round their inputs to TF32 (cuDNN does by
-    default), and the caller's settings come back after it."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    default), and the caller's settings come back after it, whichever of
+    PyTorch's two TF32 APIs the caller set them through."""
+    switches, off = _tf32_switches()
+    saved = [getattr(obj, attr) for obj, attr in switches]
+    for obj, attr in switches:
+        setattr(obj, attr, off)
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        for (obj, attr), value in zip(switches, saved):
+            setattr(obj, attr, value)
 
 
 class Trainer:

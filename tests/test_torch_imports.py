@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     first, names = proc.stdout.strip().splitlines()
     n, bad = first.split(" ", 1)
-    assert int(n) >= 37, proc.stdout  # every module of the package was imported
+    assert int(n) >= 40, proc.stdout  # every module of the package was imported
     assert bad == "[]", f"the port pulled in {bad}"
     for mod in ("geometry", "data.basetypes", "ops.augment", "ops.hopper_warp",
                 "train.optimizer", "train.prefetch", "train.trainer",
@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                 "ops.resize", "ops.com", "ops.refine_cnn", "models.scalenet",
                 "data.detector_np", "realtime.camera", "realtime.pipeline",
                 "mains.demo_realtime", "utils.profiling", "utils.flops",
-                "ops.hopper_probes", "prof.prof_bench", "prof.prof_warp_bf16"):
+                "ops.hopper_probes", "prof.prof_bench", "prof.prof_warp_bf16",
+                "train.checkpoint", "realtime.export", "mains.serve_http"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 

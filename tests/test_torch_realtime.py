@@ -44,6 +44,7 @@ from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.realtime import camera as tcamera
 from deepprior_tpu_torch.realtime import pipeline as tpipeline
 from deepprior_tpu_torch.realtime.fused import FusedEstimator
+from deepprior_tpu_torch.train.checkpoint import save_checkpoint
 from deepprior_tpu_torch.utils.convert import (
     poseregnet_state_dict_from_flax,
     scalenet_state_dict_from_flax,
@@ -217,7 +218,7 @@ def test_pipeline_threaded_and_empty_frames(nets, frames):
             draw(arg)
 
 
-def test_demo_main_on_cpu():
+def test_demo_main_on_cpu(tmp_path):
     lines = []
     pipe, results = demo_realtime.main(["--frames", "5", "--device", "cpu", "--comref"],
                                        log=lines.append)
@@ -237,7 +238,24 @@ def test_demo_main_on_cpu():
                                log=lines.append)
         with pytest.raises(RuntimeError, match="--device cpu"):
             tcommon.default_device()
-    for argv in (["--device", "capture"], ["--checkpoint", "x"],
+    # --checkpoint: a missing file raises, a network_prior.ckpt serves its
+    # weights and prior
+    with pytest.raises(FileNotFoundError):
+        demo_realtime.main(["--checkpoint", str(tmp_path / "missing.ckpt"), "--frames", "1",
+                            "--device", "cpu"])
+    model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
+                       generator=torch.Generator().manual_seed(4))
+    comps = np.random.default_rng(4).standard_normal((30, 42)).astype(np.float32) * 0.05
+    ckpt = str(tmp_path / "network_prior.ckpt")
+    save_checkpoint(ckpt, {"params": model.state_dict(), "pca_components": comps,
+                           "pca_mean": np.zeros(42, np.float32)})
+    pipe, results = demo_realtime.main(["--checkpoint", ckpt, "--frames", "2",
+                                        "--device", "cpu"], log=lines.append)
+    assert len(results) == 2
+    for k, v in pipe.estimator.model.state_dict().items():
+        assert torch.equal(v, model.state_dict()[k]), k
+    assert torch.equal(pipe.estimator.prior.components, torch.from_numpy(comps))
+    for argv in (["--device", "capture"],
                  ["--ref-pickle", "x"], ["--comref-pickle", "x"], ["--model", "resnet"],
                  ["--save-view", "x.png"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

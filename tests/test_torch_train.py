@@ -35,7 +35,7 @@ from deepprior_tpu.train import trainer as jtrainer
 
 from deepprior_tpu_torch import prior as tprior
 from deepprior_tpu_torch.camera import NYU_CAMERA
-from deepprior_tpu_torch.data.synthetic import make_sequence
+from deepprior_tpu_torch.data.synthetic import make_depth_frame, make_sequence
 from deepprior_tpu_torch.mains import main_nyu_posereg_embedding
 from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
 from deepprior_tpu_torch.train import prefetch as tprefetch
@@ -292,6 +292,20 @@ def test_main_unported_flags_raise(tmp_path, flag):
         main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path)] + flag)
 
 
+def _tf32_state():
+    """The TF32 switches of cuDNN's convs and cuBLAS's matmuls, read through
+    ``fp32_precision`` where this torch has it: after that API wrote a
+    value, reading the legacy ``allow_tf32`` flags can raise."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    if hasattr(matmul, "fp32_precision"):
+        return cudnn.conv.fp32_precision, matmul.fp32_precision
+    return cudnn.allow_tf32, matmul.allow_tf32
+
+
+_TF32_OFF = (("ieee", "ieee") if hasattr(torch.backends.cuda.matmul, "fp32_precision")
+             else (False, False))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_float32_compute_is_scoped_to_the_trainer(dtype):
     """A float32 model's step, evaluation and prediction run with TF32 off;
@@ -302,10 +316,10 @@ def test_float32_compute_is_scoped_to_the_trainer(dtype):
     seen = []
     try:
         cudnn.allow_tf32 = matmul.allow_tf32 = True
+        caller = _tf32_state()
         model = PoseRegNet(PoseRegNetConfig(num_joints=14, n_dims=3, hidden=64,
                                             dtype=dtype))
-        model.register_forward_pre_hook(
-            lambda mod, args: seen.append((cudnn.allow_tf32, matmul.allow_tf32)))
+        model.register_forward_pre_hook(lambda mod, args: seen.append(_tf32_state()))
         data = TrainData.from_sequence(make_sequence(NYU_CAMERA, 4, seed=7))
         trainer = Trainer(model, TrainConfig(batch_size=4, aug_modes=None),
                           NYU_CAMERA, device="cpu")
@@ -318,8 +332,8 @@ def test_float32_compute_is_scoped_to_the_trainer(dtype):
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
     assert np.isfinite(float(loss)) and len(seen) == 3
-    want = (False, False) if dtype == torch.float32 else (True, True)
-    assert all(s == want for s in seen), seen
+    want = _TF32_OFF if dtype == torch.float32 else caller
+    assert caller != _TF32_OFF and all(s == want for s in seen), seen
 
 
 @pytest.mark.parametrize("flag", [["--packed-conv"], ["--no-packed-conv"],
@@ -386,3 +400,100 @@ def test_pca_prior_computes_in_float32_with_tf32_on(api):
     finally:
         for (obj, attr), value in zip(flags, saved):
             setattr(obj, attr, value)
+
+
+@pytest.mark.parametrize("api", ["allow_tf32", "fp32_precision"])
+def test_float32_compute_under_both_tf32_apis(api):
+    """The caller turns TF32 on through either of PyTorch's two APIs; a
+    float32 Trainer step then runs with TF32 off inside it (read through
+    ``fp32_precision``: after the new API set a value, reading a legacy
+    flag can raise, which made this step raise before) and the caller's
+    settings read back unchanged through the caller's own API."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    if api == "allow_tf32":
+        flags, on = ((cudnn, "allow_tf32"), (matmul, "allow_tf32")), True
+    else:
+        flags, on = ((cudnn.conv, "fp32_precision"), (matmul, "fp32_precision")), "tf32"
+    saved = [getattr(obj, attr) for obj, attr in flags]
+    seen = []
+    try:
+        for obj, attr in flags:
+            setattr(obj, attr, on)
+        model = PoseRegNet(PoseRegNetConfig(num_joints=14, n_dims=3, hidden=64))
+        model.register_forward_pre_hook(lambda mod, args: seen.append(_tf32_state()))
+        data = TrainData.from_sequence(make_sequence(NYU_CAMERA, 4, seed=7)).to("cpu")
+        trainer = Trainer(model, TrainConfig(batch_size=4, aug_modes=None), NYU_CAMERA,
+                          device="cpu")
+        state, loss = trainer._train_step_core(trainer.init_state(),
+                                               data.take(torch.arange(4)), None, None, 1e-4)
+        trainer.evaluate(state, data)
+        assert [getattr(obj, attr) for obj, attr in flags] == [on, on]
+    finally:
+        for (obj, attr), value in zip(flags, saved):
+            setattr(obj, attr, value)
+    assert np.isfinite(float(loss)) and len(seen) == 2
+    assert all(s == _TF32_OFF for s in seen), seen
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """One run of the flagship main on the CPU; the PCA prior it fitted is
+    kept from its call of fit_pose_prior."""
+    out = tmp_path_factory.mktemp("main")
+    fitted = []
+
+    def fit(*args, **kwargs):
+        fitted.append(real_fit(*args, **kwargs))
+        return fitted[-1]
+
+    real_fit = tprior.fit_pose_prior
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tprior, "fit_pose_prior", fit)
+        state, _, _ = main_nyu_posereg_embedding.main([
+            "--synthetic", "--epochs", "1", "--batch-size", "16", "--nmax", "24",
+            "--out", str(out), "--device", "cpu"])
+    return out / "train_EMB_PCA30" / "network_prior.ckpt", state, fitted[0]
+
+
+def test_main_writes_network_prior_ckpt(trained):
+    """The flagship main writes network_prior.ckpt: the model's state dict
+    and the PCA prior, fingerprinted with its TrainConfig."""
+    from deepprior_tpu_torch.train import checkpoint as tckpt
+
+    path, state, prior = trained
+    assert tckpt.checkpoint_keys(str(path)) == {"params", "pca_components", "pca_mean"}
+    want = {"params": state.model.state_dict(), "pca_components": prior.components,
+            "pca_mean": prior.mean}
+    cfg = TrainConfig(batch_size=16, n_epochs=1, aug_modes=("com", "rot", "none"),
+                      seed=23455, model_has_dropout=True)
+    tree, exact = tckpt.load_checkpoint(str(path), want, config=cfg._asdict(), strict=True)
+    assert exact
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(tree["params"][k], v), k
+    assert torch.equal(tree["pca_components"], prior.components)
+    assert torch.equal(tree["pca_mean"], prior.mean)
+
+
+def test_load_serving_net_restores_the_checkpoint(trained):
+    """load_serving_net(checkpoint=...) gives the trained weights and prior
+    exactly: its estimator's joints equal those of one built from the
+    trained model; a missing file raises FileNotFoundError."""
+    from deepprior_tpu_torch.mains.common import load_serving_net
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    path, state, prior = trained
+    model, loaded = load_serving_net(checkpoint=str(path), device="cpu")
+    trained_sd = state.model.state_dict()
+    assert set(model.state_dict()) == set(trained_sd)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, trained_sd[k]), k
+    assert torch.equal(loaded.components, prior.components)
+    assert torch.equal(loaded.mean, prior.mean)
+    rng = np.random.default_rng(9)
+    depth, com = (np.stack(a) for a in zip(*[make_depth_frame(NYU_CAMERA, rng)
+                                             for _ in range(3)]))
+    got = FusedEstimator(model, NYU_CAMERA, prior=loaded, device="cpu")(depth, com)
+    want = FusedEstimator(state.model, NYU_CAMERA, prior=prior, device="cpu")(depth, com)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(FileNotFoundError):
+        load_serving_net(checkpoint=str(path) + ".missing", device="cpu")
