@@ -41,10 +41,12 @@ FusedEstimator.aot_compile at B = 1 and 512 against the eager _pipeline
 on two input batches in turn, its B = 1 call timed in turns with the
 dispatched __call__; MicroBatchServer replaying the graph from pinned
 memory against graph=False on the same 64 requests, then both timed in
-turns (requests/s, p50/p99 latency); the training main's
-network_prior.ckpt through load_serving_net; both artifact kinds at
-batch 64 against _pipeline and through the fixed-config server (export,
-load and first-call times); and serve_http --checkpoint as a subprocess
+turns (requests/s from a burst, p50/p99 latency at 1, 16 and 64
+closed-loop clients); the training main's network_prior.ckpt through
+load_serving_net, its float32 estimator, eager and replayed, bit-equal
+with TF32 on for the process; both artifact kinds of that estimator at
+batch 64, loaded with TF32 on, against _pipeline and through the
+fixed-config server (export, load and first-call times); and serve_http --checkpoint as a subprocess
 answering /healthz and /predict.  Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -61,6 +63,7 @@ Imports nothing of jax or of the JAX package.
 """
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -1254,10 +1257,13 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
     ``_pipeline`` on two input batches in turn, and the B = 1 call in turns
     with the dispatched ``__call__``; (23) ``MicroBatchServer`` replaying the
     graph from pinned memory against ``graph=False`` on the same 64 requests,
-    then both timed in turns; (24) the training main's network_prior.ckpt
-    through ``load_serving_net``; (25) both artifact kinds at batch 64
-    against ``_pipeline`` and through the fixed-config server; (26)
-    ``serve_http --checkpoint`` as a subprocess.  ``model`` and ``prior`` are
+    then both in turns: requests/s from a burst, and latency at a fixed load
+    of 1, 16 and 64 closed-loop clients; (24) the training main's
+    network_prior.ckpt through ``load_serving_net``, its float32 estimator
+    bit-equal with TF32 on for the process; (25) both artifact kinds of
+    that estimator at batch 64, loaded and called with TF32 on, against
+    ``_pipeline`` and through the fixed-config server; (26) ``serve_http
+    --checkpoint`` as a subprocess against the float32 reference.  ``model`` and ``prior`` are
     phase 4's, ``trained`` phase 8's."""
     import http.client
     import io
@@ -1273,6 +1279,7 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
     from deepprior_tpu_torch.realtime import export as xp
     from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
     from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.train.trainer import _tf32_switches, float32_compute
 
     cam = NYU_CAMERA
     hw = (cam.height, cam.width)
@@ -1306,6 +1313,20 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
             out = est._pipeline(d, c)
         torch.cuda.synchronize()
         return out
+
+    @contextlib.contextmanager
+    def tf32_on():
+        """TF32 on for the process's convs and matmuls inside the block."""
+        switches, _ = _tf32_switches()
+        on = "tf32" if switches[0][1] == "fp32_precision" else True
+        saved = [getattr(obj, attr) for obj, attr in switches]
+        try:
+            for obj, attr in switches:
+                setattr(obj, attr, on)
+            yield
+        finally:
+            for (obj, attr), value in zip(switches, saved):
+                setattr(obj, attr, value)
 
     # --------------------------------------------------------------- 21
     op = torch.ops.deepprior_tpu_torch.normalized_crop
@@ -1397,25 +1418,20 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
         return depth_np[i % n_unique], com_np[i % n_unique], cube_i, i % 4 == 1
 
     def serve(graph, n, threads=4, wait_ms=2.0):
-        """n requests from ``threads`` threads; returns (joints (n, J, 3),
-        requests/s, per-request latencies in ms, stats, kernel launches)."""
+        """n requests from ``threads`` threads at once; returns (joints
+        (n, J, 3), requests/s, stats, kernel launches)."""
         reset()
         with MicroBatchServer(est, max_batch=max_batch, max_wait_ms=wait_ms,
                               graph=graph) as srv:
             if srv.graph != graph:
                 raise AssertionError(f"graph={graph} resolved to {srv.graph}")
             srv.submit(*request(0)[:2]).result(timeout=300)  # warm
-            t_in, t_out, futs = np.zeros(n), np.zeros(n), [None] * n
-
-            def done(i):
-                return lambda f: t_out.__setitem__(i, time.perf_counter())
+            futs = [None] * n
 
             def worker(t):
                 for i in range(t, n, threads):
                     d, c, cb, mr = request(i)
-                    t_in[i] = time.perf_counter()
                     futs[i] = srv.submit(d, c, cube=cb, mirror=mr)
-                    futs[i].add_done_callback(done(i))
 
             t0 = time.perf_counter()
             pool = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
@@ -1430,10 +1446,10 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
             stats = dict(srv.stats)
         if stats["errors"]:
             raise AssertionError(f"server stats {stats}")
-        return got, n / wall, (t_out - t_in) * 1e3, stats, dict(counts)
+        return got, n / wall, stats, dict(counts)
 
-    graph_j, _, _, graph_stats, graph_launches = serve(True, max_batch, 1, 200.0)
-    eager_j, _, _, eager_stats, eager_launches = serve(False, max_batch, 1, 200.0)
+    graph_j, _, graph_stats, graph_launches = serve(True, max_batch, 1, 200.0)
+    eager_j, _, eager_stats, eager_launches = serve(False, max_batch, 1, 200.0)
     if not np.array_equal(graph_j, eager_j):
         raise AssertionError(f"server: graph != eager joints by "
                              f"{np.abs(graph_j - eager_j).max()} mm")
@@ -1444,19 +1460,62 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
         f"joints == graph=False joints bit for bit (graph: {graph_stats}, crop wrapper "
         f"{graph_launches['normalized_crop']} launches, all at capture; eager: "
         f"{eager_stats}, {eager_launches['normalized_crop']} launches)")
+    # throughput: a burst of 2048 requests drains through full batches
     n_req, runs = 2048, {True: [], False: []}
     for graph in (False, True, True, False):
-        _, rate, lat, stats, _ = serve(graph, n_req)
-        runs[graph].append((rate, lat, stats))
+        _, rate, stats, _ = serve(graph, n_req)
+        runs[graph].append((rate, stats))
     for graph, label in ((True, "graph + pinned"), (False, "eager")):
-        rates = [r for r, _, _ in runs[graph]]
-        lat = np.concatenate([x for _, x, _ in runs[graph]])
-        occ = [s["frames"] / (s["batches"] * max_batch) for _, _, s in runs[graph]]
-        log(f"[23 server] {tag} {label}: {n_req} requests from 4 threads at "
+        rates = [r for r, _ in runs[graph]]
+        occ = [s["frames"] / (s["batches"] * max_batch) for _, s in runs[graph]]
+        log(f"[23 server] {tag} {label}: a burst of {n_req} requests from 4 threads at "
             f"max_batch {max_batch}, max_wait 2 ms (x2, in turns): "
-            f"{min(rates):.1f}-{max(rates):.1f} requests/s, latency p50 "
-            f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms, "
-            f"occupancy {min(occ):.3f}-{max(occ):.3f}")
+            f"{min(rates):.1f}-{max(rates):.1f} requests/s, occupancy "
+            f"{min(occ):.3f}-{max(occ):.3f}")
+
+    # latency at a fixed load: ``clients`` closed-loop clients, each with one
+    # request in flight (submit, wait for the joints, submit the next)
+    def closed_loop(graph, clients, per_client, wait_ms=2.0):
+        with MicroBatchServer(est, max_batch=max_batch, max_wait_ms=wait_ms,
+                              graph=graph) as srv:
+            srv.submit(*request(0)[:2]).result(timeout=300)  # warm
+            lat = np.zeros((clients, per_client))
+
+            def client(k):
+                for j in range(per_client):
+                    d, c, cb, mr = request(k * per_client + j)
+                    t0 = time.perf_counter()
+                    srv.submit(d, c, cube=cb, mirror=mr).result(timeout=300)
+                    lat[k, j] = (time.perf_counter() - t0) * 1e3
+
+            t0 = time.perf_counter()
+            pool = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+            for th in pool:
+                th.start()
+            for th in pool:
+                th.join(timeout=300)
+                if th.is_alive():
+                    raise AssertionError("a closed-loop client hung")
+            wall = time.perf_counter() - t0
+            stats = dict(srv.stats)
+        if stats["errors"]:
+            raise AssertionError(f"server stats {stats}")
+        return clients * per_client / wall, lat.ravel(), stats
+
+    for clients, per_client in ((1, 40), (16, 20), (64, 20)):
+        loads = {True: [], False: []}
+        for graph in (True, False, False, True):
+            loads[graph].append(closed_loop(graph, clients, per_client))
+        for graph, label in ((True, "graph + pinned"), (False, "eager")):
+            lat = np.concatenate([x for _, x, _ in loads[graph]])
+            rates = [r for r, _, _ in loads[graph]]
+            occ = [s["frames"] / (s["batches"] * max_batch) for _, _, s in loads[graph]]
+            log(f"[23 server] {tag} {label}: {clients} closed-loop clients x {per_client} "
+                f"requests, one in flight each, max_batch {max_batch}, max_wait 2 ms (x2, "
+                f"in turns): latency p50 {np.percentile(lat, 50):.3f} ms p99 "
+                f"{np.percentile(lat, 99):.3f} ms over {lat.size} requests, "
+                f"{min(rates):.1f}-{max(rates):.1f} requests/s, occupancy "
+                f"{min(occ):.3f}-{max(occ):.3f}")
 
     # --------------------------------------------------------------- 24
     state, fitted, ckpt = trained["state"], trained["prior"], trained["ckpt"]
@@ -1473,37 +1532,57 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
     torch.cuda.synchronize()
     if not same(a, b) or not torch.isfinite(a[0]).all():
         raise AssertionError("the checkpoint's estimator != the trained model's")
+    # the float32 model computes in float32 whatever the process's TF32
+    # switches say: with TF32 on for the process the eager call and a graph
+    # captured then give the TF32-off joints; the same net run with TF32
+    # allowed shows what a leak would cost
+    with tf32_on():
+        tf32_eager = eager(served, depth[:max_batch], com[:max_batch])
+        tf32_graph = served.aot_compile(max_batch, hw)(depth[:max_batch], com[:max_batch])
+        with torch.inference_mode():
+            leak = served.prior.inverse_transform(served.model(a[2][:, None]))
+    with torch.inference_mode(), float32_compute():
+        exact = served.prior.inverse_transform(served.model(a[2][:, None]))
+    leak_mm = (leak - exact).abs().max().item() * float(served.cube[2]) / 2.0
+    if not (same(tf32_eager, a) and same(tf32_graph, a)):
+        raise AssertionError("the float32 estimator with TF32 on for the process != TF32 off")
     log(f"[24 checkpoint] {ckpt}: load_serving_net restores the trained f32 PoseRegNet "
         f"(hidden 1024) and the fitted PCA (30, 42) exactly; its estimator's joints == "
-        f"the trained model's bit for bit at B={max_batch}")
+        f"the trained model's bit for bit at B={max_batch}; with TF32 on for the process "
+        f"its eager call and a graph captured then == TF32 off bit for bit (TF32 convs "
+        f"would move the joints by up to {leak_mm:.6f} mm)")
 
     # --------------------------------------------------------------- 25
-    ref = eager(est, depth[:max_batch], com[:max_batch])
-    ref2 = eager(est, depth2[:max_batch], com2[:max_batch])
+    # the deployment's artifacts: the trained float32 checkpoint's estimator,
+    # loaded and called with TF32 on for the process (the program runs in
+    # float32 all the same)
+    ref = eager(served, depth[:max_batch], com[:max_batch])
+    ref2 = eager(served, depth2[:max_batch], com2[:max_batch])
     # the first call takes host frames, as a server hands them over
     host_in = (depth_np[np.arange(max_batch) % n_unique], com_np[np.arange(max_batch) % n_unique])
     os.makedirs("eval/chip_smoke", exist_ok=True)
     for kind, write in (("stablehlo", xp.export_serving), ("compiled", xp.precompile_serving)):
         path = f"eval/chip_smoke/serve_{kind}.dpx"
         t0 = time.perf_counter()
-        write(est, max_batch, hw, path)
+        write(served, max_batch, hw, path)
         export_s = time.perf_counter() - t0
         reset()
-        t0 = time.perf_counter()
-        art = xp.ArtifactEstimator(path)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        at_load = counts["normalized_crop"]
-        scribble()
-        reset()
-        t0 = time.perf_counter()
-        got = art(*host_in)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        first_launches = counts["normalized_crop"]
-        scribble()
-        got2 = art(depth2[:max_batch], com2[:max_batch])
-        torch.cuda.synchronize()
+        with tf32_on():
+            t0 = time.perf_counter()
+            art = xp.ArtifactEstimator(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            at_load = counts["normalized_crop"]
+            scribble()
+            reset()
+            t0 = time.perf_counter()
+            got = art(*host_in)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            first_launches = counts["normalized_crop"]
+            scribble()
+            got2 = art(depth2[:max_batch], com2[:max_batch])
+            torch.cuda.synchronize()
         joint_err = max((g[0] - r[0]).abs().max().item() for g, r in ((got, ref), (got2, ref2)))
         exact = same(got, ref) and same(got2, ref2)
         if not exact:
@@ -1516,8 +1595,9 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
                                      f"joints by {joint_err} mm")
             log(f"[25 artifacts] {kind}: differs from _pipeline in {diff} by at most "
                 f"{joint_err} mm")
-        ran_k1 = (first_launches == 1) if kind == "stablehlo" else (at_load >= 1 and first_launches == 0)
-        if not ran_k1:
+        # on the card either kind loads into a replayed graph: K1 runs at the
+        # capture, and a replay runs no Python
+        if not (at_load >= 1 and first_launches == 0):
             raise AssertionError(f"{kind}: crop launches at load {at_load}, first call "
                                  f"{first_launches}")
         with MicroBatchServer(art, max_batch=art.batch, max_wait_ms=200.0,
@@ -1546,9 +1626,10 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
                 raise AssertionError("the artifact moved to the CPU gives other crops")
             moved = (f"; moved to the CPU (move_to_device_pass) it gives the card's crops "
                      f"bit for bit, joints within "
-                     f"{(cpu_out[0] - ref[0].cpu()).abs().max().item():.4f} mm (bf16 on "
-                     f"the CPU), {cpu_s:.3f} s to load and run")
-        log(f"[25 artifacts] {tag} {kind} at batch {max_batch} NYU: == _pipeline "
+                     f"{(cpu_out[0] - ref[0].cpu()).abs().max().item():.6f} mm (float32 "
+                     f"on the CPU), {cpu_s:.3f} s to load and run")
+        log(f"[25 artifacts] {tag} {kind} of the trained f32 checkpoint at batch "
+            f"{max_batch} NYU, loaded and called with TF32 on: == _pipeline "
             f"{'bit for bit' if exact else f'within {joint_err} mm'} on two input "
             f"batches; K1 launched {at_load} times at load and {first_launches} in the "
             f"first call; fixed-config MicroBatchServer serves it bit for bit and "
@@ -1603,16 +1684,11 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
             th.join(timeout=300)
         health = call("GET", "/healthz")
         bad = call("POST", "/predict", b"not an npz")[0]
-        # the subprocess runs with torch's default TF32 settings (cuDNN's convs
-        # in TF32): the reference takes them too
-        saved = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            want = [eager(served, torch.from_numpy(depth_np[[i] * max_batch]).to(dev),
-                          torch.from_numpy(com_np[[i] * max_batch]).to(dev))[0][0].cpu().numpy()
-                    for i in range(4)]
-        finally:
-            torch.backends.cudnn.allow_tf32 = saved
+        # the subprocess runs torch's default TF32 settings; its float32
+        # model computes in float32 all the same, as the reference does
+        want = [eager(served, torch.from_numpy(depth_np[[i] * max_batch]).to(dev),
+                      torch.from_numpy(com_np[[i] * max_batch]).to(dev))[0][0].cpu().numpy()
+                for i in range(4)]
         errs = []
         for i in range(4):
             status, out = results.get(i, (None, None))
@@ -1633,8 +1709,8 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
     log(f"[26 serve_http] python -m deepprior_tpu_torch.mains.serve_http --checkpoint "
         f"{ckpt} --device {dev}: {seen[-1]}; /healthz {health[1]}; 4 concurrent "
         f"/predict posts answered with the checkpoint estimator's joints (max |d| "
-        f"{max(errs)} mm, the reference with torch's default TF32 as in the "
-        f"subprocess); a bad body 400; stopped with SIGINT, exit {proc.returncode}")
+        f"{max(errs)} mm against the float32 reference, the subprocess under torch's "
+        f"default TF32 settings); a bad body 400; stopped with SIGINT, exit {proc.returncode}")
     del est, served, direct
     torch.cuda.empty_cache()
 

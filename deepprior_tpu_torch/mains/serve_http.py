@@ -49,10 +49,12 @@ def build_server(args):
         # frozen serving artifact (realtime/export.py): weights + geometry
         # baked into one program; no model class or camera table loads.
         # Its config is fixed, so per-request cube/mirror are rejected, and
-        # the exported batch is the micro-batch.
+        # the exported batch is the micro-batch.  It serves on --device as
+        # the estimator does: an exported program moves there, a compiled
+        # one made for another device raises.
         from deepprior_tpu_torch.realtime.export import ArtifactEstimator
 
-        est = ArtifactEstimator(args.artifact, device=getattr(args, "device", None))
+        est = ArtifactEstimator(args.artifact, device=_device(args))
         return MicroBatchServer(est, max_batch=est.batch,
                                 max_wait_ms=args.max_wait_ms, frame_shape=est.hw)
     device = _device(args)

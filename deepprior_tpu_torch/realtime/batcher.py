@@ -14,7 +14,8 @@ server replays one CUDA graph of the pipeline at the ``max_batch`` shape
 (``FusedEstimator._capture``): it stacks each batch into one pinned host
 buffer, copies it asynchronously into the graph's static buffers, writes
 the per-request cube and mirror, and replays.  ``graph=False`` runs the
-pipeline eagerly instead.
+pipeline eagerly instead.  An estimator that holds a frozen program is
+called as it is (on a card its loader replays a graph of its own).
 
 A lone request pays up to ``max_wait_ms`` extra latency; under load the
 batch fills before the deadline.
@@ -59,7 +60,7 @@ class MicroBatchServer:
         max_batch: int = 64,
         max_wait_ms: float = 2.0,
         frame_shape: Optional[tuple] = None,
-        graph: Optional[bool] = None,
+        graph: bool = True,
     ):
         """``est`` is a FusedEstimator, or an estimator that holds a frozen
         program (``realtime.export.ArtifactEstimator``, the JAX server's
@@ -72,19 +73,15 @@ class MicroBatchServer:
         shape fails its own caller with a ValueError instead of locking
         the server to it.
 
-        ``graph``: replay a CUDA graph of the pipeline (True) or run it
-        eagerly (False); None takes the graph where the estimator
-        ``captures``.  The graph is captured here when the frame shape is
-        known, else at the first batch."""
+        ``graph``: replay a CUDA graph of the pipeline where the estimator
+        ``captures`` (True), or run it eagerly (False).  The graph is
+        captured here when the frame shape is known, else at the first
+        batch."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.est = est
         self._fixed = not isinstance(est, FusedEstimator)
-        if graph is None:
-            graph = not self._fixed and est.captures
-        if graph and (self._fixed or est.device.type != "cuda"):
-            raise ValueError("graph=True needs a FusedEstimator on a CUDA device")
-        self.graph = bool(graph)
+        self.graph = bool(graph) and not self._fixed and est.captures
         # the card the worker thread launches on, whichever thread captured
         self._cuda_index = None
         if not self._fixed and est.device.type == "cuda":

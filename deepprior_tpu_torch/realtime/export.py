@@ -14,14 +14,15 @@ table or prior to serve:
   so the program calls the hand-written kernel K1/K2 on a card; loading
   imports that module first, so that the operator is registered.  The
   program holds the device it was exported on: export on the device that
-  serves, or move it at load time (``load_serving(device=...)``).  The
-  kind keeps the JAX package's name, ``stablehlo``, so that scripts carry
-  over; it is an exported program, not StableHLO.
+  serves, or move it at load time (``load_serving(device=...)``).  On a
+  card the loaded program is captured into one CUDA graph at the
+  artifact's batch and replayed.  The kind keeps the JAX package's name,
+  ``stablehlo``, so that scripts carry over; it is an exported program,
+  not StableHLO.
 - ``precompile_serving`` writes the same program as the ``compiled`` kind,
   pinned to the device type and card name it was written on, as the JAX
-  executable is pinned to its backend.  On a card ``load_precompiled``
-  captures it into one CUDA graph at the artifact's batch and replays it;
-  on another card name it raises.
+  executable is pinned to its backend: ``load_precompiled`` loads it as
+  ``load_serving`` does, and raises on another card name.
 
 Artifact layout: MAGIC | meta length (8 LE) | meta JSON | payload, the
 payload being ``torch.export.save``'s bytes.  The port's MAGIC differs
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from deepprior_tpu_torch.realtime.fused import Captured, capture_graph, replay_fn
+from deepprior_tpu_torch.train.trainer import float32_compute
 
 MAGIC = b"DPTTX1\x00\x00"
 _JAX_MAGIC = b"DPTPUX1\x00"
@@ -125,13 +127,42 @@ def _load_program(payload: bytes):
     return torch.export.load(io.BytesIO(payload))
 
 
-def _caller(module, device: torch.device):
+def _load(meta: Dict[str, Any], payload: bytes, device):
+    """(fn, meta) over the artifact's program on ``device`` (default the
+    artifact's; another device moves the program with
+    ``torch.export.passes.move_to_device_pass``).  The program runs under
+    ``float32_compute``: a float32 model is float32 on the card too.  On a
+    card fn replays one CUDA graph of the program at the artifact's batch
+    (``replay_fn``: inputs copied in, clones out); elsewhere it calls the
+    program."""
+    program = _load_program(payload)
+    target = torch.device(meta["device"] if device is None else device)
+    if target != torch.device(meta["device"]):
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, target)
+        meta = dict(meta, device=str(target))
+    module = program.module()
+
+    def run(depth, com):
+        with float32_compute():
+            return module(depth, com)
+
+    if target.type == "cuda":
+        b, hw = int(meta["batch"]), tuple(meta["hw"])
+        with torch.inference_mode():
+            depth = torch.zeros((b, *hw), dtype=torch.float32, device=target)
+            com = torch.zeros((b, 3), dtype=torch.float32, device=target)
+            graph, outputs = capture_graph(lambda: run(depth, com), target)
+        return replay_fn(Captured(graph, depth, com, None, None, tuple(outputs),
+                                  module)), meta
+
     def fn(depth, com):
         with torch.inference_mode():
-            return module(torch.as_tensor(depth, dtype=torch.float32, device=device),
-                          torch.as_tensor(com, dtype=torch.float32, device=device))
+            return run(torch.as_tensor(depth, dtype=torch.float32, device=target),
+                       torch.as_tensor(com, dtype=torch.float32, device=target))
 
-    return fn
+    return fn, meta
 
 
 def load_serving(path: str, device=None):
@@ -140,7 +171,7 @@ def load_serving(path: str, device=None):
     Returns (fn, meta): fn(depth (B, H, W) float32 raw mm, com (B, 3) image
     coords) -> (joints3d_mm, com3d, crops), on the program's device; the
     inputs may be numpy arrays or tensors.  ``device`` moves the program
-    (``torch.export.passes.move_to_device_pass``) to another device."""
+    to another device (``_load``)."""
     meta, payload = _read(path)
     if meta.get("kind") != "stablehlo":
         raise ValueError(
@@ -148,20 +179,13 @@ def load_serving(path: str, device=None):
             "stablehlo (exported-program) artifacts (use load_precompiled "
             "for compiled ones)"
         )
-    program = _load_program(payload)
-    target = torch.device(meta["device"] if device is None else device)
-    if target != torch.device(meta["device"]):
-        from torch.export.passes import move_to_device_pass
-
-        program = move_to_device_pass(program, target)
-        meta = dict(meta, device=str(target))
-    return _caller(program.module(), target), meta
+    return _load(meta, payload, device)
 
 
 def precompile_serving(est, batch: int, hw: Tuple[int, int], path: str) -> Dict[str, Any]:
     """Write the exported program as the ``compiled`` kind: pinned to the
-    device type and card name of ``est.device``, and loaded there into a
-    replayed CUDA graph (``load_precompiled``).  Returns the meta."""
+    device type and card name of ``est.device`` (``load_precompiled``).
+    Returns the meta."""
     payload, meta = _export(est, batch, hw)
     meta.update(kind="compiled", device_type=est.device.type,
                 device_name=_device_name(est.device))
@@ -171,10 +195,9 @@ def precompile_serving(est, batch: int, hw: Tuple[int, int], path: str) -> Dict[
 
 def load_precompiled(path: str, device=None):
     """Load a ``compiled`` artifact on the device type and card name it was
-    written on (``device``, default the artifact's).  On a card the program
-    is captured into one CUDA graph at the artifact's batch: fn copies its
-    inputs into the graph's static buffers, replays and returns clones
-    that the caller owns.  Returns (fn, meta)."""
+    written on (``device``, default the artifact's), as ``load_serving``
+    loads the exported kind; another device type or card name raises.
+    Returns (fn, meta)."""
     meta, payload = _read(path)
     if meta.get("kind") != "compiled":
         raise ValueError(
@@ -191,15 +214,7 @@ def load_precompiled(path: str, device=None):
         raise ValueError(
             f"compiled on {meta['device_name']!r}, running on {_device_name(dev)!r}: "
             "re-export or use the stablehlo artifact")
-    module = _load_program(payload).module()
-    if dev.type != "cuda":
-        return _caller(module, dev), meta
-    b, hw = int(meta["batch"]), tuple(meta["hw"])
-    with torch.inference_mode():
-        depth = torch.zeros((b, *hw), dtype=torch.float32, device=dev)
-        com = torch.zeros((b, 3), dtype=torch.float32, device=dev)
-        graph, outputs = capture_graph(lambda: module(depth, com), dev)
-    return replay_fn(Captured(graph, depth, com, None, None, tuple(outputs), module)), meta
+    return _load(meta, payload, dev)
 
 
 def load_artifact(path: str, device=None):
@@ -223,7 +238,7 @@ class ArtifactEstimator:
         self._fn, self.meta = load_artifact(path, device)
         self.batch = int(self.meta["batch"])
         self.hw = tuple(self.meta["hw"])
-        self.device = torch.device(self.meta["device"] if device is None else device)
+        self.device = torch.device(self.meta["device"])
         self.cube = np.asarray(self.meta["cube"], np.float32)
 
     def __call__(self, depth, com):

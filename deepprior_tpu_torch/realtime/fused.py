@@ -24,6 +24,7 @@ capture (``_capture``) with per-request cube and mirror.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -33,6 +34,7 @@ from deepprior_tpu_torch.ops.com import detect_closest, refine_com_iterative
 from deepprior_tpu_torch.ops.crop import RESIZE_METHODS, clamp_depth, normalized_crop
 from deepprior_tpu_torch.ops.hopper_crop import normalized_crop_op
 from deepprior_tpu_torch.prior import PCAPrior
+from deepprior_tpu_torch.train.trainer import float32_compute
 
 _CROP_METHODS = ("auto", "pallas", "hopper", "gather", "onehot")
 _CAPTURE_TODO = ("{} does not run under a CUDA graph yet (ROADMAP.md Queue 1 "
@@ -62,7 +64,10 @@ class FusedEstimator:
 
     ``model`` is an ``nn.Module`` that holds its weights and maps
     (B, 1, dh, dw) crops to (B, out) embeddings or poses.  ``device``
-    defaults to the model's; the model and prior move to it.
+    defaults to the model's; the model and prior move to it.  A float32
+    model computes in float32 on the card too, whatever the process's TF32
+    switches say (``float32_compute``: no TF32 convs), and so does a graph
+    captured of it.
 
     crop_method: 'auto' takes the CUDA kernel on a CUDA device and the
     plain gather on the CPU; 'pallas' (the JAX package's name) and
@@ -172,7 +177,8 @@ class FusedEstimator:
                 method=method, resize=self.resize,
             )
         net_in = torch.where(mirror[:, None, None], crops.flip(-1), crops)
-        out = self.model(net_in[:, None])
+        with float32_compute():  # a float32 model: no TF32 convs on the card
+            out = self.model(net_in[:, None])
         if self.prior is not None:
             out = self.prior.inverse_transform(out)
         pose = out.reshape(out.shape[0], -1, 3)
@@ -261,10 +267,10 @@ class FusedEstimator:
         com3d, crops)``; the inputs may be numpy arrays or tensors.  On a
         CUDA estimator fn replays one CUDA graph (``_capture``,
         ``replay_fn``): it returns clones that the caller owns, so a later
-        call does not overwrite an earlier result, and serves one thread at
-        a time.  On a CPU estimator fn checks the shapes and runs the
-        pipeline.  ``detect``, ``refine_iters`` and ``'nd_bilinear'`` raise
-        NotImplementedError."""
+        call does not overwrite an earlier result, and calls from several
+        threads take turns.  On a CPU estimator fn checks the shapes and
+        runs the pipeline.  ``detect``, ``refine_iters`` and
+        ``'nd_bilinear'`` raise NotImplementedError."""
         why = self._capture_refused()
         if why is not None:
             raise NotImplementedError(why)
@@ -314,12 +320,14 @@ def replay_fn(cap: Captured):
     it has them, stay as they are): checks the shapes, copies the inputs
     into the static buffers, replays, and returns clones of the outputs
     that the caller owns.  fn holds ``cap``, and with it every buffer and
-    weight the graph reads.  Serves one thread at a time."""
+    weight the graph reads.  Calls from several threads take turns: one
+    lock holds the copy in, the replay and the clones."""
     shape = tuple(cap.depth.shape)
+    lock = threading.Lock()
 
     def fn(depth_in, com_in):
         depth_in, com_in = fixed_inputs(depth_in, com_in, shape)
-        with torch.inference_mode():
+        with lock, torch.inference_mode():
             cap.depth.copy_(depth_in, non_blocking=True)
             cap.com.copy_(com_in, non_blocking=True)
             cap.graph.replay()

@@ -16,6 +16,7 @@ import http.client
 import io
 import json
 import threading
+import time
 from concurrent.futures import Future
 from http.server import ThreadingHTTPServer
 
@@ -41,8 +42,9 @@ from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.realtime import export as xp
 from deepprior_tpu_torch.realtime.batcher import MicroBatchServer, _Request
 from deepprior_tpu_torch.realtime.export import ArtifactEstimator
-from deepprior_tpu_torch.realtime.fused import FusedEstimator
+from deepprior_tpu_torch.realtime.fused import Captured, FusedEstimator, replay_fn
 from deepprior_tpu_torch.train.checkpoint import save_checkpoint
+from deepprior_tpu_torch.train.trainer import _tf32_switches
 from deepprior_tpu_torch.utils.convert import poseregnet_state_dict_from_flax
 
 N = 13
@@ -203,9 +205,15 @@ def test_batcher_pins_resolution_from_camera(setup):
 
 
 def test_batcher_graph_needs_a_cuda_estimator(setup):
-    est, _, _, _ = setup
-    with pytest.raises(ValueError, match="CUDA"):
-        MicroBatchServer(est, max_batch=4, graph=True)
+    """graph=True replays a graph only where the estimator captures: a CPU
+    estimator, or one that holds a frozen program, is served eagerly."""
+    est, depth, com, _ = setup
+    assert not est.captures
+    with MicroBatchServer(est, max_batch=4, max_wait_ms=1.0, graph=True) as srv:
+        assert srv.graph is False
+        want = _reference_joints(est, depth[:1], com[:1], max_batch=4)
+        np.testing.assert_array_equal(srv.submit(depth[0], com[0]).result(timeout=120)[None],
+                                      want)
 
 
 # ----------------------------------------------------------------------
@@ -369,7 +377,8 @@ def test_serve_http_checkpoint_and_artifact(setup, tmp_path):
     art = str(tmp_path / "serve.dpx")
     assert serve_http.main(["--checkpoint", ckpt, "--device", "cpu", "--max-batch", "4",
                             "--export-artifact", art]) is None
-    srv = serve_http.build_server(parser.parse_args(["--artifact", art, "--max-wait-ms", "50"]))
+    srv = serve_http.build_server(parser.parse_args(["--artifact", art, "--device", "cpu",
+                                                     "--max-wait-ms", "50"]))
     try:
         assert srv.max_batch == 4
         futs = [srv.submit(depth[i], com[i]) for i in range(3)]
@@ -429,3 +438,94 @@ def test_artifact_moves_to_another_device(setup, tmp_path):
     joints, com3d, crops = fn(depth[:2], com[:2])
     assert joints.device.type == "meta" and joints.shape == (2, 14, 3)
     assert com3d.shape == (2, 3) and crops.shape == (2, 128, 128)
+
+
+def test_serve_http_artifact_runs_on_the_card_unless_asked(setup, tmp_path, monkeypatch):
+    """--artifact takes the entry points' default device, the card: without
+    one it raises naming --device cpu, as --checkpoint does, instead of
+    serving on the device the artifact was exported on."""
+    est, depth, _, _ = setup
+    path = str(tmp_path / "serve.dpx")
+    xp.export_serving(est, 2, depth.shape[1:], path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parser = serve_http.build_parser()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_http.build_server(parser.parse_args(["--artifact", path]))
+    srv = serve_http.build_server(parser.parse_args(["--artifact", path, "--device", "cpu"]))
+    try:
+        assert srv.est.device.type == "cpu" and srv.max_batch == 2
+    finally:
+        srv.close()
+
+
+class _SlowGraph:
+    """Stands in for a CUDA graph on the CPU: a replay writes the outputs
+    from the static inputs, slowly enough that callers not taking turns
+    would see each other's inputs."""
+
+    def __init__(self, depth, com, outputs):
+        self.depth, self.com, self.outputs = depth, com, outputs
+
+    def replay(self):
+        time.sleep(0.001)
+        self.outputs[0].copy_(self.depth[:, :1, :3])
+        time.sleep(0.001)
+        self.outputs[1].copy_(self.com)
+
+
+def test_replay_fn_serves_concurrent_threads():
+    """replay_fn's callable writes shared static buffers: calls from several
+    threads take turns, and each gets the outputs of its own inputs."""
+    b, hw = 2, (4, 5)
+    depth, com = torch.zeros((b, *hw)), torch.zeros((b, 3))
+    outputs = (torch.zeros((b, 1, 3)), torch.zeros((b, 3)), torch.zeros((b, *hw)))
+    fn = replay_fn(Captured(_SlowGraph(depth, com, outputs), depth, com, None, None,
+                            outputs, None))
+    wrong = []
+
+    def client(k):
+        for _ in range(10):
+            joints, com3d, _ = fn(np.full((b, *hw), k, np.float32), np.full((b, 3), k, np.float32))
+            if not (bool((joints == k).all()) and bool((com3d == k).all())):
+                wrong.append(k)
+
+    pool = [threading.Thread(target=client, args=(k,)) for k in range(6)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=60)
+    assert not wrong
+
+
+@pytest.mark.parametrize("api", ["allow_tf32", "fp32_precision"])
+def test_estimator_runs_the_model_with_tf32_off(setup, api):
+    """The caller turns TF32 on through either API: the estimator's model
+    still runs with TF32 off (eager, aot_compile's callable and the server),
+    and the caller's settings come back unchanged."""
+    est, depth, com, _ = setup
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    if api == "allow_tf32":
+        flags, on = ((cudnn, "allow_tf32"), (matmul, "allow_tf32")), True
+    else:
+        flags, on = ((cudnn.conv, "fp32_precision"), (matmul, "fp32_precision")), "tf32"
+    switches, off = _tf32_switches()
+    model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=64))
+    model.load_state_dict(est.model.state_dict())
+    seen = []
+    model.register_forward_pre_hook(
+        lambda mod, args: seen.append([getattr(obj, attr) for obj, attr in switches]))
+    f32 = FusedEstimator(model, NYU_CAMERA, prior=est.prior, device="cpu")
+    saved = [getattr(obj, attr) for obj, attr in flags]
+    try:
+        for obj, attr in flags:
+            setattr(obj, attr, on)
+        got = f32(depth[:2], com[:2])
+        f32.aot_compile(2, depth.shape[1:])(depth[:2], com[:2])
+        with MicroBatchServer(f32, max_batch=2, max_wait_ms=1.0) as srv:
+            srv.submit(depth[0], com[0]).result(timeout=120)
+        assert [getattr(obj, attr) for obj, attr in flags] == [on, on]
+    finally:
+        for (obj, attr), value in zip(flags, saved):
+            setattr(obj, attr, value)
+    assert len(seen) == 3 and all(s == [off, off] for s in seen), seen
+    assert all(torch.equal(g, w) for g, w in zip(got, est(depth[:2], com[:2])))
