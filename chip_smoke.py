@@ -47,7 +47,15 @@ load_serving_net, its float32 estimator, eager and replayed, bit-equal
 with TF32 on for the process; both artifact kinds of that estimator at
 batch 64, loaded with TF32 on, against _pipeline and through the
 fixed-config server (export, load and first-call times); and serve_http --checkpoint as a subprocess
-answering /healthz and /predict.  Every phase raises on failure, so the
+answering /healthz and /predict.  Phases 27-30 (run after phase 26, before
+the probe scripts) drive ResNet-47: the estimator at B = 512 and 1 in
+float32 (against a CPU copy) and bf16 (frames/s and MFU, replayed and
+dispatched), K1 == the plain gather; its aot_compile graphs, server and
+both artifact kinds against the eager _pipeline; training steps at B = 128
+in float32 and bf16 through K5 (K5 == its plain version, a card step
+against a CPU step, ms, busy share, peak memory); and the training main
+with --model resnet through load_serving_net, serve_http --model resnet
+and --ref-pickle.  Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
 JSON.
@@ -112,14 +120,14 @@ def is_device_op(event):
             and not ("#" in name and "(" not in name))
 
 
-def profile_stage(label, fn, iters, log):
+def profile_stage(label, fn, iters, log, phase="11 profile"):
     """torch.profiler over iters calls of fn() after 3 warm-up calls.
 
     Logs the host ms per call (the profiler inflates it), the device busy
     ms per call (the union of the intervals of the kernels and copies on
     the card, so that nothing counts twice), its share of the host time,
     the launches per call, and the kernels that take the most device time
-    and the most launches."""
+    and the most launches.  Returns (host ms, busy ms, launches) per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,12 +151,13 @@ def profile_stage(label, fn, iters, log):
     for e in evs:
         c, t = by.get(e.name, (0, 0.0))
         by[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
-    log(f"[11 profile] {label}: host {host_ms:.4f} ms/call (profiled), device "
+    log(f"[{phase}] {label}: host {host_ms:.4f} ms/call (profiled), device "
         f"busy {busy_ms:.4f} ms/call, busy share {busy_ms / host_ms:.3f}, "
         f"launches/call {len(evs) / iters:.1f}")
     for key, what in ((lambda kv: -kv[1][1], "time"), (lambda kv: -kv[1][0], "launches")):
         for name, (c, t) in sorted(by.items(), key=key)[:8]:
             log(f"    by {what}: {t / iters:.4f} ms/call x{c / iters:.1f} {name[:100]}")
+    return host_ms, busy_ms, len(evs) / iters
 
 
 def main(argv=None):
@@ -482,6 +491,7 @@ def main(argv=None):
         occ = srv.occupancy()
     log(f"[6 timing] {tag} server: {n_load} requests from {n_threads} threads "
         f"in {wall:.3f} s = {n_load / wall:.1f} requests/s (occupancy {occ:.3f})")
+    figures = {"poseregnet": {"est_ms": est_ms, "fps": fps, "b1_ms": b1_ms}}
 
     kernels = [{
         "name": "normalized_crop",
@@ -498,7 +508,9 @@ def main(argv=None):
     trained = {}
     kernels += training_phases(dev, tag, log, profile=args.profile, trained=trained)
     kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
-    serving_phases(dev, tag, log, model, prior, trained)
+    serving_phases(dev, tag, log, model, prior, trained, figures)
+    # before the probe scripts: after them torch.profiler saw no device events
+    resnet_phases(dev, tag, log, kernels, figures)
     kernels += probe_phases(dev, tag, log)
     roofline_phases(dev, tag, log, model, prior, kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -524,20 +536,22 @@ def alternate(plain_fn, kernel_fn, iters, timer=time_ms):
 
 def device_ops(fn):
     """The names of the device operations (kernels, copies, memsets) of one
-    fn() call, from torch.profiler, after one warm-up call; raises if the
-    profiler saw none, so that no count reads 0 by default."""
+    fn() call, from torch.profiler, after one warm-up call; a profile that
+    saw none is taken again, up to 3 times, then it raises, so that no
+    count reads 0 by default."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if is_device_op(e)]
-    if not names:
-        raise AssertionError("torch.profiler saw no device operation")
-    return names
+    for _ in range(3):  # the card's CUPTI tracing now and then delivers nothing
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if is_device_op(e)]
+        if names:
+            return names
+    raise AssertionError("torch.profiler saw no device operation in 3 profiles")
 
 
 def graph_outputs(fn):
@@ -1249,7 +1263,7 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
             "ms": ms, "plain_ms": plain_ms, "kernel_only_ms": k2_ms}
 
 
-def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64):
+def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max_batch=64):
     """Phases 21-26, the graph-replaying serving path, run after phase 16:
     (21) the registered crop operator against ``launch_crop`` for K1 and K2
     at B = 512, and ``torch.library.opcheck`` on the card; (22)
@@ -1264,7 +1278,8 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
     that estimator at batch 64, loaded and called with TF32 on, against
     ``_pipeline`` and through the fixed-config server; (26) ``serve_http
     --checkpoint`` as a subprocess against the float32 reference.  ``model`` and ``prior`` are
-    phase 4's, ``trained`` phase 8's."""
+    phase 4's, ``trained`` phase 8's; ``figures["poseregnet"]`` receives the B = 1
+    medians of phase 22 and the 16-client latency of phase 23."""
     import http.client
     import io
     import os
@@ -1410,6 +1425,8 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
         f"{stat['aot'][1]:.4f} p99 {stat['aot'][2]:.4f}; dispatched __call__ median "
         f"{stat['dispatched'][0]:.4f} ms mean {stat['dispatched'][1]:.4f} p99 "
         f"{stat['dispatched'][2]:.4f}; speed-up {stat['dispatched'][0] / stat['aot'][0]:.2f}x")
+    figures["poseregnet"].update(aot_b1_ms=stat["aot"][0],
+                                 dispatched_b1_ms=stat["dispatched"][0])
     del compiled, fn, outs, want
 
     # --------------------------------------------------------------- 23
@@ -1516,6 +1533,9 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
                 f"{np.percentile(lat, 99):.3f} ms over {lat.size} requests, "
                 f"{min(rates):.1f}-{max(rates):.1f} requests/s, occupancy "
                 f"{min(occ):.3f}-{max(occ):.3f}")
+            if graph and clients == 16:
+                figures["poseregnet"].update(p50_16=np.percentile(lat, 50),
+                                             p99_16=np.percentile(lat, 99))
 
     # --------------------------------------------------------------- 24
     state, fitted, ckpt = trained["state"], trained["prior"], trained["ckpt"]
@@ -1712,6 +1732,460 @@ def serving_phases(dev, tag, log, model, prior, trained, batch=512, max_batch=64
         f"{max(errs)} mm against the float32 reference, the subprocess under torch's "
         f"default TF32 settings); a bad body 400; stopped with SIGINT, exit {proc.returncode}")
     del est, served, direct
+    torch.cuda.empty_cache()
+
+
+def calibrated_resnet(dev, cam, depth, com):
+    """load_serving_net('resnet') (random weights, float32) with its
+    BatchNorm statistics calibrated on the crops of ``depth``/``com``
+    (``calibrate_batchnorm``): with its initial 0 / 1 statistics the random
+    net's pose lands thousands of mm off, and float32's rounding grows with
+    it.  Returns (model, prior)."""
+    import torch
+
+    from deepprior_tpu_torch.mains.common import load_serving_net
+    from deepprior_tpu_torch.models.layers import calibrate_batchnorm
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.train.trainer import float32_compute
+
+    model, prior = load_serving_net("resnet", device=dev)
+    crops = FusedEstimator(model, cam, prior=prior, device=dev)(depth, com)[2]
+    with float32_compute():
+        calibrate_batchnorm(model, crops[:, None])
+    torch.cuda.synchronize()
+    return model, prior
+
+
+def resnet_phases(dev, tag, log, kernels, figures, batch=512, max_batch=64, train_batch=128,
+                  n_req=1024, clients=16, per_client=20, b1_calls=100):
+    """Phases 27-30, ResNet-47 (the paper's model) on the serving and the
+    training path, run after phase 26: (27) load_serving_net('resnet') in
+    float32 and a bf16 copy with FusedEstimator at B = 512 and 1 (K1 ==
+    the plain gather, the float32 joints against a CPU copy, frames/s
+    dispatched and replayed with MFU, the B = 1 aot_compile call against
+    dispatched; PoseRegNet's figures beside them); (28) the deployment:
+    aot_compile replays at B = 1 and 512 == eager, MicroBatchServer with the
+    graph (a burst's requests/s, p50/p99 at 16 closed-loop clients), both
+    artifact kinds == _pipeline; (29) ResNet-47 type 2 training steps at B =
+    128 in float32 and bf16 through K5 (K5 == its plain version on the
+    step's batch, a type-0 card step against a CPU step, ms/step, samples/s,
+    busy share, peak memory); (30) the training main with --model resnet,
+    its checkpoint through load_serving_net and serve_http, and a reference
+    pickle of the same weights through --ref-pickle.  Adds the ResNet
+    paths' launches per call to K1's and K5's records in ``kernels``;
+    ``figures`` holds PoseRegNet's from phases 6, 22 and 23."""
+    import http.client
+    import io
+    import os
+    import pickle
+    import queue
+
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame, make_sequence
+    from deepprior_tpu_torch.mains import main_nyu_posereg_embedding
+    from deepprior_tpu_torch.mains.common import load_serving_net
+    from deepprior_tpu_torch.models import ResNet, ResNetConfig
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.augment import (NV_VAL, augment_geometry,
+                                                 sample_augment_params)
+    from deepprior_tpu_torch.prior import fit_pose_prior
+    from deepprior_tpu_torch.realtime import export as xp
+    from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+    from deepprior_tpu_torch.utils.flops import mfu_pct, model_flops, peak_tflops
+    from deepprior_tpu_torch.utils.refweights import (load_reference_pickle,
+                                                      reference_pickle_from_state_dict)
+
+    cam = NYU_CAMERA
+    hwf = (cam.height, cam.width)
+    rng = np.random.default_rng(27)
+    n_unique = 16
+    pairs = [make_depth_frame(cam, rng) for _ in range(n_unique)]
+    depth_np = np.stack([p[0] for p in pairs])
+    com_np = np.stack([p[1] for p in pairs])
+    depth_u, com_u = torch.from_numpy(depth_np).to(dev), torch.from_numpy(com_np).to(dev)
+    depth = depth_u.repeat(batch // n_unique, 1, 1)
+    com = com_u.repeat(batch // n_unique, 1)
+    record = {k["name"]: k for k in kernels}
+
+    def crop_launches(fn):
+        """fn() with K1's counts set to 0 just before; returns (out, K1 launches)."""
+        hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+        out = fn()
+        torch.cuda.synchronize()
+        return out, hopper_crop.LAUNCHES["normalized_crop"]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # --------------------------------------------------------------- 27
+    model32, prior = calibrated_resnet(dev, cam, depth_u, com_u)
+    model16 = ResNet(model32.cfg._replace(dtype=torch.bfloat16)).to(dev)
+    model16.load_state_dict(model32.state_dict())
+    est32 = FusedEstimator(model32, cam, prior=prior, device=dev)
+    est16 = FusedEstimator(model16, cam, prior=prior, device=dev)
+    plain16 = FusedEstimator(model16, cam, prior=prior, crop_method="gather", device=dev)
+    with torch.inference_mode():
+        out16, k1_16 = crop_launches(lambda: est16(depth, com))
+        out32, k1_32 = crop_launches(lambda: est32(depth, com))
+        plain = plain16(depth, com)
+    if (k1_16, k1_32) != (1, 1):
+        raise AssertionError(f"ResNet estimator calls launched K1 {k1_16} / {k1_32} times")
+    if not torch.equal(out16[2], plain[2]) or not torch.equal(out32[2], plain[2]):
+        raise AssertionError("ResNet estimator crops: K1 != the plain gather")
+    if not (torch.isfinite(out16[0]).all() and torch.isfinite(out32[0]).all()):
+        raise AssertionError("ResNet joints not finite")
+    cpu_model = ResNet(model32.cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model32.state_dict().items()})
+    cpu_est = FusedEstimator(cpu_model, cam, prior=prior.to("cpu"), device="cpu")
+    cj = cpu_est(depth_u.cpu(), com_u.cpu())
+    gj = est32(depth_u, com_u)
+    f32_gap = (gj[0].cpu() - cj[0]).abs().max().item()
+    if not torch.equal(gj[2].cpu(), cj[2]) or f32_gap > 0.01:
+        raise AssertionError(f"ResNet f32 card vs CPU: joints by {f32_gap} mm, crops "
+                             f"equal {torch.equal(gj[2].cpu(), cj[2])}")
+    rel = (out32[0] - out32[1][:, None]).abs().max().item()
+    bf16_gap = (out16[0] - out32[0]).abs().max().item()
+    flops = model_flops(lambda: model16(out16[2][:1, None]))
+    with torch.inference_mode():
+        disp_ms = {16: [], 32: []}
+        rep_ms = []
+        cap = est16._capture(batch, hwf)
+        cap.depth.copy_(depth)
+        cap.com.copy_(com)
+        for _ in range(2):  # in turns: dispatched bf16, f32, replayed bf16
+            disp_ms[16].append(time_ms(lambda: est16(depth, com), iters=10))
+            disp_ms[32].append(time_ms(lambda: est32(depth, com), iters=10))
+            rep_ms.append(time_ms(cap.graph.replay, iters=10))
+        del cap
+    peak = peak_tflops(dev)
+    fig = {}
+    for label, ms in (("bf16 dispatched", min(disp_ms[16])), ("bf16 replayed", min(rep_ms)),
+                      ("f32 dispatched", min(disp_ms[32]))):
+        fps = batch / (ms / 1e3)
+        mfu = mfu_pct(flops * batch, ms / 1e3, peak)
+        fig[label] = (ms, fps, mfu)
+    # B=1: aot_compile's replay against the dispatched call, host clock
+    d1, c1 = depth_np[:1], com_np[:1]
+    fn1 = est16.aot_compile(1, hwf)
+    turns = {"dispatched": [], "aot": []}
+    for key in ("dispatched", "aot", "aot", "dispatched"):
+        call = (lambda: est16(d1, c1)) if key == "dispatched" else (lambda: fn1(d1, c1))
+        for i in range(b1_calls + 5):
+            t0 = time.perf_counter()
+            call()[0].cpu()
+            if i >= 5:
+                turns[key].append((time.perf_counter() - t0) * 1e3)
+    b1 = {k: float(np.median(v)) for k, v in turns.items()}
+    pr = figures.get("poseregnet", {})
+    log(f"[27 resnet serving] B={batch} NYU 640x480, ResNet-47 type 0 (30 outputs, "
+        f"hidden 1024, random weights seed 0, BatchNorm statistics calibrated on 16 "
+        f"frames' crops), PCA (30, 42): K1 launched once per estimator call (bf16 "
+        f"{k1_16}, f32 {k1_32}); crops == plain gather (torch.equal); f32 joints card vs "
+        f"CPU f32 copy max |d| {f32_gap:.6f} mm (<= 0.01; pose extent {rel:.1f} mm); "
+        f"bf16 vs f32 joints max |d| {bf16_gap:.4f} mm")
+    log(f"[27 resnet timing] {tag} B={batch}: "
+        + "; ".join(f"{k} {ms:.4f} ms = {fps:.1f} frames/s, MFU {mfu:.2f}%"
+                    if mfu is not None else f"{k} {ms:.4f} ms = {fps:.1f} frames/s"
+                    for k, (ms, fps, mfu) in fig.items())
+        + f" (best of 2 runs of 10 calls, CUDA events, in turns); "
+        f"{flops / 1:.0f} flops per frame (FlopCounterMode), bf16 peak {peak} TFLOP/s; "
+        f"B=1 host clock ({b1_calls} calls x2, in turns): aot_compile median {b1['aot']:.4f} ms, "
+        f"dispatched {b1['dispatched']:.4f} ms ({b1['dispatched'] / b1['aot']:.2f}x)")
+    if pr:
+        log(f"[27 resnet timing] {tag} beside PoseRegNet bf16 (phases 6, 22): B={batch} "
+            f"{pr['est_ms']:.4f} ms = {pr['fps']:.1f} frames/s; B=1 aot_compile "
+            f"{pr.get('aot_b1_ms', float('nan')):.4f} ms, dispatched "
+            f"{pr.get('dispatched_b1_ms', float('nan')):.4f} ms; ResNet-47 / PoseRegNet "
+            f"at B={batch}: {fig['bf16 dispatched'][0] / pr['est_ms']:.2f}x the time")
+    record["normalized_crop"]["resnet_launches_per_call"] = k1_16
+
+    # --------------------------------------------------------------- 28
+    for b in (1, batch):
+        fn = est16.aot_compile(b, hwf)
+        for d, c in ((depth, com), (depth.roll(1, 0), com.roll(1, 0))):
+            (got, n_k1) = crop_launches(lambda: fn(d[:b].contiguous(), c[:b].contiguous()))
+            with torch.inference_mode():
+                want = est16._pipeline(d[:b].contiguous(), c[:b].contiguous())
+            torch.cuda.synchronize()
+            if n_k1 or not same(got, want):
+                raise AssertionError(f"ResNet aot_compile B={b}: replay != eager "
+                                     f"(K1 in the replay {n_k1})")
+        del fn
+
+    def request(i):
+        return depth_np[i % n_unique], com_np[i % n_unique]
+
+    with MicroBatchServer(est16, max_batch=max_batch, max_wait_ms=2.0) as srv:
+        if not srv.graph:
+            raise AssertionError("the ResNet server does not replay a graph")
+        srv.submit(*request(0)).result(timeout=300)  # warm: captures
+        t0 = time.perf_counter()
+        futs = [srv.submit(*request(i)) for i in range(n_req)]
+        burst = np.stack([f.result(timeout=300) for f in futs])
+        burst_rps = n_req / (time.perf_counter() - t0)
+        lat = np.zeros((clients, per_client))
+
+        def client(k):
+            for j in range(per_client):
+                t = time.perf_counter()
+                srv.submit(*request(k * per_client + j)).result(timeout=300)
+                lat[k, j] = (time.perf_counter() - t) * 1e3
+
+        t0 = time.perf_counter()
+        pool = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join(timeout=300)
+            if th.is_alive():
+                raise AssertionError("a closed-loop client hung")
+        loop_rps = lat.size / (time.perf_counter() - t0)
+        stats = dict(srv.stats)
+    if stats["errors"] or not np.isfinite(burst).all():
+        raise AssertionError(f"ResNet server stats {stats}")
+    want = []
+    with torch.inference_mode():  # eager calls on the requests, max_batch at a time
+        for s0 in range(0, n_req, max_batch):
+            idx = np.arange(s0, s0 + max_batch) % n_unique
+            want.append(est16._pipeline(depth_u[idx], com_u[idx])[0].cpu().numpy())
+    srv_gap = float(np.abs(burst - np.concatenate(want)[:n_req]).max())
+    if srv_gap > 1e-3:
+        raise AssertionError(f"ResNet server joints off the eager call's by {srv_gap} mm")
+    art_s = {}
+    for kind, write in (("stablehlo", xp.export_serving), ("compiled", xp.precompile_serving)):
+        path = f"eval/chip_smoke_resnet/serve_{kind}.dpx"
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        write(est16, max_batch, hwf, path)
+        t1 = time.perf_counter()
+        art = xp.ArtifactEstimator(path)
+        t2 = time.perf_counter()
+        exact, gap = True, 0.0
+        for d, c in ((depth, com), (depth.roll(1, 0), com.roll(1, 0))):
+            got = art(d[:max_batch].contiguous(), c[:max_batch].contiguous())
+            with torch.inference_mode():
+                want_a = est16._pipeline(d[:max_batch].contiguous(), c[:max_batch].contiguous())
+            torch.cuda.synchronize()
+            if not same(got, want_a):
+                # an op torch.export rewrites may round otherwise: the crops and
+                # CoMs stay exact, the joints within the 1e-3 mm gate
+                exact = False
+                gap = max(gap, (got[0] - want_a[0]).abs().max().item())
+                if not same(got[1:], want_a[1:]) or gap > 1e-3:
+                    raise AssertionError(f"ResNet {kind} artifact != _pipeline (joints by "
+                                         f"{gap} mm)")
+        art_s[kind] = (t1 - t0, t2 - t1, os.path.getsize(path),
+                       "bit for bit" if exact else f"within {gap} mm")
+        del art
+    log(f"[28 resnet deployment] {tag} ResNet-47 bf16: aot_compile replays at B=1 and "
+        f"B={batch} == the eager _pipeline bit for bit on two input batches (K1 not "
+        f"launched in replays); MicroBatchServer (graph + pinned, {max_batch}-frame "
+        f"batches, max_wait 2 ms): a burst of {n_req} requests from one thread "
+        f"{burst_rps:.1f} requests/s (joints within {srv_gap} mm of eager calls on "
+        f"the same {max_batch}-request batches), {clients} closed-loop clients x {per_client} requests: p50 "
+        f"{np.percentile(lat, 50):.3f} ms "
+        f"p99 {np.percentile(lat, 99):.3f} ms, {loop_rps:.1f} requests/s; artifacts at "
+        f"batch {max_batch} against _pipeline: "
+        + ", ".join(f"{k} {eq}, export {e:.3f} s load {ld:.3f} s ({n} bytes)"
+                    for k, (e, ld, n, eq) in art_s.items()))
+    pr = figures.get("poseregnet", {})
+    if "p50_16" in pr:
+        log(f"[28 resnet deployment] {tag} beside PoseRegNet bf16 (phase 23, graph + "
+            f"pinned, 16 clients): p50 {pr['p50_16']:.3f} ms p99 {pr['p99_16']:.3f} ms")
+    del est32, plain16, cpu_est
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 29
+    seq = make_sequence(cam, train_batch, seed=29)
+    host = TrainData.from_sequence(seq)
+    data = host.to(dev)
+    pri = fit_pose_prior(cam, np.random.default_rng(0), host.gt3d_crop, host.com, host.cube,
+                         num_poses=5000)
+    modes = ("com", "rot", "none")
+    gen = torch.Generator(dev).manual_seed(29)
+    b = data.n
+    batch_t = data.take(torch.arange(b, device=dev))
+    drawn = sample_augment_params(gen, b, len(modes))
+    geo = augment_geometry(drawn, batch_t["com"], batch_t["cube"], batch_t["m"], cam, modes,
+                           (128, 128))
+    want5 = hw.warp_norm_plain(batch_t["crops"], hw.warp_norm_params(geo.a_fwd, geo.norm),
+                               0.0, NV_VAL)
+    got5 = hw.launch_warp_norm(batch_t["crops"], hw.warp_norm_args(
+        batch_t["crops"], drawn, batch_t["com"], batch_t["cube"], batch_t["m"], cam, modes),
+        0.0, NV_VAL).out
+    if not torch.equal(got5, want5):
+        raise AssertionError(f"K5 on the ResNet step's batch != plain on "
+                             f"{int((got5 != want5).sum())} pixels")
+    train_fig = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tr = Trainer(ResNet(ResNetConfig.from_reference_type(2, num_joints=1, n_dims=30)
+                            ._replace(dtype=dt)),
+                     TrainConfig(batch_size=b), cam, prior=pri, device=dev)
+        st = tr.init_state()
+        aug_gen = torch.Generator(dev).manual_seed(1)
+        drop_gen = torch.Generator(dev).manual_seed(2)
+
+        def step():
+            return tr._train_step_core(st, batch_t, aug_gen, drop_gen, 1e-4)[1]
+
+        hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+        loss = step()
+        torch.cuda.synchronize()
+        k5 = dict(hw.LAUNCHES)
+        if k5 != {"warp_norm": 1, "warp_patch": 0} or not math.isfinite(float(loss)):
+            raise AssertionError(f"ResNet step: launches {k5}, loss {float(loss)}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = time_ms(step, iters=10)
+        peak_mem = torch.cuda.max_memory_allocated(dev)
+        host_ms, busy_ms, _ = profile_stage(f"{tag} ResNet-47 {str(dt)[6:]} train step "
+                                            f"B={b}", step, 5, log, phase="29 profile")
+        train_fig[str(dt)[6:]] = (step_ms, busy_ms / host_ms, peak_mem)
+        del tr, st
+        torch.cuda.empty_cache()
+    record["warp_norm"]["resnet_launches_per_call"] = k5["warp_norm"]
+    # a type-0 copy at B=16: one card step and one CPU step from the same
+    # weights and the same pre-drawn augmentation
+    b16 = min(16, b)
+    net0 = ResNetConfig.from_reference_type(0, num_joints=1, n_dims=30)
+    sd = ResNet(net0, generator=torch.Generator().manual_seed(3)).state_dict()
+    cpu_draw = sample_augment_params(torch.Generator().manual_seed(9), b16, len(modes))
+    res = {}
+    for where in ("cpu", dev):
+        tr = Trainer(ResNet(net0), TrainConfig(batch_size=b16, aug_modes=modes,
+                                               model_has_dropout=False),
+                     cam, prior=pri, device=where)
+        st = tr.init_state(state_dict=sd)
+        bt = host.to(where).take(torch.arange(b16, device=where))
+        st, loss = tr._train_step_core(st, bt, [t.to(where) for t in cpu_draw], None, 1e-4)
+        res[str(where)] = (float(loss), {k: v.cpu() for k, v in st.model.state_dict().items()
+                                         if k.endswith(("running_mean", "running_var"))})
+    (l_cpu, s_cpu), (l_dev, s_dev) = res["cpu"], res[str(dev)]
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    stat_rel = max(((s_dev[k] - s_cpu[k]).abs() / s_cpu[k].abs().clamp_min(1e-6)).max().item()
+                   for k in s_cpu)
+    stats_ok = all(torch.allclose(s_dev[k], s_cpu[k], rtol=1e-4, atol=1e-6) for k in s_cpu)
+    if loss_rel > 1e-3 or not stats_ok:
+        raise AssertionError(f"ResNet card vs CPU step: loss {l_dev} vs {l_cpu}, "
+                             f"statistics max rel {stat_rel}")
+    log(f"[29 resnet training] {tag} ResNet-47 type 2 (dropout), PCA 30, B={b}, aug "
+        f"{'/'.join(modes)} through K5 (1 launch per step; K5 == augment_geometry + "
+        f"warp_norm_plain on the step's batch, torch.equal): "
+        + "; ".join(f"{k} {ms:.4f} ms/step = {b / (ms / 1e3):.1f} samples/s, busy share "
+                    f"{share:.3f}, peak memory {mem / 2**30:.3f} GiB"
+                    for k, (ms, share, mem) in train_fig.items())
+        + f"; type 0 at B={b16}, card vs CPU step from the same weights and draws: loss "
+        f"{l_dev:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e} <= 1e-3), running statistics max "
+        f"rel {stat_rel:.2e} (rtol 1e-4, atol 1e-6)")
+
+    # --------------------------------------------------------------- 30
+    out = "eval/chip_smoke_resnet"
+    hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    state, results, hist = main_nyu_posereg_embedding.main([
+        "--model", "resnet", "--synthetic", "--epochs", "2", "--nmax", "256",
+        "--batch-size", "64", "--out", out, "--device", str(dev)])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    steps = len(hist["train_cost"])
+    if dict(hw.LAUNCHES) != {"warp_norm": steps, "warp_patch": 0} or steps != 8:
+        raise AssertionError(f"the ResNet main's {steps} steps launched {dict(hw.LAUNCHES)}")
+    ckpt = f"{out}/train_EMB_PCA30/network_prior.ckpt"
+    loaded, lprior = load_serving_net("resnet", checkpoint=ckpt, device=dev)
+    want_sd = state.model.state_dict()
+    if set(loaded.state_dict()) != set(want_sd) or not all(
+            torch.equal(v, want_sd[k]) for k, v in loaded.state_dict().items()):
+        raise AssertionError("load_serving_net('resnet') did not restore every tensor")
+    served = FusedEstimator(loaded, cam, prior=lprior, device=dev)
+    ref = served(depth[:max_batch], com[:max_batch])
+    # the same weights as a reference pickle, the PCA decode appended
+    pkl = f"{out}/network_prior.pkl"
+    with open(pkl, "wb") as fh:
+        pickle.dump(reference_pickle_from_state_dict(loaded.state_dict(), "resnet",
+                                                     decode=lprior), fh, 2)
+    ref_model, none = load_serving_net("resnet", ref_pickle=pkl, device=dev)
+    if none is not None:
+        raise AssertionError("a network_prior.pkl came with a prior")
+    got = FusedEstimator(ref_model, cam, device=dev)(depth[:max_batch], com[:max_batch])
+    # the pickle's weights with the checkpoint's decode: the serving path alone
+    same_w = FusedEstimator(ResNet(loaded.cfg).to(dev), cam, prior=lprior, device=dev)
+    same_w.model.load_state_dict({**loaded.state_dict(), **{
+        k: v for k, v in ref_model.state_dict().items() if k.endswith("running_var")}})
+    same_j = same_w(depth[:max_batch], com[:max_batch])[0]
+    pkl_gap = (got[0] - ref[0]).abs().max().item()
+    path_gap = (got[0] - same_j).abs().max().item()
+    inv_stored = [v[3] for v in load_reference_pickle(pkl).values() if len(v) == 4]
+    vars_back = [v.cpu().numpy() for k, v in ref_model.state_dict().items()
+                 if k.endswith("running_var")]
+    ulps = max(int(np.abs(
+        (1.0 / np.sqrt(vb.astype(np.float64) + 1e-5)).astype(np.float32).view(np.int32)
+        - inv.view(np.int32)).max()) for vb, inv in zip(vars_back, inv_stored))
+    if path_gap > 1e-3 or pkl_gap > 1e-2 or ulps > 2 or not torch.equal(got[2], ref[2]):
+        raise AssertionError(f"--ref-pickle: joints off the checkpoint's by {pkl_gap} mm, "
+                             f"off its own weights' by {path_gap} mm, inv_std by {ulps} ulps")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepprior_tpu_torch.mains.serve_http", "--model", "resnet",
+         "--checkpoint", ckpt, "--port", "0", "--device", str(dev), "--max-wait-ms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    try:
+        port, seen, deadline = None, [], time.monotonic() + 240
+        while port is None:
+            try:
+                ln = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"serve_http --model resnet did not start: {seen}")
+                continue
+            seen.append(ln.rstrip())
+            if ln.startswith("serving on http://"):
+                port = int(ln.split()[2].rsplit(":", 1)[1])
+        http_err = []
+        for i in range(3):
+            buf = io.BytesIO()
+            np.savez(buf, depth=depth_np[i], com=com_np[i])
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                conn.request("POST", "/predict", body=buf.getvalue())
+                resp = conn.getresponse()
+                status, body = resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+            if status != 200:
+                raise AssertionError(f"serve_http --model resnet POST {i}: {status} {body}")
+            with torch.inference_mode():  # the server's batch: the frame, padded
+                want_i = served._pipeline(
+                    torch.from_numpy(depth_np[[i] * max_batch]).to(dev),
+                    torch.from_numpy(com_np[[i] * max_batch]).to(dev))[0][0].cpu().numpy()
+            http_err.append(float(np.abs(np.asarray(body["joints"], np.float32)
+                                         - want_i).max()))
+        if max(http_err) > 1e-3:
+            raise AssertionError(f"serve_http --model resnet: joints off by {http_err} mm")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    log(f"[30 resnet end to end] main_nyu_posereg_embedding --model resnet --synthetic "
+        f"--epochs 2 --nmax 256 --batch-size 64: {steps} steps, K5 launches "
+        f"{dict(hw.LAUNCHES)['warp_norm']}, costs {hist['train_cost'][0]:.4f} -> "
+        f"{hist['train_cost'][-1]:.4f}, "
+        + ", ".join(f"{k} mean {v.getMeanError():.3f} mm" for k, v in results.items())
+        + f", {main_s:.1f} s; {ckpt}: load_serving_net('resnet') restores every tensor "
+        f"bit for bit (the BatchNorm statistics too); serve_http --model resnet "
+        f"--checkpoint (subprocess) answers 3 /predict posts within "
+        f"{max(http_err):.6f} mm of the eager estimator; --ref-pickle of the same weights "
+        f"(decode appended): joints within {pkl_gap:.6f} mm of the checkpoint's (the 61 "
+        f"variances' float32 round trip through inv_std) and {path_gap:.6f} mm of its own "
+        f"weights with the checkpoint's decode; inv_std round trip within {ulps} ulps")
+    del served, ref_model, same_w, loaded, est16, model16, model32
     torch.cuda.empty_cache()
 
 

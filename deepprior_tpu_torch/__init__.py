@@ -12,14 +12,16 @@ the same place under the other package name:
 - ``ops.hopper_warp``   the augmentation warps as hand-written CUDA
                         kernels (K4, K5)
 - ``ops.augment``       training-time augmentation on the device
-- ``models``            PoseRegNet as NCHW ``nn.Module``s
+- ``models``            PoseRegNet, ResNet-47 (with flax's BatchNorm) and
+                        ScaleNet as NCHW ``nn.Module``s
 - ``prior``             the PCA pose prior: its fit and its decode
 - ``train``             reference optimizers, epoch indexing, the trainer
 - ``eval``              the hand-pose metric suite
 - ``realtime``          the fused frame -> joints estimator and its
                         micro-batching server
 - ``mains``             the entry points (``python -m``)
-- ``utils.convert``     flax parameter trees -> PyTorch ``state_dict``s
+- ``utils.convert``     flax variable trees -> PyTorch ``state_dict``s
+- ``utils.refweights``  the reference's Theano pickles <-> ``state_dict``s
 
 The package imports torch and numpy only, never jax.
 """

@@ -2,10 +2,11 @@
 
 ``run_posereg_embedding`` is the flagship recipe (reference
 main_nyu_posereg_embedding.py:38-205) on synthetic data: frames -> PCA
-prior from sampled poses -> PoseRegNet 30-D embedding training with
-augmentation -> network_prior.ckpt -> decode -> metrics -> results.json.
-``load_serving_net`` gives the serving entry points their model and
-prior: random weights, or the trained ones from a network_prior.ckpt.
+prior from sampled poses -> PoseRegNet (or, with --model resnet,
+ResNet-47) 30-D embedding training with augmentation -> network_prior.ckpt
+-> decode -> metrics -> results.json.  ``load_serving_net`` gives the
+serving entry points their model and prior: random weights, the trained
+ones from a network_prior.ckpt, or a reference-trained pickle.
 """
 
 from __future__ import annotations
@@ -22,15 +23,12 @@ import torch
 _TODO = {
     "data": "real datasets need the importers (ROADMAP.md Queue 1 item 17); "
             "use --synthetic",
-    "resnet": "--model resnet needs models/resnet.py (ROADMAP.md Queue 1 item 14)",
     "parallel": "--dp/--tp/--sp and --sharded-snapshots need the scale-out "
                 "port (ROADMAP.md Queue 1 item 19)",
     "resume": "--resume needs training snapshots (ROADMAP.md Queue 1 item 13)",
     "streamed": "--streamed needs fit_streamed (ROADMAP.md Queue 1 item 13)",
     "accept": "--accept needs the baseline loaders and plots (ROADMAP.md "
               "Queue 1 item 20)",
-    "ref_pickle": "reference .pkl weights need utils/refweights.py (ROADMAP.md "
-                  "Queue 1 item 14)",
 }
 
 
@@ -78,7 +76,14 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="bfloat16 compute (float32 parameters, optimizer "
                         "state, losses and metrics)")
     p.add_argument("--model", default="poseregnet",
-                   choices=["poseregnet", "resnet"])
+                   choices=["poseregnet", "resnet"],
+                   help="regressor family: PoseRegNet, or ResNet-47 (the "
+                        "reference's best results and realtime demo)")
+    p.add_argument("--resnet-type", type=int, default=2,
+                   help="reference ResNet head type 0-4 (resnet.py:119-195); "
+                        "2 = dropout head (default), 1 = plain head (pair "
+                        "with --weightreg, the reference's recipe for "
+                        "dropout-less nets)")
     p.add_argument("--validation-frequency", type=int, default=None,
                    help="run the validation observers every N minibatches")
     p.add_argument("--device", default=None,
@@ -98,8 +103,6 @@ def check_ported(args) -> None:
     """Raise NotImplementedError for a flag the port does not have yet."""
     if args.data is not None:
         raise NotImplementedError(_TODO["data"])
-    if args.model == "resnet":
-        raise NotImplementedError(_TODO["resnet"])
     if args.dp is not None or args.tp != 1 or args.sp != 1 or args.sharded_snapshots:
         raise NotImplementedError(_TODO["parallel"])
     for flag in ("resume", "streamed", "accept"):
@@ -128,13 +131,16 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
                           n_pca: int = 30, log=print):
     """The flagship recipe on synthetic data.
 
-    Returns (state, {seq name: HandposeEvaluation}, training history) and
-    writes <out>/<prefix>/network_prior.ckpt (the trained weights and the
-    PCA prior, fingerprinted with the TrainConfig; ``load_serving_net``
-    reads it) and <out>/<prefix>/results.json with the JAX main's
-    metrics."""
+    ``--model resnet`` trains ResNet-47 of head type ``--resnet-type``
+    (default 2, the dropout head); weight decay applies iff the net has no
+    dropout or --weightreg > 0 asks for it.  Returns (state, {seq name:
+    HandposeEvaluation}, training history) and writes
+    <out>/<prefix>/network_prior.ckpt (the trained weights, a ResNet's
+    BatchNorm statistics and the PCA prior, fingerprinted with the
+    TrainConfig and the family; ``load_serving_net`` reads it) and
+    <out>/<prefix>/results.json with the JAX main's metrics."""
     from deepprior_tpu_torch.eval.metrics import HandposeEvaluation
-    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
     from deepprior_tpu_torch.prior import fit_pose_prior
     from deepprior_tpu_torch.train.checkpoint import save_checkpoint
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
@@ -162,15 +168,19 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     )
     stamp("prior ready; training...")
 
-    model = PoseRegNet(PoseRegNetConfig(
-        num_joints=1, n_dims=n_pca,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-    ))
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    has_dropout = True
+    if args.model == "resnet":
+        has_dropout = args.resnet_type in (2, 3, 4)
+        model = ResNet(ResNetConfig(num_joints=1, n_dims=n_pca, dropout=has_dropout,
+                                    dtype=dtype))
+    else:
+        model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=n_pca, dtype=dtype))
     wr = args.weightreg
     cfg = TrainConfig(
         batch_size=args.batch_size, learning_rate=args.lr,
         n_epochs=args.epochs, aug_modes=tuple(args.aug_modes), seed=args.seed,
-        weightreg_factor=wr, model_has_dropout=wr <= 0.0,
+        weightreg_factor=wr, model_has_dropout=has_dropout and wr <= 0.0,
         validation_frequency=args.validation_frequency,
         aug_fuse_norm=args.aug_fuse_norm, aug_resize=args.aug_resize,
     )
@@ -180,8 +190,12 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     state, hist = trainer.fit(state, data, val_data=val, log=log)
     log(f"training took {time.time() - t0:.1f}s")
 
-    # save the final net + prior (the reference appends the PCA decode layer
-    # and saves network_prior.pkl, main:148-158)
+    # save the final net (a ResNet's BatchNorm statistics with it) + prior
+    # (the reference appends the PCA decode layer and saves
+    # network_prior.pkl, main:148-158); the fingerprint names the family
+    family = {"model": args.model}
+    if args.model == "resnet":
+        family["resnet_type"] = args.resnet_type
     save_checkpoint(
         os.path.join(outdir, "network_prior.ckpt"),
         {
@@ -189,7 +203,7 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
             "pca_components": prior.components,
             "pca_mean": prior.mean,
         },
-        config=cfg._asdict(),
+        config=dict(cfg._asdict(), **family),
     )
 
     # test: decode to mm and the metric suite (main:161-205)
@@ -224,28 +238,53 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
 
 def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
                      device=None):
-    """Model and prior for the serving entry points: PoseRegNet type 0 with
-    a 30-D output (hidden 1024, float32).  With ``checkpoint`` (a
-    network_prior.ckpt of ``run_posereg_embedding``) its trained weights
-    and PCA prior; a missing file raises FileNotFoundError.  Without, the
-    random-weights branch of the JAX ``load_serving_net`` (pipeline smoke
-    mode): weights from ``torch.Generator`` seed 0 and a random (30, 42)
-    PCA prior from numpy seed 0.  ``ref_pickle`` and ResNet raise
-    NotImplementedError naming their ROADMAP items.
+    """Model and prior for the serving entry points (demo_realtime,
+    serve_http), resolved as the JAX ``load_serving_net`` resolves them:
 
-    Returns (model on ``device``, prior)."""
-    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    - ``ref_pickle``: a reference-trained .pkl[.gz] of family ``model_name``
+      (``utils.refweights.model_from_reference_pickle``); it must carry its
+      appended PCA decode layer (the network_prior.pkl the reference mains
+      save), and then no prior is returned; a pickle that emits the bare
+      embedding raises SystemExit;
+    - else ``model_name``'s serving net, PoseRegNet type 0 or ResNet-47
+      type 0 with a 30-D output (hidden 1024, float32): with
+      ``checkpoint`` (a network_prior.ckpt of ``run_posereg_embedding``) its
+      trained weights, BatchNorm statistics and PCA prior (a missing file
+      raises FileNotFoundError, a checkpoint of the other family
+      ValueError); without, weights from ``torch.Generator`` seed 0 and a
+      random (30, 42) PCA prior from numpy seed 0 (pipeline smoke mode).
+
+    Returns (model on ``device``, prior or None)."""
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
     from deepprior_tpu_torch.prior import PCAPrior
-    from deepprior_tpu_torch.train.checkpoint import load_checkpoint
+    from deepprior_tpu_torch.train.checkpoint import checkpoint_config, load_checkpoint
 
-    if ref_pickle:
-        raise NotImplementedError(_TODO["ref_pickle"])
-    if model_name == "resnet":
-        raise NotImplementedError(_TODO["resnet"])
     device = torch.device(device) if device else default_device()
-    model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
-                       generator=torch.Generator().manual_seed(0))
+    if ref_pickle:
+        from deepprior_tpu_torch.utils.refweights import model_from_reference_pickle
+
+        model, needs_prior = model_from_reference_pickle(ref_pickle, model_name)
+        if needs_prior:
+            raise SystemExit(
+                "this pickle emits the PCA embedding without the decode layer; use "
+                "the network_prior.pkl form the reference main saved (decode "
+                "appended), or a --checkpoint that carries the prior")
+        return model.to(device), None  # the appended decode layer decodes
+    gen = torch.Generator().manual_seed(0)
+    if model_name == "resnet":
+        model = ResNet(ResNetConfig(num_joints=1, n_dims=30), generator=gen)
+    elif model_name == "poseregnet":
+        model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30), generator=gen)
+    else:
+        raise ValueError(f"unknown model {model_name!r}")
     if checkpoint:
+        stored = checkpoint_config(checkpoint)
+        # checkpoints written before the family was recorded hold PoseRegNets
+        family = (stored.get("model", "poseregnet") if isinstance(stored, dict)
+                  else "poseregnet")
+        if family != model_name:
+            raise ValueError(f"{checkpoint} holds a {family} (its config says so), not a "
+                             f"{model_name}: pass --model {family}")
         tree = {
             "params": model.state_dict(),
             "pca_components": np.zeros((30, 42), np.float32),

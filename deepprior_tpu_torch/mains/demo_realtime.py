@@ -4,20 +4,23 @@ synthetic camera, detecting the hand on the device, and reports fps.
 
     python -m deepprior_tpu_torch.mains.demo_realtime --frames 100 [--threaded] [--comref]
 
-Random weights (PoseRegNet type 0, 30-D PCA prior; with --comref a
-full-width ScaleNet CoM refiner), or with --checkpoint the trained net and
-prior of a network_prior.ckpt written by the training main.  --device is the torch device, cuda by
-default; without a card the demo raises unless given --device cpu.  The
-camera is the synthetic one; the JAX demo's camera spellings are accepted:
---device synthetic means the default torch device, and --device capture is
-not ported.
+Random weights (PoseRegNet type 0, or with --model resnet ResNet-47 type 0,
+30-D PCA prior; with --comref a full-width ScaleNet CoM refiner), or with
+--checkpoint the trained net and prior of a network_prior.ckpt written by
+the training main, or with --ref-pickle a reference-trained
+network_prior.pkl (its PCA decode appended); --comref-pickle loads a
+reference-trained ScaleNet refiner (and implies --comref).  --device is
+the torch device, cuda by default; without a card the demo raises unless
+given --device cpu.  The camera is the synthetic one; the JAX demo's
+camera spellings are accepted: --device synthetic means the default torch
+device, and --device capture is not ported.
 """
 
 import argparse
 
 import torch
 
-from deepprior_tpu_torch.mains.common import _TODO, default_device, load_serving_net
+from deepprior_tpu_torch.mains.common import default_device, load_serving_net
 
 _CAPTURE_TODO = ("the native capture device needs cpp/capture.cpp and "
                  "CaptureDevice (ROADMAP.md Queue 1 item 22)")
@@ -35,10 +38,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ScaleNet CNN CoM refinement in the detect path")
     p.add_argument("--checkpoint", default=None,
                    help="trained network_prior.ckpt (random weights if absent)")
-    # not ported yet: parsed so that asking for them fails loudly
-    p.add_argument("--ref-pickle", default=None)
-    p.add_argument("--comref-pickle", default=None)
-    p.add_argument("--model", default="poseregnet", choices=["poseregnet", "resnet"])
+    p.add_argument("--ref-pickle", default=None,
+                   help="a reference-trained .pkl[.gz] net of --model's family, its "
+                        "PCA decode appended (network_prior.pkl)")
+    p.add_argument("--comref-pickle", default=None,
+                   help="a reference-trained ScaleNet CoM refiner .pkl[.gz] "
+                        "(implies --comref)")
+    p.add_argument("--model", default="poseregnet", choices=["poseregnet", "resnet"],
+                   help="resnet: ResNet-47, the reference realtime demo's net")
+    # not ported yet: parsed so that asking for it fails loudly
     p.add_argument("--save-view", default=None)
     return p
 
@@ -51,14 +59,14 @@ def main(argv=None, log=print):
     from deepprior_tpu_torch.realtime.camera import SyntheticDevice
     from deepprior_tpu_torch.realtime.fused import FusedEstimator
     from deepprior_tpu_torch.realtime.pipeline import RealtimeHandposePipeline
+    from deepprior_tpu_torch.utils.refweights import (load_reference_pickle,
+                                                      scalenet_state_dict_from_reference)
 
     args = build_parser().parse_args(argv)
     if args.device == "capture":  # the JAX demo's camera flag
         raise NotImplementedError(_CAPTURE_TODO)
     if args.device == "synthetic":
         args.device = None
-    if args.comref_pickle:
-        raise NotImplementedError(_TODO["ref_pickle"])
     if args.save_view:
         raise NotImplementedError(_SAVE_VIEW_TODO)
     device = torch.device(args.device) if args.device else default_device()
@@ -68,9 +76,14 @@ def main(argv=None, log=print):
                                     checkpoint=args.checkpoint, device=device)
     est = FusedEstimator(model, cam, prior=prior, device=device)
     com_refiner = None
-    if args.comref:
+    if args.comref or args.comref_pickle:
         refine_model = ScaleNet(ScaleNetConfig(num_joints=1, n_dims=3),
                                 generator=torch.Generator().manual_seed(1))
+        if args.comref_pickle:
+            # the reference demo loads a trained comrefNet pickle
+            # (test_realtimepipeline.py:71-77)
+            refine_model.load_state_dict(scalenet_state_dict_from_reference(
+                load_reference_pickle(args.comref_pickle)))
         com_refiner = CNNComRefiner(refine_model.to(device), cam)
     pipe = RealtimeHandposePipeline(
         est, {"fx": cam.fx, "fy": cam.fy, "cube": (250.0, 250.0, 250.0)},

@@ -16,7 +16,11 @@ API:
                              "batch": realized device batch when served}
 
 Run:  python -m deepprior_tpu_torch.mains.serve_http --port 8000 \\
-          --max-batch 64 [--checkpoint eval/train_EMB_PCA30/network_prior.ckpt]
+          --max-batch 64 [--model resnet] \\
+          [--checkpoint eval/train_EMB_PCA30/network_prior.ckpt | --ref-pickle net.pkl]
+--model picks PoseRegNet (default) or ResNet-47; --checkpoint serves a
+network_prior.ckpt of the training main, --ref-pickle a reference-trained
+network_prior.pkl (its PCA decode appended), random weights otherwise.
 --device is the torch device, cuda by default; without a card the server
 raises unless given --device cpu.
 """
@@ -164,7 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None,
                    help="trained network_prior.ckpt (random weights if absent)")
     p.add_argument("--ref-pickle", default=None,
-                   help="reference .pkl weights (not ported yet)")
+                   help="a reference-trained .pkl[.gz] net of --model's family, "
+                        "its PCA decode appended (network_prior.pkl)")
     p.add_argument("--max-batch", type=int, default=64)
     p.add_argument("--max-wait-ms", type=float, default=2.0)
     p.add_argument("--dp", type=int, default=1,
@@ -187,10 +192,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.ref_pickle:
-        raise NotImplementedError(_TODO["ref_pickle"])
-    if args.model == "resnet":
-        raise NotImplementedError(_TODO["resnet"])
     server = build_server(args)
     if server is None:  # --export-artifact wrote the artifact and exits
         return

@@ -9,6 +9,7 @@ library's semantics (src/net/):
 - He/Xavier initialization, drawn from an explicit ``torch.Generator``
 - dropout p_drop = 0.3 (inverted dropout with masks from an explicit
   ``torch.Generator``; identity in eval mode)
+- BatchNorm with flax's semantics (``BatchNorm``), for ResNet
 
 Parameters stay float32; ``dtype`` is the compute type (bf16 on the card).
 """
@@ -25,6 +26,10 @@ from torch import nn
 
 # reference dropoutlayer.py default p = 0.3 (drop probability)
 DROPOUT_RATE = 0.3
+# flax nn.BatchNorm's defaults as the JAX ResNet sets them: running =
+# 0.9 * running + 0.1 * batch, eps 1e-5
+BN_MOMENTUM = 0.9
+BN_EPS = 1e-5
 
 
 def prelu(x, c):
@@ -100,16 +105,91 @@ class ConvPool(nn.Module):
         """``pool`` overrides the layer's own pooling: ScaleNet's shared
         towers run one set of weights under each scale's pooling."""
         pool = self.pool if pool is None else tuple(pool)
-        x = F.conv2d(
-            x.to(self.dtype),
-            self.conv.weight.to(self.dtype),
-            self.conv.bias.to(self.dtype),
-        )
+        x = conv2d(self.conv, x, self.dtype)
         if pool != (1, 1):
             x = F.max_pool2d(x, pool, pool)
         if self.activation is not None:
             x = self.activation(x)
         return x
+
+
+class BatchNorm(nn.Module):
+    """Per-channel batch normalization of (B, C, H, W) maps with flax
+    ``nn.BatchNorm``'s semantics (not ``nn.BatchNorm2d``'s).
+
+    Training mode normalizes by the batch statistics and updates the
+    buffers as ``running = 0.9 * running + 0.1 * batch`` with the *biased*
+    variance, computed as flax does: in float32 (float64 for a float64
+    input), as ``max(0, E[x^2] - E[x]^2)`` (``nn.BatchNorm2d`` stores the
+    unbiased one).  Eval mode normalizes by the buffers.  Either way one
+    ``F.batch_norm`` normalizes: a bf16 input with the float32 weight, bias
+    and statistics is normalized in float32 and only the result is rounded
+    to bf16, as flax casts after the bias."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.dtype = dtype
+
+    def reset_parameters(self):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        weight, bias = self.weight.to(acc), self.bias.to(acc)
+        if self.training:
+            with torch.no_grad():
+                xf = x.detach().to(acc)
+                batch_mean = xf.mean(dim=(0, 2, 3))
+                batch_var = torch.addcmul(torch.square(xf).mean(dim=(0, 2, 3)),
+                                          batch_mean, batch_mean, value=-1.0).clamp_(min=0.0)
+                for buf, batch in ((self.running_mean, batch_mean),
+                                   (self.running_var, batch_var)):
+                    buf.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
+            mean = var = None
+        else:
+            mean, var = self.running_mean.to(acc), self.running_var.to(acc)
+        y = F.batch_norm(x, mean, var, weight, bias, self.training, 0.0, BN_EPS)
+        return y.to(self.dtype)
+
+
+@torch.no_grad()
+def calibrate_batchnorm(model: nn.Module, x):
+    """Set every ``BatchNorm``'s running statistics to the (biased) batch
+    statistics of its own input on one eval-mode call ``model(x)``, layer
+    after layer, so that each layer sees the input its predecessors
+    normalized.  A net of random weights whose statistics are still 0 / 1
+    leaves its activations unnormalized and grows them through a deep
+    trunk (ResNet-47's random pose lands thousands of mm off); calibrated,
+    it serves poses of a trained net's scale.  Leaves the model in eval
+    mode."""
+    def take_stats(mod, args):
+        h = args[0].to(torch.promote_types(args[0].dtype, torch.float32))
+        mod.running_mean.copy_(h.mean(dim=(0, 2, 3)))
+        mod.running_var.copy_(h.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(take_stats) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        model.eval()(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return model
+
+
+def conv2d(conv: nn.Conv2d, x, dtype: torch.dtype):
+    """``conv`` (its stride and padding) in the compute ``dtype``: the input,
+    weight and bias cast to it, the float32 parameters left as they are."""
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    conv.stride, conv.padding)
 
 
 class MLPHead(nn.Module):

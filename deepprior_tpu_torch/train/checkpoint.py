@@ -126,6 +126,13 @@ def checkpoint_keys(path: str) -> set:
         return _read_header(f, path)[1]
 
 
+def checkpoint_config(path: str) -> Any:
+    """The stored config fingerprint, parsed (None when the checkpoint was
+    saved without a config), read from the header alone."""
+    with open(path, "rb") as f:
+        return json.loads(_read_header(f, path)[0])
+
+
 def load_checkpoint(
     path: str, target: Any, config: Any = None, strict: bool = False
 ) -> Tuple[Any, bool]:

@@ -156,9 +156,10 @@ def _loss_from_targets(out, y):
 
 
 def _l2_penalty(model: nn.Module):
-    """Sum of squares of the conv and dense weights, never biases or
-    activation slopes (convpoollayer.py:288, hiddenlayer.py:159), as the
-    JAX package's "kernel" leaves."""
+    """Sum of squares of the conv and dense weights, never biases,
+    activation slopes or BatchNorm parameters (convpoollayer.py:288,
+    hiddenlayer.py:159, batchnormlayer.py:146), as the JAX package's
+    "kernel" leaves."""
     total = 0.0
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
@@ -232,8 +233,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self, example_crops=None, state_dict=None) -> TrainState:
         """Fresh parameters drawn from ``cfg.seed`` (on the CPU, so every
-        device starts from the same weights), or ``state_dict``'s, and a
-        fresh optimizer.  example_crops is accepted for the JAX signature;
+        device starts from the same weights; BatchNorm statistics reset to
+        0 / 1), or ``state_dict``'s, and a fresh optimizer.  example_crops is accepted for the JAX signature;
         the shapes here are static."""
         if state_dict is None:
             self.model.cpu().reset_parameters(
@@ -261,6 +262,8 @@ class Trainer:
         batch: dict of crops, gt3d_crop, com, cube, m tensors; aug: a
         ``torch.Generator`` for the augmentation draws, or pre-drawn
         (mode_idx, off, rot, sc); drop_generator draws the dropout masks.
+        The model runs in training mode, so a ResNet's BatchNorm statistics
+        update once per step, as the JAX step's new batch_stats do.
         Returns (state, loss as a 0-d tensor on the device)."""
         cfg = self.cfg
         with self._precision():
@@ -386,6 +389,7 @@ class Trainer:
         raise NotImplementedError(_STREAMED_TODO)
 
     def _best_copy(self, state: TrainState):
+        """The state dict, BatchNorm statistics included, off the live model."""
         return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
 
     def fit(

@@ -1,4 +1,4 @@
-"""Weight conversion from the JAX package's flax parameter trees."""
+"""Weight conversion from the JAX package's flax variable trees."""
 
 from __future__ import annotations
 
@@ -60,10 +60,11 @@ def poseregnet_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.T
 
 
 def _conv_from_flax(sd, prefix, conv) -> None:
-    """A flax Conv's {kernel (HWIO), bias} as a torch Conv2d's OIHW."""
-    sd[f"{prefix}.conv.weight"] = torch.tensor(
+    """A flax Conv's {kernel (HWIO), bias} as the torch Conv2d ``prefix``'s
+    OIHW weight and bias."""
+    sd[f"{prefix}.weight"] = torch.tensor(
         np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1))
-    sd[f"{prefix}.conv.bias"] = torch.tensor(np.asarray(conv["bias"], np.float32))
+    sd[f"{prefix}.bias"] = torch.tensor(np.asarray(conv["bias"], np.float32))
 
 
 def scalenet_state_dict_from_flax(params: Dict[str, Any], resize_factor: int = 2,
@@ -85,12 +86,12 @@ def scalenet_state_dict_from_flax(params: Dict[str, Any], resize_factor: int = 2
     if "_SharedConvTowers_0" in params:
         shared = params["_SharedConvTowers_0"]
         for i in range(len(shared)):
-            _conv_from_flax(sd, f"towers.layers.{i}", shared[f"shared_conv_{i}"])
+            _conv_from_flax(sd, f"towers.layers.{i}.conv", shared[f"shared_conv_{i}"])
     else:
         for t in range(3):
             tower = params[f"_Tower_{t}"]
             for i in range(len(tower)):
-                _conv_from_flax(sd, f"towers.{t}.layers.{i}",
+                _conv_from_flax(sd, f"towers.{t}.layers.{i}.conv",
                                 tower[f"ConvPool_{i}"]["Conv_0"])
     head = params["MLPHead_0"]
     dense = sorted((k for k in head if k.startswith("Dense_")),
@@ -114,8 +115,58 @@ def scalenet_state_dict_from_flax(params: Dict[str, Any], resize_factor: int = 2
     return sd
 
 
-def train_state_from_flax(trainer, params: Dict[str, Any]):
-    """A port ``TrainState`` that starts from a flax ``PoseRegNet``'s
-    parameters (e.g. the JAX ``TrainState.params``), with the fresh
-    optimizer state the JAX ``init_state`` gives: zero moments, count 1."""
-    return trainer.init_state(state_dict=poseregnet_state_dict_from_flax(params))
+def _batchnorm_from_flax(sd, prefix, params, stats) -> None:
+    """A flax BatchNorm's {scale, bias} and {mean, var} as a
+    ``layers.BatchNorm``'s weight, bias and running statistics."""
+    for name, arr in (("weight", params["scale"]), ("bias", params["bias"]),
+                      ("running_mean", stats["mean"]), ("running_var", stats["var"])):
+        sd[f"{prefix}.{name}"] = torch.tensor(np.asarray(arr, np.float32))
+
+
+def resnet_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``ResNet`` variables ({"params", "batch_stats"}, numpy leaves) ->
+    ``state_dict`` of deepprior_tpu_torch.models.ResNet.
+
+    flax module order: Conv_0 (the stem), _Bottleneck_{i} with
+    BatchNorm_{0,1,2}, Conv_{0,1,2} and, in a projection block, Conv_3 (the
+    shortcut), then BatchNorm_0 and Dense_{i}.  The first Dense's rows go
+    from the NHWC to the NCHW flatten order.
+    """
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_from_flax(sd, "stem", params["Conv_0"])
+    i = 0
+    while f"_Bottleneck_{i}" in params:
+        bp, bs = params[f"_Bottleneck_{i}"], stats[f"_Bottleneck_{i}"]
+        for j in range(3):
+            _batchnorm_from_flax(sd, f"blocks.{i}.bn{j}", bp[f"BatchNorm_{j}"],
+                                 bs[f"BatchNorm_{j}"])
+            _conv_from_flax(sd, f"blocks.{i}.conv{j}", bp[f"Conv_{j}"])
+        if "Conv_3" in bp:
+            _conv_from_flax(sd, f"blocks.{i}.shortcut", bp["Conv_3"])
+        i += 1
+    _batchnorm_from_flax(sd, "bn", params["BatchNorm_0"], stats["BatchNorm_0"])
+    last_c = np.asarray(params["BatchNorm_0"]["scale"]).shape[0]
+    i = 0
+    while f"Dense_{i}" in params:
+        kern = np.asarray(params[f"Dense_{i}"]["kernel"], np.float32)
+        if i == 0:
+            kern = _nhwc_rows_to_nchw(kern, last_c)
+        sd[f"head.dense.{i}.weight"] = torch.tensor(kern.T.copy())
+        sd[f"head.dense.{i}.bias"] = torch.tensor(
+            np.asarray(params[f"Dense_{i}"]["bias"], np.float32))
+        i += 1
+    return sd
+
+
+def train_state_from_flax(trainer, params: Dict[str, Any], batch_stats=None):
+    """A port ``TrainState`` that starts from a flax model's parameters (e.g.
+    the JAX ``TrainState.params``, and for a ResNet its ``batch_stats``),
+    with the fresh optimizer state the JAX ``init_state`` gives: zero
+    moments, count 1.  The family is read off the tree: ``ConvPool_0`` is a
+    PoseRegNet, ``_Bottleneck_0`` a ResNet."""
+    if "_Bottleneck_0" in params:
+        sd = resnet_state_dict_from_flax({"params": params, "batch_stats": batch_stats})
+    else:
+        sd = poseregnet_state_dict_from_flax(params)
+    return trainer.init_state(state_dict=sd)

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                 "data.detector_np", "realtime.camera", "realtime.pipeline",
                 "mains.demo_realtime", "utils.profiling", "utils.flops",
                 "ops.hopper_probes", "prof.prof_bench", "prof.prof_warp_bf16",
-                "train.checkpoint", "realtime.export", "mains.serve_http"):
+                "train.checkpoint", "realtime.export", "mains.serve_http",
+                "models.resnet", "utils.refweights"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 

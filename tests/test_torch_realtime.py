@@ -17,6 +17,8 @@ one seed, at ICVL's 320x240.
   tests/test_com.py).
 """
 
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,13 +40,15 @@ from deepprior_tpu.realtime.fused import FusedEstimator as JaxFusedEstimator
 from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
 from deepprior_tpu_torch.mains import common as tcommon
 from deepprior_tpu_torch.mains import demo_realtime
-from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ScaleNet, ScaleNetConfig
+from deepprior_tpu_torch.models import (PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig,
+                                        ScaleNet, ScaleNetConfig)
 from deepprior_tpu_torch.ops.refine_cnn import CNNComRefiner
 from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.realtime import camera as tcamera
 from deepprior_tpu_torch.realtime import pipeline as tpipeline
 from deepprior_tpu_torch.realtime.fused import FusedEstimator
 from deepprior_tpu_torch.train.checkpoint import save_checkpoint
+from deepprior_tpu_torch.utils.refweights import reference_pickle_from_state_dict
 from deepprior_tpu_torch.utils.convert import (
     poseregnet_state_dict_from_flax,
     scalenet_state_dict_from_flax,
@@ -255,9 +259,44 @@ def test_demo_main_on_cpu(tmp_path):
     for k, v in pipe.estimator.model.state_dict().items():
         assert torch.equal(v, model.state_dict()[k]), k
     assert torch.equal(pipe.estimator.prior.components, torch.from_numpy(comps))
-    for argv in (["--device", "capture"],
-                 ["--ref-pickle", "x"], ["--comref-pickle", "x"], ["--model", "resnet"],
-                 ["--save-view", "x.png"]):
+    for argv in (["--device", "capture"], ["--save-view", "x.png"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             demo_realtime.main(argv + ["--frames", "1", "--device", "cpu"]
                                if argv[0] != "--device" else argv + ["--frames", "1"])
+
+
+def test_demo_main_resnet_with_reference_pickles(tmp_path):
+    """demo_realtime --model resnet --ref-pickle --comref-pickle on the CPU:
+    ResNet-47 from a network_prior.pkl (its decode appended: no prior) and
+    the ScaleNet refiner from its pickle, weights as written; a pickle of
+    the bare embedding exits with the JAX main's message."""
+    model = ResNet(ResNetConfig(num_joints=1, n_dims=30),
+                   generator=torch.Generator().manual_seed(3))
+    comps = np.random.default_rng(3).standard_normal((30, 42)).astype(np.float32) * 0.05
+    pkl = str(tmp_path / "network_prior.pkl")
+    with open(pkl, "wb") as fh:
+        pickle.dump(reference_pickle_from_state_dict(
+            model.state_dict(), "resnet", decode=PCAPrior(comps, np.zeros(42, np.float32))),
+            fh, 2)
+    scale = ScaleNet(ScaleNetConfig(num_joints=1, n_dims=3),
+                     generator=torch.Generator().manual_seed(7))
+    comref = str(tmp_path / "comref.pkl")
+    with open(comref, "wb") as fh:
+        pickle.dump(reference_pickle_from_state_dict(scale.state_dict(), "scalenet"), fh, 2)
+    lines = []
+    pipe, results = demo_realtime.main(
+        ["--model", "resnet", "--ref-pickle", pkl, "--comref-pickle", comref, "--frames",
+         "2", "--device", "cpu"], log=lines.append)
+    assert len(results) == 2 and lines[0].startswith("processed 2 frames on cpu")
+    assert all(np.isfinite(r["joints3d"]).all() for r in results)
+    est = pipe.estimator
+    assert isinstance(est.model, ResNet) and est.prior is None
+    assert est.model.cfg.embedding == 30 and est.model.cfg.num_joints == 14
+    for k, v in scale.state_dict().items():
+        assert torch.equal(pipe.com_refiner.model.state_dict()[k], v), k
+    bare = str(tmp_path / "embedding.pkl")
+    with open(bare, "wb") as fh:
+        pickle.dump(reference_pickle_from_state_dict(model.state_dict(), "resnet"), fh, 2)
+    with pytest.raises(SystemExit, match="decode layer"):
+        demo_realtime.main(["--model", "resnet", "--ref-pickle", bare, "--frames", "1",
+                            "--device", "cpu"])

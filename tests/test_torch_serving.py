@@ -15,6 +15,7 @@ on a card are held to the eager call by chip_smoke.py.
 import http.client
 import io
 import json
+import pickle
 import threading
 import time
 from concurrent.futures import Future
@@ -36,7 +37,8 @@ from deepprior_tpu.realtime.fused import FusedEstimator as JaxFusedEstimator
 
 from deepprior_tpu_torch.camera import NYU_CAMERA
 from deepprior_tpu_torch.mains import serve_http
-from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
+from deepprior_tpu_torch.models.layers import calibrate_batchnorm
 from deepprior_tpu_torch.ops import hopper_crop
 from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.realtime import export as xp
@@ -46,6 +48,7 @@ from deepprior_tpu_torch.realtime.fused import Captured, FusedEstimator, replay_
 from deepprior_tpu_torch.train.checkpoint import save_checkpoint
 from deepprior_tpu_torch.train.trainer import _tf32_switches
 from deepprior_tpu_torch.utils.convert import poseregnet_state_dict_from_flax
+from deepprior_tpu_torch.utils.refweights import reference_pickle_from_state_dict
 
 N = 13
 
@@ -351,7 +354,7 @@ def test_artifact_kind_mismatch_and_jax_artifact_rejected(setup, tmp_path):
 def test_serve_http_checkpoint_and_artifact(setup, tmp_path):
     """serve_http on the CPU: --checkpoint serves the checkpoint's weights
     (the estimator's joints); --export-artifact writes an artifact that
-    --artifact serves with the same joints; the unported flags raise."""
+    --artifact serves with the same joints; --dp raises."""
     _, depth, com, _ = setup
     model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
                        generator=torch.Generator().manual_seed(5))
@@ -386,9 +389,78 @@ def test_serve_http_checkpoint_and_artifact(setup, tmp_path):
     finally:
         srv.close()
 
-    for flags in (["--ref-pickle", "x.pkl"], ["--model", "resnet"], ["--dp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve_http.main(flags + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve_http.main(["--dp", "2", "--device", "cpu"])
+    # the checkpoint names its family: a PoseRegNet's is refused as a ResNet
+    with pytest.raises(ValueError, match="poseregnet"):
+        serve_http.build_server(parser.parse_args(["--model", "resnet", "--checkpoint", ckpt,
+                                                   "--device", "cpu"]))
+
+
+def test_serve_http_resnet_checkpoint_and_ref_pickle(setup, tmp_path):
+    """serve_http --model resnet on the CPU: --checkpoint serves a ResNet-47
+    network_prior.ckpt (its BatchNorm statistics included) with the
+    estimator's joints bit for bit, and --ref-pickle serves the reference
+    pickle of the same weights, its PCA decode appended, within 1e-3 mm."""
+    _, depth, com, _ = setup
+    model = ResNet(ResNetConfig(num_joints=1, n_dims=30),
+                   generator=torch.Generator().manual_seed(6))
+    rng = np.random.default_rng(6)
+    prior = PCAPrior((rng.standard_normal((30, 42)) * 0.05).astype(np.float32),
+                     rng.uniform(-0.1, 0.1, 42).astype(np.float32))
+    est = FusedEstimator(model, NYU_CAMERA, prior=prior, device="cpu")
+    calibrate_batchnorm(model, est(depth[:4], com[:4])[2][:, None])  # poses of mm scale
+    ckpt = str(tmp_path / "network_prior.ckpt")
+    save_checkpoint(ckpt, {"params": model.state_dict(), "pca_components": prior.components,
+                           "pca_mean": prior.mean}, config={"model": "resnet"})
+    want = _reference_joints(est, depth[:3], com[:3], max_batch=4)
+    pkl = str(tmp_path / "network_prior.pkl")
+    with open(pkl, "wb") as fh:
+        pickle.dump(reference_pickle_from_state_dict(model.state_dict(), "resnet",
+                                                     decode=prior), fh, 2)
+    parser = serve_http.build_parser()
+    for flags, exact in ((["--checkpoint", ckpt], True), (["--ref-pickle", pkl], False)):
+        srv = serve_http.build_server(parser.parse_args(
+            ["--model", "resnet", "--device", "cpu", "--max-batch", "4", "--max-wait-ms",
+             "50"] + flags))
+        try:
+            assert isinstance(srv.est.model, ResNet) and not srv.est.model.training
+            futs = [srv.submit(depth[i], com[i]) for i in range(3)]
+            got = np.stack([f.result(timeout=120) for f in futs])
+        finally:
+            srv.close()
+        if exact:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="resnet"):
+        serve_http.build_server(parser.parse_args(["--checkpoint", ckpt, "--device", "cpu"]))
+
+
+def test_resnet_artifacts_match_eager(tmp_path):
+    """A ResNet with BatchNorm buffers, in eval mode, traces through
+    torch.export into both artifact kinds, which give the eager
+    _pipeline's outputs bit for bit."""
+    model = ResNet(ResNetConfig(num_joints=1, n_dims=30, depth=11,
+                                stages=(8, 8, 16, 32, 32), hidden=32),
+                   generator=torch.Generator().manual_seed(2))
+    calibrate_batchnorm(model, torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (4, 1, 128, 128)).astype(np.float32)))
+    rng = np.random.default_rng(2)
+    prior = PCAPrior((rng.standard_normal((30, 42)) * 0.05).astype(np.float32),
+                     np.zeros(42, np.float32))
+    est = FusedEstimator(model, NYU_CAMERA, prior=prior, device="cpu")
+    frames = [make_frame(JAX_NYU, np.random.default_rng(9), num_joints=14) for _ in range(2)]
+    depth = torch.from_numpy(np.stack([f.extraData["dpt_full"] for f in frames]))
+    com = torch.from_numpy(np.stack([f.com for f in frames]))
+    with torch.inference_mode():
+        want = est._pipeline(depth, com)
+    for write in (xp.export_serving, xp.precompile_serving):
+        path = str(tmp_path / f"{write.__name__}.dpx")
+        write(est, 2, tuple(depth.shape[1:]), path)
+        fn, _ = xp.load_artifact(path)
+        got = fn(depth, com)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), write.__name__
 
 
 # ----------------------------------------------------------------------

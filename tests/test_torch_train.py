@@ -284,9 +284,39 @@ def test_main_entry_writes_results(tmp_path, capsys):
     assert "test_1: mean" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--data", "x"], ["--model", "resnet"],
-                                  ["--dp", "2"], ["--resume"], ["--streamed"],
-                                  ["--accept"]])
+def test_main_trains_resnet_on_cpu(tmp_path):
+    """--model resnet trains ResNet-47 (type 2, the dropout head) and writes
+    a network_prior.ckpt that names its family and carries the BatchNorm
+    statistics the steps updated; load_serving_net restores every tensor,
+    and refuses the checkpoint as a PoseRegNet."""
+    from deepprior_tpu_torch.mains.common import load_serving_net
+    from deepprior_tpu_torch.models import ResNet
+    from deepprior_tpu_torch.train.checkpoint import checkpoint_config
+
+    state, results, hist = main_nyu_posereg_embedding.main([
+        "--model", "resnet", "--synthetic", "--epochs", "1", "--batch-size", "8",
+        "--nmax", "16", "--out", str(tmp_path), "--device", "cpu",
+    ])
+    assert isinstance(state.model, ResNet) and state.model.cfg.dropout
+    assert state.step == 2 and np.isfinite(hist["train_cost"]).all()
+    assert set(results) == {"test_1", "test_2"}
+    ckpt = str(tmp_path / "train_EMB_PCA30" / "network_prior.ckpt")
+    stored = checkpoint_config(ckpt)
+    assert stored["model"] == "resnet" and stored["resnet_type"] == 2
+    assert stored["model_has_dropout"]
+    trained = state.model.state_dict()
+    assert not torch.equal(trained["bn.running_var"], torch.ones(256))
+    model, prior = load_serving_net("resnet", checkpoint=ckpt, device="cpu")
+    assert set(model.state_dict()) == set(trained)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, trained[k]), k
+    assert prior.components.shape == (30, 42)
+    with pytest.raises(ValueError, match="holds a resnet"):
+        load_serving_net("poseregnet", checkpoint=ckpt, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["--data", "x"], ["--dp", "2"], ["--resume"],
+                                  ["--streamed"], ["--accept"]])
 def test_main_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path)] + flag)
@@ -457,7 +487,8 @@ def trained(tmp_path_factory):
 
 def test_main_writes_network_prior_ckpt(trained):
     """The flagship main writes network_prior.ckpt: the model's state dict
-    and the PCA prior, fingerprinted with its TrainConfig."""
+    and the PCA prior, fingerprinted with its TrainConfig and the model
+    family."""
     from deepprior_tpu_torch.train import checkpoint as tckpt
 
     path, state, prior = trained
@@ -466,7 +497,9 @@ def test_main_writes_network_prior_ckpt(trained):
             "pca_mean": prior.mean}
     cfg = TrainConfig(batch_size=16, n_epochs=1, aug_modes=("com", "rot", "none"),
                       seed=23455, model_has_dropout=True)
-    tree, exact = tckpt.load_checkpoint(str(path), want, config=cfg._asdict(), strict=True)
+    tree, exact = tckpt.load_checkpoint(str(path), want,
+                                        config=dict(cfg._asdict(), model="poseregnet"),
+                                        strict=True)
     assert exact
     for k, v in state.model.state_dict().items():
         assert torch.equal(tree["params"][k], v), k
