@@ -55,7 +55,18 @@ both artifact kinds against the eager _pipeline; training steps at B = 128
 in float32 and bf16 through K5 (K5 == its plain version, a card step
 against a CPU step, ms, busy share, peak memory); and the training main
 with --model resnet through load_serving_net, serve_http --model resnet
-and --ref-pickle.  Every phase raises on failure, so the
+and --ref-pickle.  Phases 31-34 (run after phase 30) train on an
+imported dataset: a seeded MSRA15 tree in the real .bin format (9
+subjects x 256 frames of 320x240) imported on the host and batched on the
+card, and with a ScaleNet refiner (comref, K1 once per chunk of 256
+frames); with Pillow, an NYU 640x480 leg; the MSRA15 cross-validation
+main at full width on the P8 fold at B = 128, --streamed and resident
+under deterministic algorithms (K5 once per step, equal loss traces,
+samples/s, busy share, the prefetcher's staging time); both runs cut
+after epoch 0 and resumed with --resume, bit-equal to the uninterrupted
+runs; main_msra15_com_refine --streamed (K5 per step) and its
+net_P0_COM.ckpt through load_refine_net_lazy into a comref import (K1).
+Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
 JSON.
@@ -511,6 +522,7 @@ def main(argv=None):
     serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
     resnet_phases(dev, tag, log, kernels, figures)
+    dataset_phases(dev, tag, log, kernels)
     kernels += probe_phases(dev, tag, log)
     roofline_phases(dev, tag, log, model, prior, kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2187,6 +2199,351 @@ def resnet_phases(dev, tag, log, kernels, figures, batch=512, max_batch=64, trai
         f"weights with the checkpoint's decode; inv_std round trip within {ulps} ulps")
     del served, ref_model, same_w, loaded, est16, model16, model32
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's and cuBLAS's deterministic algorithms for the block only
+    (phases 32-33): the setting, cuDNN's flag and the cuBLAS workspace
+    variable that PyTorch requires with it come back after it."""
+    import os
+
+    import torch
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        if saved[2] is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[2]
+
+
+def dataset_phases(dev, tag, log, kernels, frames=256, nyu_frames=128, batch=128,
+                   epochs=3, out="eval/chip_smoke_datasets"):
+    """Phases 31-34, training on an imported dataset, run after phase 30:
+    (31) a seeded MSRA15 tree in the real format (9 subjects x ``frames``
+    frames of 320x240 float32 .bin, 21 joints) imported frame by frame on
+    the host and in batches on the card, held to each other, then with a
+    ScaleNet refiner from a port checkpoint attached (comref: K1 once per
+    chunk of 256 frames on the batched path, once per frame on the host
+    path), frames/s for each; with Pillow, an NYU 640x480 leg; (32) the
+    MSRA15 cross-validation main at full width (hidden 1024, PCA 30) on the
+    P8 fold at B = ``batch``, --streamed and resident, under deterministic
+    algorithms: K5 once per step, the two loss traces equal; K5 and K1 held
+    against their plain versions at this path's shapes; samples/s, busy
+    share and the prefetcher's staging time per chunk of fit_streamed and
+    fit; (33) both runs cut after epoch 0 and continued with --resume: the
+    final parameters equal the uninterrupted runs', and the card's snapshot
+    restores on the CPU with every tensor equal; (34)
+    main_msra15_com_refine --streamed trains ScaleNet through K5 and writes
+    net_P0_COM.ckpt, which load_refine_net_lazy reads into an importer
+    whose comref import runs K1.  Adds these paths' launches to K1's and
+    K5's records in ``kernels``."""
+    import shutil
+
+    import torch
+
+    from deepprior_tpu_torch.camera import MSRA15_CAMERA
+    from deepprior_tpu_torch.data import trees
+    from deepprior_tpu_torch.data.importers import MSRA15Importer, NYUImporter
+    from deepprior_tpu_torch.mains import common, main_msra15_com_refine
+    from deepprior_tpu_torch.mains import main_msra15_posereg_embedding_crossval as crossval
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ScaleNet, ScaleNetConfig
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.augment import NV_VAL, augment_geometry, sample_augment_params
+    from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
+    from deepprior_tpu_torch.prior import fit_pose_prior
+    from deepprior_tpu_torch.train.checkpoint import save_checkpoint
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+
+    record = {k["name"]: k for k in kernels}
+    paths = {"normalized_crop": {}, "warp_norm": {}}
+    cam = MSRA15_CAMERA
+    subjects = [f"P{i}" for i in range(9)]
+    shutil.rmtree(out, ignore_errors=True)
+    root, cache = f"{out}/msra15", f"{out}/cache"
+
+    # --------------------------------------------------------------- 31
+    t0 = time.perf_counter()
+    trees.write_msra15_tree(root, subjects=subjects, frames=frames, seed=31)
+    write_s = time.perf_counter() - t0
+
+    def load(imp, subj, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seq = imp.loadSequence(subj, **kw)
+        torch.cuda.synchronize()
+        return seq, time.perf_counter() - t
+
+    host_imp = MSRA15Importer(root, use_cache=False, device=dev)
+    host, dev_seqs, t_host, t_dev = {}, {}, 0.0, 0.0
+    for subj in subjects:
+        host[subj], dt = load(host_imp, subj)
+        t_host += dt
+        dev_seqs[subj], dt = load(host_imp, subj, device_crop=True)
+        t_dev += dt
+    n_all = sum(len(s.data) for s in host.values())
+    worst = {"com": 0.0, "T": 0.0}  # max |d|; T within rtol 1e-6 (test_torch_crop.py)
+    for subj in subjects:
+        a, b = host[subj].data, dev_seqs[subj].data
+        if len(a) != len(b) or not len(a):
+            raise AssertionError(f"{subj}: {len(a)} host frames, {len(b)} batched")
+        for fa, fb in zip(a, b):
+            if not (np.array_equal(fa.dpt, fb.dpt) and np.array_equal(fa.com, fb.com)
+                    and np.array_equal(fa.gt3Dcrop, fb.gt3Dcrop)):
+                raise AssertionError(f"{subj}: a batched crop on the card differs from "
+                                     f"the host crop ({fa.fileName})")
+            np.testing.assert_allclose(fb.T, fa.T, rtol=1e-6)
+            worst["T"] = max(worst["T"], float(np.abs(fa.T - fb.T).max()))
+    # the refiner: a seeded full-width ScaleNet through a port checkpoint
+    ckpt = f"{out}/net_random_scalenet.ckpt"
+    save_checkpoint(ckpt, {"params": ScaleNet(
+        ScaleNetConfig(num_joints=1, n_dims=3),
+        generator=torch.Generator().manual_seed(31)).state_dict()})
+    ref_imp = MSRA15Importer(root, use_cache=False, device=dev)
+    ref_imp.load_refine_net_lazy(ckpt)
+    hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+    t_ref = 0.0
+    comref = {}
+    for subj in subjects:
+        comref[subj], dt = load(ref_imp, subj, docom=True, device_crop=True)
+        t_ref += dt
+    chunks = sum(-(-frames // 256) for _ in subjects)
+    k1 = dict(hopper_crop.LAUNCHES)
+    if k1 != {"normalized_crop": chunks, "normalized_crop_linear": 0}:
+        raise AssertionError(f"the comref import of {chunks} chunks launched {k1}")
+    paths["normalized_crop"]["comref import, batched (31)"] = k1["normalized_crop"]
+    hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+    host_ref, t_host_ref = load(ref_imp, "P8", docom=True)
+    k1_host = hopper_crop.LAUNCHES["normalized_crop"]
+    if k1_host != len(host_ref.data):
+        raise AssertionError(f"the host comref import of {len(host_ref.data)} frames "
+                             f"launched K1 {k1_host} times")
+    paths["normalized_crop"]["comref import, host (31)"] = k1_host
+    plain_docom = {s.fileName: s for s in MSRA15Importer(
+        root, use_cache=False, device=dev).loadSequence("P8", docom=True,
+                                                        device_crop=True).data}
+    moved = 0.0
+    for fh, fb in zip(host_ref.data, comref["P8"].data):
+        # the host docom pass is numpy, the batched one torch on the card:
+        # the detection bound of phase 14 (the JAX package's own)
+        worst["com"] = max(worst["com"], float(np.abs(fh.com - fb.com).max()))
+        moved = max(moved, float(np.abs(fb.com - plain_docom[fb.fileName].com).max()))
+        np.testing.assert_allclose(fh.com, fb.com, rtol=1e-3, atol=0.5)
+    if moved < 0.1:
+        raise AssertionError("the refiner did not move the CoMs")
+    # K1 at the comref import's shapes against its plain version
+    p8 = comref["P8"].data
+    dptc = clamp_depth(torch.from_numpy(np.stack(
+        [host_imp.loadDepthMap(f.fileName) for f in p8])).to(dev))[0]
+    com_b = torch.from_numpy(np.stack([f.com for f in p8])).to(dev)
+    cube = torch.tensor(MSRA15Importer.default_cubes["P8"], dtype=torch.float32, device=dev)
+    got = hopper_crop.hopper_normalized_crop(dptc, com_b, cube, cam.fx, cam.fy)
+    want = normalized_crop(dptc, com_b, cube, cam.fx, cam.fy)
+    k1_err = float((got[0] - want[0]).abs().max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K1 at B={len(p8)} MSRA15 320x240 != plain ({k1_err})")
+    record["normalized_crop"]["max_abs_err"] = max(record["normalized_crop"]["max_abs_err"],
+                                                   k1_err)
+    nyu = "Pillow missing on this machine: no NYU leg"
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        nroot = f"{out}/nyu"
+        trees.write_nyu_tree(nroot, {"train": nyu_frames}, seed=32)
+        nimp = NYUImporter(nroot, use_cache=False, device=dev)
+        nh, tn_h = load(nimp, "train")
+        nd, tn_d = load(nimp, "train", device_crop=True)
+        if not all(np.array_equal(a.dpt, b.dpt) for a, b in zip(nh.data, nd.data)):
+            raise AssertionError("NYU: a batched crop on the card differs from the host's")
+        nyu = (f"NYU 640x480 ({len(nh.data)} frames, Pillow present): host "
+               f"{len(nh.data) / tn_h:.1f} frames/s, batched on the card "
+               f"{len(nd.data) / tn_d:.1f} frames/s, crops equal")
+    log(f"[31 import] {tag} MSRA15 tree of 9 x {frames} frames 320x240 written in "
+        f"{write_s:.2f} s; {n_all} frames imported on the host {n_all / t_host:.1f} "
+        f"frames/s and batched on the card {n_all / t_dev:.1f} frames/s (decode "
+        f"included): crops, CoMs and labels equal, T within {worst['T']:.2e}; comref "
+        f"(a seeded ScaleNet through a port checkpoint) batched {n_all / t_ref:.1f} "
+        f"frames/s with K1 {k1['normalized_crop']}x ({chunks} chunks), on the host "
+        f"{len(host_ref.data) / t_host_ref:.1f} frames/s with K1 {k1_host}x (one per "
+        f"frame); host vs batched comref CoMs max |d| {worst['com']:.2e} px/mm, moved "
+        f"up to {moved:.3f} by the refiner; K1 at B={len(p8)} == plain; {nyu}")
+
+    # --------------------------------------------------------------- 32
+    def run(main, argv):
+        hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+        t = time.perf_counter()
+        res = main(argv + ["--data", root, "--cache-dir", cache, "--device", str(dev)])
+        torch.cuda.synchronize()
+        return res, dict(hw.LAUNCHES), time.perf_counter() - t
+
+    fold = ["--holdout", "P8", "--batch-size", str(batch)]
+    steps = -(-8 * frames // batch)
+    runs = {}
+    with deterministic_algorithms():
+        for mode in ("resident", "streamed"):
+            flags = ["--streamed"] if mode == "streamed" else []
+            folds, counts, wall = run(crossval.main, fold + flags + [
+                "--epochs", str(epochs), "--out", f"{out}/{mode}"])
+            state, results, hist = folds["P8"]
+            if counts != {"warp_norm": epochs * steps, "warp_patch": 0}:
+                raise AssertionError(f"{mode}: {epochs * steps} steps launched {counts}")
+            if not (np.isfinite(hist["train_cost"]).all()
+                    and np.isfinite(results["P8"].getMeanError())):
+                raise AssertionError(f"{mode}: non-finite costs or errors")
+            paths["warp_norm"][f"crossval main, {mode} (32)"] = counts["warp_norm"]
+            runs[mode] = (state, list(hist["train_cost"]), results["P8"].getMeanError(), wall)
+    (s_res, c_res, e_res, w_res), (s_str, c_str, e_str, w_str) = runs.values()
+    if c_res != c_str or e_res != e_str:
+        raise AssertionError(f"streamed loss trace != resident: {c_str} vs {c_res}")
+    if not all(torch.equal(v, s_str.model.state_dict()[k])
+               for k, v in s_res.model.state_dict().items()):
+        raise AssertionError("streamed parameters != resident parameters")
+    # the path's kernels at its shapes against their plain versions: K5 at
+    # B = batch on the imported crops, with the MSRA15 camera
+    train_seq = crossval._MultiSubjectImporter(root, subjects[:8], cache_dir=cache,
+                                               device=dev).loadSequence(
+        "train", shuffle=True, rng=np.random.RandomState(23455))
+    data = TrainData.from_sequence(train_seq)
+    gen = torch.Generator(dev).manual_seed(32)
+    modes = ("com", "rot", "none")
+    k5_err = 0.0
+    for bsz in (batch, 64):
+        bt = data.to(dev).take(torch.arange(bsz, device=dev))
+        drawn = sample_augment_params(gen, bsz, len(modes))
+        geo = augment_geometry(drawn, bt["com"], bt["cube"], bt["m"], cam, modes, (128, 128))
+        want = hw.warp_norm_plain(bt["crops"], hw.warp_norm_params(geo.a_fwd, geo.norm),
+                                  0.0, NV_VAL)
+        got = hw.launch_warp_norm(bt["crops"], hw.warp_norm_args(
+            bt["crops"], drawn, bt["com"], bt["cube"], bt["m"], cam, modes), 0.0, NV_VAL)
+        k5_err = max(k5_err, float((got.out - want).abs().max()))
+        if not (torch.equal(got.out, want) and torch.equal(got.m_out, geo.m_out)):
+            raise AssertionError(f"K5 at B={bsz} MSRA15 crops != plain ({k5_err})")
+    record["warp_norm"]["max_abs_err"] = max(record["warp_norm"]["max_abs_err"], k5_err)
+    # throughput and busy share of the two loops, one trainer each, with
+    # the recipe's prior, whose fit every run of the main above repeats
+    t = time.perf_counter()
+    prior = fit_pose_prior(cam, np.random.default_rng(0), data.gt3d_crop, data.com,
+                           data.cube, n_components=30, num_poses=common.PRIOR_POSES)
+    prior_s = time.perf_counter() - t
+    arrays = {k: np.asarray(getattr(data, k)) for k in TrainData._fields}
+    resident = data.to(dev)
+    figs = {}
+    for mode in ("fit", "fit_streamed"):
+        tr = Trainer(PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30)),
+                     TrainConfig(batch_size=batch, n_epochs=1), cam, prior=prior, device=dev)
+        st = tr.init_state()
+        if mode == "fit":
+            fn = lambda: tr.fit(st, resident, log=lambda m: None)  # noqa: E731
+        else:
+            fn = lambda: tr.fit_streamed(st, arrays, log=lambda m: None)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t) * 1e3 / (2 * steps)
+        host_ms, busy_ms, launches = profile_stage(f"{tag} {mode} epoch of {steps} steps "
+                                                   f"B={batch}", fn, 1, log, phase="32 profile")
+        stage = (float(np.median(tr.prefetcher.stage_s)) * 1e3
+                 if mode == "fit_streamed" else None)
+        figs[mode] = (ms_step, busy_ms / host_ms, stage)
+    log(f"[32 streamed training] {tag} main_msra15_posereg_embedding_crossval --holdout P8 "
+        f"(8 x {frames} train frames, {len(results['P8'].gt)} test), PoseRegNet hidden 1024 "
+        f"f32, PCA 30, B={batch}, {epochs} epochs of {steps} steps, deterministic "
+        f"algorithms: K5 {epochs * steps}x in each run; streamed loss trace == resident "
+        f"({c_res[0]:.4f} -> {c_res[-1]:.4f}), parameters equal, P8 mean {e_res:.3f} mm; "
+        f"main wall resident {w_res:.1f} s, streamed {w_str:.1f} s (import from the cache "
+        f"and prior included; the prior of {common.PRIOR_POSES:,} poses alone "
+        f"{prior_s:.2f} s on the host); K5 == plain at B={batch} and 64 on these crops; "
+        + "; ".join(f"{m}: {1e3 * batch / v[0]:.1f} samples/s ({v[0]:.4f} ms/step), busy "
+                    f"share {v[1]:.3f}" + (f", staging {v[2]:.3f} ms/chunk of 8 steps "
+                                           f"(median)" if v[2] is not None else "")
+                    for m, v in figs.items()))
+
+    # --------------------------------------------------------------- 33
+    with deterministic_algorithms():
+        for mode, flags in (("resident", []), ("streamed", ["--streamed"])):
+            cut = fold + flags + ["--out", f"{out}/{mode}_cut"]
+            run(crossval.main, cut + ["--epochs", "1"])
+            folds, counts, _ = run(crossval.main, cut + ["--epochs", str(epochs), "--resume"])
+            state, _, hist = folds["P8"]
+            want_state = runs[mode][0]
+            if counts["warp_norm"] != (epochs - 1) * steps:
+                raise AssertionError(f"{mode} resume: launches {counts}")
+            if hist["train_cost"] != runs[mode][1][-len(hist["train_cost"]):]:
+                raise AssertionError(f"{mode} resume: losses differ from the "
+                                     f"uninterrupted run's")
+            bad = [k for k, v in want_state.model.state_dict().items()
+                   if not torch.equal(v, state.model.state_dict()[k])]
+            if bad or state.step != want_state.step:
+                raise AssertionError(f"{mode} resume: parameters differ: {bad}")
+    # the card's snapshot resumed on the CPU: parameters and optimizer
+    # state exact (the draws after it are the CPU generator's)
+    snap = f"{out}/resident_cut/MSRA_EMB_crossval_P8/net_last.ckpt"
+    restored = []
+    for where in (dev, torch.device("cpu")):
+        tr = Trainer(PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30)),
+                     TrainConfig(batch_size=batch, n_epochs=1), cam, device=where)
+        st, next_epoch = tr.load_train_state(snap, tr.init_state())
+        opt = st.optimizer
+        restored.append((next_epoch, st.step, [t.cpu() for t in (
+            list(st.model.state_dict().values()) + [opt.param_groups[0]["count"]]
+            + [v for p in opt.param_groups[0]["params"] for v in opt.state[p].values()])]))
+    (e_card, s_card, t_card), (e_cpu, s_cpu, t_cpu) = restored
+    if (e_card, s_card) != (e_cpu, s_cpu) or not all(
+            torch.equal(a, b) for a, b in zip(t_card, t_cpu)):
+        raise AssertionError("the card's snapshot restores differently on the CPU")
+    log(f"[33 resume] {tag} the P8 fold cut after epoch 0 (net_last.ckpt) and continued "
+        f"with --resume to epoch {epochs - 1}, resident and --streamed, deterministic "
+        f"algorithms: parameters, step and epoch losses bit-equal to the uninterrupted runs; "
+        f"the card's snapshot restores on the CPU with its {len(t_cpu)} parameter, "
+        f"statistic and optimizer tensors equal (epoch {e_cpu}, step {s_cpu})")
+
+    # --------------------------------------------------------------- 34
+    (state, results, hist), counts, wall = run(main_msra15_com_refine.main, [
+        "--subject", "P0", "--test-subject", "P8", "--streamed", "--epochs", str(epochs),
+        "--out", f"{out}/com"])
+    com_steps = len(hist["train_cost"])
+    if counts != {"warp_norm": com_steps, "warp_patch": 0} or com_steps != epochs * -(
+            -frames // 64):
+        raise AssertionError(f"ScaleNet's {com_steps} steps launched {counts}")
+    paths["warp_norm"]["com refine main, streamed (34)"] = com_steps
+    imp = MSRA15Importer(root, use_cache=False, device=dev)
+    refiner = imp.load_refine_net_lazy(f"{out}/com/P0_COM/net_P0_COM.ckpt")
+    if not all(torch.equal(v, refiner.model.state_dict()[k])
+               for k, v in state.model.state_dict().items()):
+        raise AssertionError("load_refine_net_lazy did not restore the trained ScaleNet")
+    hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+    refined, _ = load(imp, "P8", docom=True, device_crop=True)
+    if hopper_crop.LAUNCHES["normalized_crop"] != -(-frames // 256):
+        raise AssertionError(f"the trained refiner's import launched {hopper_crop.LAUNCHES}")
+    paths["normalized_crop"]["trained refiner's import (34)"] = hopper_crop.LAUNCHES[
+        "normalized_crop"]
+    if not all(np.isfinite(f.com).all() for f in refined.data):
+        raise AssertionError("non-finite refined CoMs")
+    log(f"[34 com refine] {tag} main_msra15_com_refine --streamed P0 -> P8, ScaleNet "
+        f"full width f32, B=64, {com_steps} steps: K5 {counts['warp_norm']}x, refined "
+        f"{results['refined'].getMeanError():.3f} mm vs raw CoM "
+        f"{results['com'].getMeanError():.3f} mm, {wall:.1f} s; net_P0_COM.ckpt through "
+        f"load_refine_net_lazy: every tensor restored, the comref import of P8 launched K1 "
+        f"{hopper_crop.LAUNCHES['normalized_crop']}x")
+    for name, by_path in paths.items():
+        record[name]["launches_by_path"] = dict(record[name].get("launches_by_path", {}),
+                                                **by_path)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def probe_phases(dev, tag, log):

@@ -1,12 +1,18 @@
 """Shared pieces of the port's entry points (counterpart of mains/common.py).
 
 ``run_posereg_embedding`` is the flagship recipe (reference
-main_nyu_posereg_embedding.py:38-205) on synthetic data: frames -> PCA
-prior from sampled poses -> PoseRegNet (or, with --model resnet,
-ResNet-47) 30-D embedding training with augmentation -> network_prior.ckpt
--> decode -> metrics -> results.json.  ``load_serving_net`` gives the
-serving entry points their model and prior: random weights, the trained
-ones from a network_prior.ckpt, or a reference-trained pickle.
+main_nyu_posereg_embedding.py:38-205): import (or synthesize) -> PCA prior
+from sampled poses -> PoseRegNet (or, with --model resnet, ResNet-47)
+30-D embedding training with augmentation -> network_prior.ckpt -> decode
+-> metrics -> results.json.  ``run_com_refine`` is the CoM-refinement
+recipe (reference main_nyu_com_refine.py): ScaleNet over docom crops ->
+net_<prefix>.ckpt, which an importer's ``load_refine_net_lazy`` reads.
+Both train resident (``Trainer.fit``) or, with --streamed, from host
+memory (``Trainer.fit_streamed``), write a rolling snapshot
+<out>/<prefix>/net_last.ckpt, and continue from it with --resume.
+``load_serving_net`` gives the serving entry points their model and
+prior: random weights, the trained ones from a network_prior.ckpt, or a
+reference-trained pickle.
 """
 
 from __future__ import annotations
@@ -21,15 +27,16 @@ import torch
 
 # the ROADMAP entries of the flags the port does not have yet
 _TODO = {
-    "data": "real datasets need the importers (ROADMAP.md Queue 1 item 17); "
-            "use --synthetic",
     "parallel": "--dp/--tp/--sp and --sharded-snapshots need the scale-out "
                 "port (ROADMAP.md Queue 1 item 19)",
-    "resume": "--resume needs training snapshots (ROADMAP.md Queue 1 item 13)",
-    "streamed": "--streamed needs fit_streamed (ROADMAP.md Queue 1 item 13)",
-    "accept": "--accept needs the baseline loaders and plots (ROADMAP.md "
-              "Queue 1 item 20)",
+    "accept": "--accept needs the baseline loaders' plumbing and the plots "
+              "(ROADMAP.md Queue 1 item 20)",
 }
+
+# poses the PCA prior samples from imported and from synthetic frames, the
+# JAX mains' recipe constants
+PRIOR_POSES = 1_000_000
+PRIOR_POSES_SYNTHETIC = 50_000
 
 
 def default_device() -> torch.device:
@@ -48,9 +55,14 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     """The JAX mains' flags.  Those the port does not have yet are parsed
     and raise NotImplementedError naming their ROADMAP entry."""
     p = argparse.ArgumentParser(description=desc)
-    p.add_argument("--data", default=None, help="dataset base path (not ported)")
+    p.add_argument("--data", default=None,
+                   help="dataset base path (without it, or with --synthetic, "
+                        "synthetic frames)")
     p.add_argument("--synthetic", action="store_true",
                    help="run on synthetic data (no dataset required)")
+    p.add_argument("--cache-dir", default=None,
+                   help="the importers' .npz cache (default <out>/cache; the "
+                        "JAX package's caches load here and back)")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--lr", type=float, default=0.001)
@@ -86,14 +98,23 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "dropout-less nets)")
     p.add_argument("--validation-frequency", type=int, default=None,
                    help="run the validation observers every N minibatches")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from <out>/<prefix>/net_last.ckpt if present "
+                        "(parameters, BatchNorm statistics, optimizer state, "
+                        "step, epoch, best tracker); the resumed run draws what "
+                        "an uninterrupted one would")
+    p.add_argument("--streamed", action="store_true",
+                   help="train with fit_streamed: the data stays in host memory "
+                        "and goes to the device in chunks through a pinned "
+                        "DevicePrefetcher (loss trace equal to the resident run's)")
+    p.add_argument("--chunk-steps", type=int, default=8,
+                   help="minibatches per streamed chunk")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu only when asked for)")
     # not ported yet: parsed so that asking for them fails loudly
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--resume", action="store_true")
-    p.add_argument("--streamed", action="store_true")
     p.add_argument("--accept", action="store_true")
     p.add_argument("--sharded-snapshots", action="store_true")
     return p
@@ -101,43 +122,95 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag the port does not have yet."""
-    if args.data is not None:
-        raise NotImplementedError(_TODO["data"])
     if args.dp is not None or args.tp != 1 or args.sp != 1 or args.sharded_snapshots:
         raise NotImplementedError(_TODO["parallel"])
-    for flag in ("resume", "streamed", "accept"):
-        if getattr(args, flag):
-            raise NotImplementedError(_TODO[flag])
+    if args.accept:
+        raise NotImplementedError(_TODO["accept"])
 
 
-def load_or_synthesize(args, camera, train_seq, test_seqs, num_joints):
-    """Synthetic (train ImageSequence, [test ImageSequences]): 256 train
-    frames unless --nmax, and test sequences of max(32, n // 8) frames,
-    seeded as the JAX mains seed them."""
-    from deepprior_tpu_torch.data.synthetic import make_sequence
+def load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs, num_joints,
+                       docom=False):
+    """(train ImageSequence, [test ImageSequences]).
 
-    n_train = 256 if np.isinf(args.nmax) else int(args.nmax)
-    train = make_sequence(camera, n_train, num_joints=num_joints,
-                          seed=args.seed, name=train_seq)
-    tests = [
-        make_sequence(camera, max(32, n_train // 8), num_joints=num_joints,
-                      seed=args.seed + 1 + i, name=name)
-        for i, name in enumerate(test_seqs)
-    ]
+    With --data: ``importer_cls(args.data, cache_dir=, device=)`` loads the
+    train sequence shuffled by ``RandomState(args.seed)`` and the test
+    sequences in order, each capped at --nmax and cropped on the host, as
+    the JAX mains load them.  Without it (or with --synthetic): 256
+    synthetic train frames unless --nmax, and test sequences of
+    max(32, n // 8) frames, seeded as the JAX mains seed them."""
+    if args.data is None and not args.synthetic:
+        print("note: --data not given; running on synthetic fixtures (as if "
+              "--synthetic)", flush=True)
+        args.synthetic = True
+    if args.synthetic:
+        from deepprior_tpu_torch.data.synthetic import make_sequence
+
+        n_train = 256 if np.isinf(args.nmax) else int(args.nmax)
+        train = make_sequence(camera, n_train, num_joints=num_joints, seed=args.seed,
+                              name=train_seq, docom=docom)
+        tests = [
+            make_sequence(camera, max(32, n_train // 8), num_joints=num_joints,
+                          seed=args.seed + 1 + i, name=name, docom=docom)
+            for i, name in enumerate(test_seqs)
+        ]
+        return train, tests
+    imp = importer_cls(args.data, cache_dir=args.cache_dir or os.path.join(args.out, "cache"),
+                       device=args.device)
+    kw = dict(Nmax=args.nmax, docom=docom)
+    train = imp.loadSequence(train_seq, shuffle=True, rng=np.random.RandomState(args.seed),
+                             **kw)
+    tests = [imp.loadSequence(s, **kw) for s in test_seqs]
     return train, tests
 
 
-def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
-                          n_pca: int = 30, log=print):
-    """The flagship recipe on synthetic data.
+def _maybe_resume(args, trainer, state, outdir, log=print):
+    """With --resume and a rolling snapshot in ``outdir``, the restored state
+    and the epoch to start at; else (state, 0)."""
+    snap = os.path.join(outdir, "net_last.ckpt")
+    if args.resume and os.path.isfile(snap):
+        state, start_epoch = trainer.load_train_state(snap, state)
+        log(f"resuming from {snap} at epoch {start_epoch}")
+        return state, start_epoch
+    return state, 0
+
+
+def _train(args, trainer, state, data, val, outdir, log):
+    """--resume, then ``fit`` on the device-resident data or, with
+    --streamed, ``fit_streamed`` from host arrays; the rolling snapshot is
+    <outdir>/net_last.ckpt.  Returns (state, history)."""
+    from deepprior_tpu_torch.train.trainer import TrainData
+
+    state, start_epoch = _maybe_resume(args, trainer, state, outdir, log)
+    kw = dict(val_data=val, snapshot_path=os.path.join(outdir, "net"), log=log,
+              start_epoch=start_epoch)
+    t0 = time.time()
+    if args.streamed:
+        arrays = {k: np.asarray(getattr(data, k)) for k in TrainData._fields}
+        state, hist = trainer.fit_streamed(state, arrays, chunk_steps=args.chunk_steps, **kw)
+    else:
+        state, hist = trainer.fit(state, data, **kw)
+    log(f"training took {time.time() - t0:.1f}s")
+    return state, hist
+
+
+def _model_dtype(args):
+    return torch.bfloat16 if args.bf16 else torch.float32
+
+
+def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_joints,
+                          eval_cls=None, n_pca: int = 30, log=print):
+    """The flagship recipe.
 
     ``--model resnet`` trains ResNet-47 of head type ``--resnet-type``
     (default 2, the dropout head); weight decay applies iff the net has no
-    dropout or --weightreg > 0 asks for it.  Returns (state, {seq name:
-    HandposeEvaluation}, training history) and writes
+    dropout or --weightreg > 0 asks for it.  The PCA prior samples
+    ``PRIOR_POSES`` poses from imported data, ``PRIOR_POSES_SYNTHETIC``
+    from synthetic.  Returns (state, {seq name: evaluation}, training
+    history) and writes
     <out>/<prefix>/network_prior.ckpt (the trained weights, a ResNet's
     BatchNorm statistics and the PCA prior, fingerprinted with the
-    TrainConfig and the family; ``load_serving_net`` reads it) and
+    TrainConfig and the family; ``load_serving_net`` reads it),
+    <out>/<prefix>/net_last.ckpt (the rolling snapshot) and
     <out>/<prefix>/results.json with the JAX main's metrics."""
     from deepprior_tpu_torch.eval.metrics import HandposeEvaluation
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
@@ -146,6 +219,7 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
 
     check_ported(args)
+    eval_cls = eval_cls or HandposeEvaluation
     device = torch.device(args.device) if args.device else default_device()
     prefix = args.eval_prefix or f"{train_seq}_EMB_PCA{n_pca}"
     outdir = os.path.join(args.out, prefix)
@@ -154,21 +228,22 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
     def stamp(msg):
         log(f"[{time.strftime('%H:%M:%S')}] {msg}")
 
-    stamp(f"device={device} making synthetic data...")
-    train, tests = load_or_synthesize(args, camera, train_seq, test_seqs,
+    stamp(f"device={device} loading data...")
+    train, tests = load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs,
                                       num_joints)
     data = TrainData.from_sequence(train)
     val = TrainData.from_sequence(tests[0]) if tests else None
 
     stamp(f"{data.n} train frames; fitting pose prior...")
-    rng = np.random.default_rng(args.seed)
     prior = fit_pose_prior(
-        camera, rng, data.gt3d_crop, data.com, data.cube,
-        n_components=n_pca, num_poses=50_000, aug_modes=tuple(args.aug_modes),
+        camera, np.random.default_rng(args.seed), data.gt3d_crop, data.com, data.cube,
+        n_components=n_pca,
+        num_poses=PRIOR_POSES_SYNTHETIC if args.synthetic else PRIOR_POSES,
+        aug_modes=tuple(args.aug_modes),
     )
     stamp("prior ready; training...")
 
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    dtype = _model_dtype(args)
     has_dropout = True
     if args.model == "resnet":
         has_dropout = args.resnet_type in (2, 3, 4)
@@ -185,10 +260,7 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
         aug_fuse_norm=args.aug_fuse_norm, aug_resize=args.aug_resize,
     )
     trainer = Trainer(model, cfg, camera, prior=prior, device=device)
-    state = trainer.init_state()
-    t0 = time.time()
-    state, hist = trainer.fit(state, data, val_data=val, log=log)
-    log(f"training took {time.time() - t0:.1f}s")
+    state, hist = _train(args, trainer, trainer.init_state(), data, val, outdir, log)
 
     # save the final net (a ResNet's BatchNorm statistics with it) + prior
     # (the reference appends the PCA decode layer and saves
@@ -217,7 +289,7 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
         com3d = camera.img_to_3d_np(np.asarray(tdata.com))
         joints = decoded * (cube_z / 2.0) + com3d[:, None, :]
         gt3d = np.stack([f.gt3Dorig for f in seq.data])
-        hpe = HandposeEvaluation(gt3d, joints)
+        hpe = eval_cls(gt3d, joints)
         log(f"{seq.name}: mean {hpe.getMeanError():.3f}mm "
             f"max {hpe.getMaxError():.3f}mm")
         results[seq.name] = hpe
@@ -231,6 +303,79 @@ def run_posereg_embedding(args, camera, train_seq, test_seqs, num_joints,
                 hpe.getJointMeanError(j) for j in range(joints.shape[1])
             ],
         }
+    with open(os.path.join(outdir, "results.json"), "w") as fh:
+        json.dump(metrics, fh, indent=1)
+    return state, results, hist
+
+
+def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
+                   crop_joint_idx, eval_cls, log=print):
+    """CoM-refinement training (reference main_nyu_com_refine.py): ScaleNet
+    over docom crops, at batch min(--batch-size, 64) (main:164), with the
+    augmentation (K5 on a CUDA device) and without early stopping
+    (main:170); the labels are the crop joint's offset from the detected
+    CoM.  Writes <out>/<prefix>/net_<prefix>.ckpt ({"params": the state
+    dict}, fingerprinted with the TrainConfig; an importer's
+    ``load_refine_net_lazy`` reads it), the rolling snapshot, and, with
+    test sequences, result_<prefix>.npy (the refined CoMs as 1-joint poses,
+    mm) and results.json: the refined and the raw CoM against the crop
+    joint (main:215-250; the shipped baselines wait for --accept).
+    Returns (state, {"refined": evaluation, "com": evaluation}, history)."""
+    from deepprior_tpu_torch.models import ScaleNet, ScaleNetConfig
+    from deepprior_tpu_torch.train.checkpoint import save_checkpoint
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+
+    check_ported(args)
+    device = torch.device(args.device) if args.device else default_device()
+    prefix = args.eval_prefix or f"{train_seq}_COM"
+    outdir = os.path.join(args.out, prefix)
+    os.makedirs(outdir, exist_ok=True)
+    train, tests = load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs,
+                                      num_joints, docom=True)
+
+    def to_refine_data(seq):
+        data = TrainData.from_sequence(seq)
+        return data._replace(gt3d_crop=data.gt3d_crop[:, crop_joint_idx:crop_joint_idx + 1])
+
+    data = to_refine_data(train)
+    val = to_refine_data(tests[0]) if tests else None
+    model = ScaleNet(ScaleNetConfig(num_joints=1, n_dims=3, dtype=_model_dtype(args)))
+    wr = args.weightreg
+    cfg = TrainConfig(
+        batch_size=min(args.batch_size, 64), learning_rate=args.lr,
+        n_epochs=args.epochs, aug_modes=tuple(args.aug_modes), seed=args.seed,
+        weightreg_factor=wr, model_has_dropout=wr <= 0.0, use_early_stopping=False,
+        validation_frequency=args.validation_frequency,
+        aug_fuse_norm=args.aug_fuse_norm, aug_resize=args.aug_resize,
+    )
+    trainer = Trainer(model, cfg, camera, device=device)
+    state, hist = _train(args, trainer, trainer.init_state(), data, val, outdir, log)
+    save_checkpoint(os.path.join(outdir, f"net_{prefix}.ckpt"),
+                    {"params": state.model.state_dict()}, config=cfg._asdict())
+    if not tests:
+        return state, {}, hist
+
+    # refined CoM = offset * cube_z / 2 + the detected CoM (mm), as a
+    # 1-joint pose against gt3Dorig[crop_joint] (main:215-233)
+    gt1, refined, com3d = [], [], []
+    for seq in tests:
+        tdata = to_refine_data(seq)
+        pred = trainer.predict(state, tdata.crops)  # (N, 3)
+        c3 = camera.img_to_3d_np(np.asarray(tdata.com))
+        refined.append(c3 + pred * (np.asarray(tdata.cube)[:, 2][:, None] / 2.0))
+        com3d.append(c3)
+        gt1.append(np.stack([f.gt3Dorig[crop_joint_idx] for f in seq.data]))
+    gt1 = np.concatenate(gt1).astype(np.float32)[:, None, :]
+    refined = np.concatenate(refined).astype(np.float32)[:, None, :]
+    com3d = np.concatenate(com3d).astype(np.float32)[:, None, :]
+    results = {"refined": eval_cls(gt1, refined), "com": eval_cls(gt1, com3d)}
+    log(f"Refined CoM mean error: {results['refined'].getMeanError():.3f}mm, "
+        f"max error: {results['refined'].getMaxError():.3f}mm")
+    log(f"Raw CoM mean error: {results['com'].getMeanError():.3f}mm")
+    np.save(os.path.join(outdir, f"result_{prefix}.npy"), refined)
+    metrics = {k: {"mean_mm": v.getMeanError(), "max_mm": v.getMaxError()}
+               for k, v in results.items()}
+    metrics["refined"]["n_test_frames"] = int(gt1.shape[0])
     with open(os.path.join(outdir, "results.json"), "w") as fh:
         json.dump(metrics, fh, indent=1)
     return state, results, hist

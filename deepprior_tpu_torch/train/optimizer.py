@@ -42,10 +42,31 @@ def lr_of_ep(base_lr: float):
 
 
 class _DirectionOptimizer(torch.optim.Optimizer):
-    """Applies p + (-lr * u) for the direction u of ``_direction``."""
+    """Applies p + (-lr * u) for the direction u of ``_direction``.
+
+    ``SLOTS`` names the per-parameter state tensors (zeros like the
+    parameter); ``COUNTED`` optimizers keep a float32 step count per group
+    that starts at 1.  Both are made with the optimizer, not at the first
+    step, so that a snapshot taken before any step has the same structure
+    as one taken after."""
+
+    SLOTS: tuple = ()
+    COUNTED = False
+
+    def __init__(self, params, defaults):
+        super().__init__(params, defaults)
+        self._materialize()
 
     def _direction(self, group, params, grads):
         raise NotImplementedError
+
+    def _materialize(self):
+        for group in self.param_groups:
+            if self.COUNTED:
+                group["count"] = torch.ones((), dtype=torch.float32,
+                                            device=group["params"][0].device)
+            for p in group["params"]:  # distinct zero moments per parameter
+                self.state[p].update({k: torch.zeros_like(p) for k in self.SLOTS})
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -81,15 +102,11 @@ class ReferenceAdam(_DirectionOptimizer):
         super().__init__(params, dict(lr=lr, beta1=beta1, beta2=beta2,
                                       eps=eps, gamma=gamma))
 
+    SLOTS = ("mu", "nu")
+    COUNTED = True
+
     def _direction(self, group, params, grads):
         dev = params[0].device
-        if "count" not in group:
-            group["count"] = torch.ones((), dtype=torch.float32, device=dev)
-        for p in params:
-            st = self.state[p]
-            if not st:  # distinct zero moments per parameter
-                st["mu"] = torch.zeros_like(p)
-                st["nu"] = torch.zeros_like(p)
         mus = [self.state[p]["mu"] for p in params]
         nus = [self.state[p]["nu"] for p in params]
 
@@ -120,10 +137,9 @@ class ReferenceRMSProp(_DirectionOptimizer):
                  eps: float = 0.01):
         super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
 
+    SLOTS = ("ms",)
+
     def _direction(self, group, params, grads):
-        for p in params:
-            if not self.state[p]:
-                self.state[p]["ms"] = torch.zeros_like(p)
         ms = [self.state[p]["ms"] for p in params]
         torch._foreach_mul_(ms, group["decay"])
         torch._foreach_add_(
@@ -139,10 +155,9 @@ class SGDMomentum(_DirectionOptimizer):
     def __init__(self, params, lr: float = 0.001, momentum: float = 0.9):
         super().__init__(params, dict(lr=lr, momentum=momentum))
 
+    SLOTS = ("trace",)
+
     def _direction(self, group, params, grads):
-        for p in params:
-            if not self.state[p]:
-                self.state[p]["trace"] = torch.zeros_like(p)
         traces = [self.state[p]["trace"] for p in params]
         torch._foreach_mul_(traces, group["momentum"])
         torch._foreach_add_(traces, grads)  # g + decay * trace

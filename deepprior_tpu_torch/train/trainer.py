@@ -16,10 +16,23 @@ Loss semantics match poseregnettrainer.py:92-101:
 plus optional L2 weight decay iff the model has no dropout
 (poseregnettrainer.py:106-107).
 
-Random draws: one ``torch.Generator`` on the device for the augmentation
-and one for the dropout masks, both seeded from ``TrainConfig.seed``.
-They give other numbers than the JAX package's keys; the parity tests feed
-both packages the same augmentation draws through ``_train_step_core``.
+Random draws: the epoch order from ``np.random.default_rng(cfg.seed)``
+(one permutation an epoch), and one ``torch.Generator`` on the device for
+the augmentation and one for the dropout masks, both seeded anew at each
+epoch from (``cfg.seed``, epoch).  A run resumed at epoch k burns k
+permutations and seeds epoch k's generators as the uninterrupted run did,
+so it draws the same numbers; ``fit`` and ``fit_streamed`` consume the
+same streams step for step, so they give the same loss trace on one
+device.  A snapshot resumed on another device type restores the
+parameters, BatchNorm statistics and optimizer state exactly; its draws
+are then that device's generator's, which are other numbers.  The draws
+are not the JAX package's keys; the parity tests feed both packages the
+same augmentation draws through ``_train_step_core``.
+
+Snapshots (``save_train_state``/``load_train_state``) hold the state dict,
+the optimizer's moments and counts, the step, the epoch and the
+early-stopping tracker, in the port's checkpoint format
+(train/checkpoint.py) with the TrainConfig fingerprint.
 """
 
 from __future__ import annotations
@@ -36,18 +49,11 @@ from torch import nn
 from deepprior_tpu_torch.camera import Camera
 from deepprior_tpu_torch.ops.augment import augment_batch
 from deepprior_tpu_torch.prior import PCAPrior
+from deepprior_tpu_torch.train.checkpoint import (
+    checkpoint_keys, load_checkpoint, save_checkpoint)
 from deepprior_tpu_torch.train.optimizer import lr_of_ep, make_optimizer
-from deepprior_tpu_torch.train.prefetch import aligned_epoch_indices
-
-# the ROADMAP entries of what the port's trainer does not have yet
-_CHECKPOINT_TODO = (
-    "training snapshots and resume are not ported yet (ROADMAP.md Queue 1 "
-    "item 13)"
-)
-_STREAMED_TODO = (
-    "streamed training (fit_streamed, DevicePrefetcher) is not ported yet "
-    "(ROADMAP.md Queue 1 item 13)"
-)
+from deepprior_tpu_torch.train.prefetch import (
+    DevicePrefetcher, aligned_epoch_indices, index_chunks)
 
 
 class TrainConfig(NamedTuple):
@@ -372,6 +378,29 @@ class Trainer:
                 outs.append(out[: b - pad] if pad else out)
         return torch.cat(outs).cpu().numpy()
 
+    def predict_with_intermediates(self, state: TrainState, crops):
+        """One forward pass in eval mode that also returns each named
+        submodule's output, captured by forward hooks (the reference's
+        per-layer activation dumps, poseregnettrainer.py setupDebugFunctions).
+        Returns (output, {module name: activation}) as numpy arrays."""
+        model = state.model
+        model.eval()
+        acts = {}
+
+        def keep(name):
+            return lambda mod, args, out: acts.__setitem__(name, out.detach())
+
+        hooks = [mod.register_forward_hook(keep(name))
+                 for name, mod in model.named_modules() if name]
+        try:
+            with self._precision(), torch.no_grad():
+                x = torch.as_tensor(crops, dtype=torch.float32).to(self.device)
+                out = model(x[:, None])
+        finally:
+            for h in hooks:
+                h.remove()
+        return out.cpu().numpy(), {k: v.float().cpu().numpy() for k, v in acts.items()}
+
     # ------------------------------------------------------------------
     def check_nans(self, state: TrainState):
         """Names of the parameters with non-finite values (reference
@@ -379,18 +408,119 @@ class Trainer:
         return [name for name, p in state.model.named_parameters()
                 if not bool(torch.isfinite(p).all())]
 
-    def save_train_state(self, path, state, epoch, best=None):
-        raise NotImplementedError(_CHECKPOINT_TODO)
+    def _opt_tree(self, state: TrainState):
+        """The optimizer's state by parameter name, and its step count."""
+        opt = state.optimizer
+        if len(opt.param_groups) != 1:
+            raise ValueError("snapshots hold one optimizer parameter group")
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        tree = {"state": {names[id(p)]: dict(opt.state[p])
+                          for p in opt.param_groups[0]["params"]}}
+        if "count" in opt.param_groups[0]:
+            tree["count"] = opt.param_groups[0]["count"]
+        return tree
 
-    def load_train_state(self, path, state):
-        raise NotImplementedError(_CHECKPOINT_TODO)
+    def save_train_state(self, path, state: TrainState, epoch: int, best=None):
+        """A resumable snapshot: the state dict (BatchNorm statistics
+        included), the optimizer's moments and count, the step and the
+        epoch, fingerprinted with the TrainConfig.  ``best`` is fit's
+        early-stopping tracker (val error, state dict, epoch); kept in the
+        snapshot, a resumed run restores the pre-interruption best."""
+        tree = {
+            "params": state.model.state_dict(),
+            "opt_state": self._opt_tree(state),
+            "step": int(state.step),
+            "epoch": int(epoch),
+        }
+        if best is not None and best[1] is not None:
+            tree["best"] = {"val": float(best[0]), "params": best[1],
+                            "epoch": int(best[2])}
+        save_checkpoint(path, tree, config=self.cfg._asdict())
 
-    def fit_streamed(self, *args, **kwargs):
-        raise NotImplementedError(_STREAMED_TODO)
+    def load_train_state(self, path, state: TrainState):
+        """Restore a snapshot into an initialized state, on the state's
+        device whichever device wrote it.  Returns (state, next epoch); the
+        snapshot's best tracker waits on the trainer for the next resumed
+        ``fit``/``fit_streamed`` (start_epoch > 0)."""
+        model = state.model
+        live = self._opt_tree(state)
+        target = {"params": model.state_dict(), "opt_state": live, "step": 0,
+                  "epoch": 0}
+        has_best = "best" in checkpoint_keys(path)
+        if has_best:
+            target["best"] = {"val": 0.0, "params": model.state_dict(), "epoch": 0}
+        tree, _ = load_checkpoint(path, target, config=self.cfg._asdict())
+        model.load_state_dict(tree["params"])
+        with torch.no_grad():
+            for name, slots in live["state"].items():
+                for k, t in slots.items():
+                    t.copy_(tree["opt_state"]["state"][name][k])
+            if "count" in live:
+                live["count"].copy_(tree["opt_state"]["count"])
+        state.step = int(tree["step"])
+        self._resumed_best = None
+        if has_best:
+            b = tree["best"]
+            self._resumed_best = (float(b["val"]), b["params"], int(b["epoch"]))
+        return state, int(tree["epoch"]) + 1
+
+    def _take_resumed_best(self):
+        """The tracker load_train_state left (once), else a fresh one."""
+        best = getattr(self, "_resumed_best", None)
+        self._resumed_best = None
+        return best if best is not None else (np.inf, None, -1)
 
     def _best_copy(self, state: TrainState):
         """The state dict, BatchNorm statistics included, off the live model."""
         return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+    def _epoch_generators(self, epoch: int):
+        """The augmentation and dropout generators, seeded for ``epoch``."""
+        seeds = np.random.SeedSequence([self.cfg.seed, epoch]).generate_state(2, np.uint64)
+        return tuple(torch.Generator(device=self.device).manual_seed(int(s))
+                     for s in seeds)
+
+    def _observe(self, state, val, epoch, best):
+        """The validation observers, recorded in the history, and the
+        best-weights tracker.  Returns (observers, best)."""
+        obs = self.evaluate(state, val)
+        self.history["val_error_mm"].append(obs["error_mm_avg"])
+        if self.cfg.use_early_stopping and obs["error_mm_avg"] < best[0]:
+            best = (obs["error_mm_avg"], self._best_copy(state), epoch)
+        return obs, best
+
+    def _end_epoch(self, state, epoch, lr, losses, val, sub_obs, best, t_per_epoch,
+                   log, on_epoch_end, snapshot_path):
+        """One fetch of the epoch's losses, the NaN guard, the epoch-end
+        observers (unless sub-epoch ones ran), the log line, the hook and
+        the rolling snapshot.  Returns the best tracker."""
+        cfg = self.cfg
+        costs = torch.stack(losses).cpu().numpy()
+        self.history["train_cost"].extend(costs.tolist())
+        if not np.isfinite(costs).all():
+            bad = self.check_nans(state)
+            raise FloatingPointError(
+                f"non-finite training cost at epoch {epoch}; "
+                f"NaN params: {bad or 'none (cost-only)'}"
+            )
+        msg = f"epoch {epoch}: lr {lr:.2e} cost {costs.mean():.5f} ({t_per_epoch:.2f}s/epoch)"
+        if sub_obs is not None:
+            msg += f" val_mm {sub_obs['error_mm_avg']:.3f}"
+        elif val is not None and (epoch % cfg.eval_every) == 0:
+            obs, best = self._observe(state, val, epoch, best)
+            msg += f" val_mm {obs['error_mm_avg']:.3f}"
+        log(msg)
+        if on_epoch_end is not None:
+            on_epoch_end(epoch, state, costs)
+        if snapshot_path and (epoch % cfg.snapshot_every) == 0:
+            self.save_train_state(f"{snapshot_path}_last.ckpt", state, epoch, best=best)
+        return best
+
+    def _restore_best(self, state, best, log):
+        if self.cfg.use_early_stopping and best[1] is not None:
+            log(f"best params at epoch {best[2]} (val {best[0]:.3f}mm)")
+            state.model.load_state_dict(best[1])
+        return state
 
     def fit(
         self,
@@ -405,18 +535,16 @@ class Trainer:
         start_epoch: int = 0,
     ) -> Tuple[TrainState, Dict[str, list]]:
         """The training loop (reference NetTrainer.train, nettrainer.py:
-        778-907): per-epoch LR schedule, the alignData-padded epoch order
-        from ``np.random.default_rng(cfg.seed)``, sub-epoch observers every
-        ``validation_frequency`` steps, the NaN guard, best-weights early
-        stopping and ``history``.  Snapshots and resume are not ported."""
-        if snapshot_path is not None or start_epoch:
-            raise NotImplementedError(_CHECKPOINT_TODO)
+        778-907): per-epoch LR schedule, the alignData-padded epoch order,
+        sub-epoch observers every ``validation_frequency`` steps, the NaN
+        guard, best-weights early stopping, ``history``, and a rolling
+        snapshot ``<snapshot_path>_last.ckpt`` every ``snapshot_every``
+        epochs.  start_epoch > 0 resumes a state from ``load_train_state``:
+        the run then draws what the uninterrupted run would have drawn."""
         cfg = self.cfg
         sched = lr_of_ep(cfg.learning_rate)
         n_epochs = n_epochs or cfg.n_epochs
         rng = np.random.default_rng(cfg.seed)
-        aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        drop_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         data = train_data.to(self.device)
         val = val_data.to(self.device) if val_data is not None else None
 
@@ -427,13 +555,16 @@ class Trainer:
         # padded with seeded-random repeats (nettrainer.py:365-413)
         steps = -(-n // cfg.batch_size)
         seg = int(cfg.validation_frequency or 0) if val is not None else 0
+        for _ in range(start_epoch):  # the epochs already trained
+            rng.permutation(n)
 
-        best = (np.inf, None, -1)  # (val error, weights, epoch)
+        best = self._take_resumed_best() if start_epoch else (np.inf, None, -1)
         t0 = time.time()
-        for epoch in range(n_epochs):
+        for epoch in range(start_epoch, n_epochs):
             if on_epoch_start is not None:
                 on_epoch_start(epoch, state)
             lr = float(sched(epoch))
+            aug_gen, drop_gen = self._epoch_generators(epoch)
             perm = aligned_epoch_indices(rng, n, cfg.batch_size)
             idxs = torch.from_numpy(perm.reshape(steps, cfg.batch_size)).to(self.device)
             sub_obs = None
@@ -444,35 +575,83 @@ class Trainer:
                 losses.append(loss)
                 if seg and ((s + 1) % seg == 0 or s + 1 == steps):
                     # sub-epoch observers (nettrainer.py:859-889)
-                    sub_obs = self.evaluate(state, val)
-                    self.history["val_error_mm"].append(sub_obs["error_mm_avg"])
-                    if cfg.use_early_stopping and sub_obs["error_mm_avg"] < best[0]:
-                        best = (sub_obs["error_mm_avg"], self._best_copy(state), epoch)
-            costs = torch.stack(losses).cpu().numpy()  # one fetch per epoch
-            self.history["train_cost"].extend(costs.tolist())
-            if not np.isfinite(costs).all():
-                bad = self.check_nans(state)
-                raise FloatingPointError(
-                    f"non-finite training cost at epoch {epoch}; "
-                    f"NaN params: {bad or 'none (cost-only)'}"
-                )
-            msg = (
-                f"epoch {epoch}: lr {lr:.2e} cost {costs.mean():.5f} "
-                f"({(time.time() - t0) / (epoch + 1):.2f}s/epoch)"
-            )
-            if sub_obs is not None:
-                msg += f" val_mm {sub_obs['error_mm_avg']:.3f}"
-            elif val is not None and (epoch % cfg.eval_every) == 0:
-                obs = self.evaluate(state, val)
-                self.history["val_error_mm"].append(obs["error_mm_avg"])
-                msg += f" val_mm {obs['error_mm_avg']:.3f}"
-                if cfg.use_early_stopping and obs["error_mm_avg"] < best[0]:
-                    best = (obs["error_mm_avg"], self._best_copy(state), epoch)
-            log(msg)
-            if on_epoch_end is not None:
-                on_epoch_end(epoch, state, costs)
+                    sub_obs, best = self._observe(state, val, epoch, best)
+            best = self._end_epoch(state, epoch, lr, losses, val, sub_obs, best,
+                                   (time.time() - t0) / (epoch - start_epoch + 1),
+                                   log, on_epoch_end, snapshot_path)
+        return self._restore_best(state, best, log), self.history
 
-        if cfg.use_early_stopping and best[1] is not None:
-            log(f"best params at epoch {best[2]} (val {best[0]:.3f}mm)")
-            state.model.load_state_dict(best[1])
-        return state, self.history
+    def fit_streamed(
+        self,
+        state: TrainState,
+        arrays: Dict[str, np.ndarray],
+        val_data: Optional[TrainData] = None,
+        n_epochs: Optional[int] = None,
+        prefetch_depth: int = 2,
+        chunk_steps: int = 8,
+        snapshot_path: Optional[str] = None,
+        log: Callable[[str], None] = print,
+        start_epoch: int = 0,
+        on_epoch_start: Optional[Callable] = None,
+        on_epoch_end: Optional[Callable] = None,
+    ) -> Tuple[TrainState, Dict[str, list]]:
+        """``fit`` for a training set that stays in host memory (the
+        reference's para_load training, nettrainer.py:701-723): the epochs'
+        minibatches go to the device in ``macro_chunks``' chunks of
+        ``chunk_steps`` (``index_chunks``) through a ``DevicePrefetcher`` of
+        ``prefetch_depth``, which gathers each chunk's rows straight into
+        its pinned staging buffer; the steps run one minibatch at a time.  The
+        batches and the draws are ``fit``'s, so the loss trace equals
+        ``fit``'s and does not depend on chunk_steps or prefetch_depth;
+        observers, early stopping, snapshots, resume and ``history`` are
+        ``fit``'s too.  Chunks never straddle a validation boundary.
+
+        arrays: co-indexed host arrays crops, gt3d_crop, com, cube, m.
+        The prefetcher stays on ``self.prefetcher`` (its ``stage_s``)."""
+        cfg = self.cfg
+        n_epochs = n_epochs or cfg.n_epochs
+        sched = lr_of_ep(cfg.learning_rate)
+        n = arrays["crops"].shape[0]
+        if n < cfg.batch_size:
+            raise ValueError("training set smaller than one batch")
+        steps = -(-n // cfg.batch_size)
+        chunk_steps = max(1, min(int(chunk_steps), steps))
+        val = val_data.to(self.device) if val_data is not None else None
+        seg = int(cfg.validation_frequency or 0) if val is not None else 0
+        best = self._take_resumed_best() if start_epoch else (np.inf, None, -1)
+        source = {k: torch.from_numpy(np.ascontiguousarray(arrays[k], np.float32))
+                  for k in TrainData._fields}
+        it = self.prefetcher = DevicePrefetcher(
+            index_chunks(n, cfg.batch_size, n_epochs, chunk_steps, seed=cfg.seed,
+                         start_epoch=start_epoch, segment_steps=seg),
+            source, depth=prefetch_depth, device=self.device)
+        t0 = time.time()
+        done = 0
+        try:
+            for chunk in it:
+                epoch, pos = start_epoch + done // steps, done % steps
+                if pos == 0:
+                    if on_epoch_start is not None:
+                        on_epoch_start(epoch, state)
+                    lr = float(sched(epoch))
+                    aug_gen, drop_gen = self._epoch_generators(epoch)
+                    losses, sub_obs = [], None
+                for s in range(chunk["crops"].shape[0]):
+                    state, loss = self._train_step_core(
+                        state, {k: v[s] for k, v in chunk.items()}, aug_gen, drop_gen, lr)
+                    losses.append(loss)
+                done += chunk["crops"].shape[0]
+                pos = done % steps
+                if seg and (pos % seg == 0 or pos == 0):
+                    # chunks are segment-aligned: the observers land every
+                    # seg minibatches and at the epoch's end, as in fit
+                    sub_obs, best = self._observe(state, val, epoch, best)
+                if pos == 0:
+                    best = self._end_epoch(state, epoch, lr, losses, val, sub_obs, best,
+                                           (time.time() - t0) / (epoch - start_epoch + 1),
+                                           log, on_epoch_end, snapshot_path)
+        finally:
+            # an abandoned iteration (an exception above) must not leave
+            # the worker holding staged chunks
+            it.close()
+        return self._restore_best(state, best, log), self.history

@@ -46,7 +46,10 @@ def test_port_imports_no_jax():
                 "mains.demo_realtime", "utils.profiling", "utils.flops",
                 "ops.hopper_probes", "prof.prof_bench", "prof.prof_warp_bf16",
                 "train.checkpoint", "realtime.export", "mains.serve_http",
-                "models.resnet", "utils.refweights"):
+                "models.resnet", "utils.refweights", "data.importers", "data.dataset",
+                "data.trees", "eval.datasets", "mains.main_icvl_posereg_embedding",
+                "mains.main_msra15_posereg_embedding_crossval", "mains.main_nyu_com_refine",
+                "mains.main_icvl_com_refine", "mains.main_msra15_com_refine"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 

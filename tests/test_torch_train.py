@@ -239,7 +239,7 @@ def test_dropout_masks_follow_the_generator():
     assert torch.equal(a, b)
 
 
-def test_fit_runs_and_keeps_the_history_structure():
+def test_fit_runs_and_keeps_the_history_structure(tmp_path):
     seq = make_sequence(NYU_CAMERA, 48, seed=3)
     val = make_sequence(NYU_CAMERA, 16, seed=4, name="val")
     data, vdata = TrainData.from_sequence(seq), TrainData.from_sequence(val)
@@ -260,10 +260,14 @@ def test_fit_runs_and_keeps_the_history_structure():
     assert lines[0].startswith("epoch 0: lr 1.00e-04") and "val_mm" in lines[0]
     assert lines[-1].startswith("best params at epoch")
     assert trainer.check_nans(state) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.fit(state, data, snapshot_path="net")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.fit_streamed(state, {})
+    # a snapshot and streamed training are ported (tests/test_torch_resume.py,
+    # tests/test_torch_streamed.py): one more epoch of each runs here
+    snap = str(tmp_path / "net")
+    state, hist = trainer.fit(state, data, n_epochs=1, snapshot_path=snap, log=lines.append)
+    assert os.path.isfile(snap + "_last.ckpt") and len(hist["train_cost"]) == 3 * 3
+    arrays = {k: np.asarray(getattr(data, k)) for k in TrainData._fields}
+    state, hist = trainer.fit_streamed(state, arrays, n_epochs=1, log=lines.append)
+    assert len(hist["train_cost"]) == 4 * 3 and state.step == 12
     with pytest.raises(ValueError, match="nearest-only"):
         Trainer(model, cfg._replace(aug_resize="linear", aug_fuse_norm=True),
                 NYU_CAMERA)
@@ -315,8 +319,7 @@ def test_main_trains_resnet_on_cpu(tmp_path):
         load_serving_net("poseregnet", checkpoint=ckpt, device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--data", "x"], ["--dp", "2"], ["--resume"],
-                                  ["--streamed"], ["--accept"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--accept"], ["--sharded-snapshots"]])
 def test_main_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path)] + flag)
