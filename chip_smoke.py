@@ -66,6 +66,19 @@ samples/s, busy share, the prefetcher's staging time); both runs cut
 after epoch 0 and resumed with --resume, bit-equal to the uninterrupted
 runs; main_msra15_com_refine --streamed (K5 per step) and its
 net_P0_COM.ckpt through load_refine_net_lazy into a comref import (K1).
+Phases 35-41 (run after phase 34) drive the scale-out path on the one
+card: an NCCL group of one rank and a DistributedTrainer at full width,
+B = 128, 12 steps through K5 (deterministic: bit-equal to the plain
+Trainer; the two steps timed in turns), a sharded DCP snapshot resumed
+bit for bit (its save and restore timed against train/checkpoint.py's),
+the ResNet-47 leg (3 steps), a ShardedEstimator of two replicas on the
+card against FusedEstimator on each replica's block, eager and replayed,
+with detect=True too, aot_compile's detect/refine_iters/'nd_bilinear'
+replays against the eager pipeline at B = 1 and 64, serve_http's server
+with --dp 2 against --dp 1 and serve_http --dp 2 as a subprocess, the dry
+run (python -m deepprior_tpu_torch.mains.dryrun) at world size 1, and two
+processes in one 'cpu:gloo,cuda:gloo' group on the one card training
+dp = 2 against one device (phase 41).
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -523,6 +536,9 @@ def main(argv=None):
     # before the probe scripts: after them torch.profiler saw no device events
     resnet_phases(dev, tag, log, kernels, figures)
     dataset_phases(dev, tag, log, kernels)
+    scaleout_phases(dev, tag, log, kernels)
+    sharded_serving_phases(dev, tag, log, kernels)
+    gloo_card_phase(dev, tag, log, kernels)
     kernels += probe_phases(dev, tag, log)
     roofline_phases(dev, tag, log, model, prior, kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2543,6 +2559,550 @@ def dataset_phases(dev, tag, log, kernels, frames=256, nyu_frames=128, batch=128
     for name, by_path in paths.items():
         record[name]["launches_by_path"] = dict(record[name].get("launches_by_path", {}),
                                                 **by_path)
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def http_server(argv, ready="serving on http://", timeout=240):
+    """Start ``python -m <argv>`` and wait for its ``ready`` line.  Returns
+    (process, port, the lines seen); the caller stops the process."""
+    import queue
+
+    proc = subprocess.Popen([sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    seen, deadline = [], time.monotonic() + timeout
+    while True:
+        try:
+            ln = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                raise AssertionError(f"{argv[0]} did not start (exit {proc.poll()}): {seen}")
+            continue
+        seen.append(ln.rstrip())
+        if ln.startswith(ready):
+            return proc, int(ln.split()[2].rsplit(":", 1)[1]), seen
+
+
+def http_call(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def stop(proc):
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def scaleout_phases(dev, tag, log, kernels, batch=128, steps=12,
+                    out="eval/chip_smoke_scaleout"):
+    """Phases 35-37, the scale-out training path on the one card, run after
+    phase 34:
+    (35) an NCCL group of one rank (``multihost.initialize`` over a
+    FileStore) and a ``DistributedTrainer`` over its ('dp', 'tp') mesh:
+    full-width PoseRegNet (hidden 1024, PCA (30, 42)) at B = ``batch`` for
+    ``steps`` steps through K5 under deterministic algorithms, its loss trace
+    and parameters bit-equal to the plain Trainer's on the same seed; K5
+    against its plain version at this path's shapes; the step of each timed
+    in turns (the cost of the group and the gradient averaging); (36) a
+    sharded DCP snapshot after epoch 1, resumed by a fresh trainer bit for
+    bit, and DCP's save and restore timed against train/checkpoint.py's;
+    (37) the ResNet-47 leg, 3 steps through K5, bit-equal to the plain
+    Trainer.  Adds these paths' launches to K5's record in ``kernels``."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_sequence
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.augment import NV_VAL, augment_geometry, sample_augment_params
+    from deepprior_tpu_torch.parallel import DistributedTrainer, make_mesh, multihost
+    from deepprior_tpu_torch.prior import fit_pose_prior
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+
+    record = {k["name"]: k for k in kernels}
+    paths = {"warp_norm": {}}
+    cam = NYU_CAMERA
+    quiet = dict(log=lambda m: None)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+
+    # --------------------------------------------------------------- 35
+    multihost.initialize(store=dist.FileStore(f"{out}/store", 1), num_processes=1,
+                         process_id=0, device="cuda")
+    try:
+        mesh = make_mesh()
+        group = (f"{dist.get_backend()} group of {dist.get_world_size()}, mesh "
+                 f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        seq = make_sequence(cam, batch, seed=35)
+        data = TrainData.from_sequence(seq)
+        prior = fit_pose_prior(cam, np.random.default_rng(35), data.gt3d_crop, data.com,
+                               data.cube, 30, num_poses=20_000)
+        cfg = TrainConfig(batch_size=batch, n_epochs=steps, use_early_stopping=False,
+                          snapshot_every=1)
+
+        def pose():
+            return PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30))
+
+        def fit(tr, **kw):
+            hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+            st, hist = tr.fit(tr.init_state(), data, **quiet, **kw)
+            torch.cuda.synchronize()
+            return st, list(hist["train_cost"]), dict(hw.LAUNCHES)
+
+        with deterministic_algorithms():
+            plain = Trainer(pose(), cfg, cam, prior=prior, device=dev)
+            s_plain, c_plain, _ = fit(plain)
+            dtr = DistributedTrainer(pose(), cfg, cam, mesh, prior=prior, device=dev)
+            s_dist, c_dist, k5 = fit(dtr)
+        if k5 != {"warp_norm": steps, "warp_patch": 0}:
+            raise AssertionError(f"the distributed fit of {steps} steps launched {k5}")
+        paths["warp_norm"]["DistributedTrainer, world of 1 (35)"] = k5["warp_norm"]
+        if c_dist != c_plain or not all(
+                torch.equal(v, s_dist.model.state_dict()[k])
+                for k, v in s_plain.model.state_dict().items()):
+            raise AssertionError(f"world-of-one DistributedTrainer != Trainer: {c_dist} vs "
+                                 f"{c_plain}")
+        # K5 at this path's shapes against its plain version
+        bt = data.to(dev).take(torch.arange(batch, device=dev))
+        drawn = sample_augment_params(torch.Generator(dev).manual_seed(35), batch, 3)
+        modes = ("com", "rot", "none")
+        geo = augment_geometry(drawn, bt["com"], bt["cube"], bt["m"], cam, modes, (128, 128))
+        want = hw.warp_norm_plain(bt["crops"], hw.warp_norm_params(geo.a_fwd, geo.norm),
+                                  0.0, NV_VAL)
+        got = hw.launch_warp_norm(bt["crops"], hw.warp_norm_args(
+            bt["crops"], drawn, bt["com"], bt["cube"], bt["m"], cam, modes), 0.0, NV_VAL)
+        k5_err = float((got.out - want).abs().max())
+        if not (torch.equal(got.out, want) and torch.equal(got.m_out, geo.m_out)):
+            raise AssertionError(f"K5 at B={batch} != plain ({k5_err})")
+        record["warp_norm"]["max_abs_err"] = max(record["warp_norm"]["max_abs_err"], k5_err)
+        # the step of each, in turns: what the group and the averaging cost
+        gens = plain._epoch_generators(0)
+        step_ms, ops = {}, {}
+        for name, tr, st in (("plain", plain, s_plain), ("dist", dtr, s_dist),
+                             ("dist", dtr, s_dist), ("plain", plain, s_plain)):
+            def one(tr=tr, st=st):
+                tr._train_step_core(st, bt, gens[0], gens[1], 1e-4)
+            for _ in range(3):
+                one()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(30):
+                one()
+            torch.cuda.synchronize()
+            step_ms.setdefault(name, []).append((time.perf_counter() - t) * 1e3 / 30)
+            if name not in ops:
+                ops[name] = len(device_ops(one))
+        log(f"[35 distributed train] {tag} {group}; DistributedTrainer, PoseRegNet hidden "
+            f"1024 f32, PCA (30, 42), B={batch}, {steps} steps, deterministic algorithms: "
+            f"K5 {k5['warp_norm']}x, loss trace and parameters == the plain Trainer's bit "
+            f"for bit ({c_plain[0]:.4f} -> {c_plain[-1]:.4f}); K5 == plain at B={batch}; "
+            f"step (host clock, 30 steps, in turns): plain "
+            + ", ".join(f"{v:.4f}" for v in step_ms["plain"]) + " ms, distributed "
+            + ", ".join(f"{v:.4f}" for v in step_ms["dist"])
+            + f" ms; device operations per step: plain {ops['plain']}, distributed "
+            f"{ops['dist']}")
+
+        # ----------------------------------------------------------- 36
+        cfg4 = cfg._replace(n_epochs=4)
+        with deterministic_algorithms():
+            t1 = DistributedTrainer(pose(), cfg4, cam, mesh, prior=prior, device=dev)
+            s1, c1, _ = fit(t1)
+            t2 = DistributedTrainer(pose(), cfg4, cam, mesh, prior=prior, device=dev)
+            t2.sharded_snapshots = True
+            fit(t2, n_epochs=2, snapshot_path=f"{out}/net")
+            t3 = DistributedTrainer(pose(), cfg4, cam, mesh, prior=prior, device=dev)
+            s3, start = t3.load_train_state(f"{out}/net_last.ckpt", t3.init_state())
+            s3, h3 = t3.fit(s3, data, start_epoch=start, **quiet)
+        if start != 2 or list(h3["train_cost"]) != c1[2:] or not all(
+                torch.equal(v, s3.model.state_dict()[k])
+                for k, v in s1.model.state_dict().items()):
+            raise AssertionError("the sharded-snapshot resume differs from the "
+                                 "uninterrupted run")
+        files = sorted(os.listdir(f"{out}/net_last.ckpt/tree"))
+        times = {}
+        for fmt in ("dcp", "file", "file", "dcp"):
+            t1.sharded_snapshots = fmt == "dcp"
+            path = f"{out}/timing_{fmt}.ckpt"
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            t1.save_train_state(path, s1, epoch=3)
+            t1._drain_snapshots()
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            t1.load_train_state(path, s1)
+            torch.cuda.synchronize()
+            times.setdefault(fmt, []).append((save_s, time.perf_counter() - t))
+        size = {fmt: sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                         os.walk(f"{out}/timing_{fmt}.ckpt") for f in fs)
+                if os.path.isdir(f"{out}/timing_{fmt}.ckpt")
+                else os.path.getsize(f"{out}/timing_{fmt}.ckpt") for fmt in times}
+        log(f"[36 sharded snapshot] {tag} DCP snapshot after epoch 1 ({files}) resumed by "
+            f"a fresh DistributedTrainer: epochs 2-3 losses and parameters == the "
+            f"uninterrupted run's bit for bit; save + drain / restore of the trained state "
+            f"(params, Adam moments, step; in turns): "
+            + "; ".join(f"{fmt} ({size[fmt]} bytes) " + ", ".join(
+                f"{a * 1e3:.3f} / {b * 1e3:.3f} ms" for a, b in v) for fmt, v in times.items()))
+
+        # ----------------------------------------------------------- 37
+        rcfg = cfg._replace(n_epochs=3)
+        with deterministic_algorithms():
+            rp = Trainer(ResNet(ResNetConfig(num_joints=1, n_dims=30)), rcfg, cam,
+                         prior=prior, device=dev)
+            rs_p, rc_p, _ = fit(rp)
+            rd = DistributedTrainer(ResNet(ResNetConfig(num_joints=1, n_dims=30)), rcfg, cam,
+                                    mesh, prior=prior, device=dev)
+            t = time.perf_counter()
+            rs_d, rc_d, rk5 = fit(rd)
+            r_s = time.perf_counter() - t
+        if rk5 != {"warp_norm": 3, "warp_patch": 0} or rc_d != rc_p or not all(
+                torch.equal(v, rs_d.model.state_dict()[k])
+                for k, v in rs_p.model.state_dict().items()):
+            raise AssertionError(f"ResNet-47 leg: K5 {rk5}, losses {rc_d} vs {rc_p}")
+        paths["warp_norm"]["ResNet-47 DistributedTrainer (37)"] = rk5["warp_norm"]
+        log(f"[37 resnet leg] {tag} ResNet-47 f32 DistributedTrainer, B={batch}, 3 steps "
+            f"(deterministic): K5 3x, losses {[round(c, 4) for c in rc_d]} and parameters "
+            f"(BatchNorm statistics included) == the plain Trainer's bit for bit; "
+            f"{r_s:.3f} s with the init")
+        del rp, rd, rs_p, rs_d
+    finally:
+        dist.destroy_process_group()
+    for name, by_path in paths.items():
+        record[name]["launches_by_path"] = dict(record[name].get("launches_by_path", {}),
+                                                **by_path)
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def sharded_serving_phases(dev, tag, log, kernels, replica_batch=64, n_req=2048):
+    """Phases 38-40 (after phase 37): (38) ``ShardedEstimator`` with two
+    replicas on the card at B = 2 x ``replica_batch``, eager and replayed,
+    equal to FusedEstimator on each replica's block bit for bit, also with
+    detect=True, K1 in every replica and against its plain version at
+    B = ``replica_batch``; the modes that aot_compile took up in this round
+    (detect=True, refine_iters=3, 'nd_bilinear') replayed bit-equal to the
+    eager _pipeline at B = 1 and ``replica_batch``; (39) serve_http's server
+    with --dp 2 against --dp 1, requests/s of one burst each in turns, and
+    ``serve_http --dp 2`` as a subprocess answering /healthz and /predict;
+    (40) ``python -m deepprior_tpu_torch.mains.dryrun``, a world of one.
+    Adds these paths' launches to K1's record in ``kernels``."""
+    import io
+
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.mains import serve_http
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
+    from deepprior_tpu_torch.parallel import ShardedEstimator
+    from deepprior_tpu_torch.prior import PCAPrior
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    record = {k["name"]: k for k in kernels}
+    paths = {"normalized_crop": {}}
+    cam = NYU_CAMERA
+
+    # --------------------------------------------------------------- 38
+    rng = np.random.default_rng(38)
+    b2 = 2 * replica_batch
+    pairs = [make_depth_frame(cam, rng) for _ in range(16)]
+    depth = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev).repeat(b2 // 16, 1, 1)
+    com = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev).repeat(b2 // 16, 1)
+    model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, dtype=torch.bfloat16),
+                       generator=torch.Generator().manual_seed(38))
+    sprior = PCAPrior(rng.standard_normal((30, 42)).astype(np.float32) * 0.05,
+                      np.zeros(42, np.float32))
+    halves = (slice(0, replica_batch), slice(replica_batch, b2))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def blockwise(est, c=None):
+        with torch.inference_mode():
+            outs = [est._pipeline(depth[h], (com if c is None else c)[h]) for h in halves]
+        return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+
+    notes = []
+    for detect in (False, True):
+        est = FusedEstimator(model, cam, prior=sprior, device=dev, detect=detect)
+        sharded = ShardedEstimator(est, devices=[dev, dev])
+        if sharded.dp != 2 or not sharded.graph:
+            raise AssertionError(f"ShardedEstimator: dp {sharded.dp}, graph {sharded.graph}")
+        c_in = None if detect else com
+        zeros = torch.zeros_like(com)
+        want = blockwise(est, zeros if detect else None)
+        hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+        eager = sharded.eager(depth, c_in)
+        torch.cuda.synchronize()
+        k1_eager = hopper_crop.LAUNCHES["normalized_crop"]
+        hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+        first = sharded(depth, c_in)  # captures one graph per replica
+        torch.cuda.synchronize()
+        k1_capture = hopper_crop.LAUNCHES["normalized_crop"]
+        hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+        replayed = sharded(depth, c_in)
+        torch.cuda.synchronize()
+        k1_replay = hopper_crop.LAUNCHES["normalized_crop"]
+        if not (same(eager, want) and same(first, want) and same(replayed, want)):
+            raise AssertionError(f"ShardedEstimator(detect={detect}) != FusedEstimator on "
+                                 "each replica's block")
+        if (k1_eager, k1_capture, k1_replay) != (2, 4, 0):
+            raise AssertionError(f"K1 launches eager/capture/replay {k1_eager}/{k1_capture}/"
+                                 f"{k1_replay}, want 2/4/0 (one per replica and call; a "
+                                 "capture launches twice; a replay runs no Python)")
+        paths["normalized_crop"][f"ShardedEstimator x2, detect={detect}, eager (38)"] = k1_eager
+        full = est(depth, c_in)
+        notes.append(f"detect={detect}: eager, first call (capture) and replay == "
+                     f"FusedEstimator per block bit for bit, K1 {k1_eager}x eager, "
+                     f"{k1_capture}x at capture, {k1_replay}x a replay; against one "
+                     f"B={b2} FusedEstimator call max |joints d| "
+                     f"{(full[0] - replayed[0]).abs().max().item():.6f} mm")
+    # K1 at the replica's shape against its plain version
+    d64, c64 = depth[:replica_batch].contiguous(), com[:replica_batch].contiguous()
+    got = hopper_crop.hopper_normalized_crop(d64, c64, (250.0,) * 3, cam.fx, cam.fy,
+                                             fuse_clamp=True)
+    want = normalized_crop(clamp_depth(d64)[0], c64, (250.0,) * 3, cam.fx, cam.fy)
+    k1_err = float((got[0] - want[0]).abs().max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K1 at B={replica_batch} != plain ({k1_err})")
+    record["normalized_crop"]["max_abs_err"] = max(record["normalized_crop"]["max_abs_err"],
+                                                   k1_err)
+    # the modes aot_compile captures since this round, against the eager pipeline
+    modes = []
+    for kw in (dict(detect=True), dict(refine_iters=3), dict(resize="nd_bilinear")):
+        est = FusedEstimator(model, cam, prior=sprior, device=dev, **kw)
+        for bsz in (1, replica_batch):
+            fn = est.aot_compile(bsz, (cam.height, cam.width))
+            for rows in (slice(0, bsz), slice(bsz, 2 * bsz)):
+                got = fn(depth[rows], com[rows])
+                with torch.inference_mode():
+                    want = est._pipeline(depth[rows].contiguous(), com[rows].contiguous())
+                if not same(got, want):
+                    raise AssertionError(f"aot_compile({kw}, B={bsz}) replay != eager")
+        modes.append(next(iter(kw)) + ("" if "resize" in kw else f"={next(iter(kw.values()))}"))
+    # one graph of B=128 against two replicas of 64 on the card, in turns
+    est = FusedEstimator(model, cam, prior=sprior, device=dev)
+    one = est.aot_compile(b2, (cam.height, cam.width))
+    two = ShardedEstimator(est, devices=[dev, dev]).aot_compile(b2, (cam.height, cam.width))
+    one_ms, two_ms = alternate(lambda: one(depth, com), lambda: two(depth, com), 50)
+    log(f"[38 sharded estimator] {tag} ShardedEstimator, PoseRegNet bf16 hidden 1024, two "
+        f"replicas on {dev} (one CUDA graph each, on a stream of its own), B={b2}: "
+        + "; ".join(notes) + f"; K1 == plain at B={replica_batch}; aot_compile with "
+        f"{', '.join(modes)}: replays == the eager _pipeline bit for bit at B=1 and "
+        f"{replica_batch} on two input batches each; B={b2} (CUDA events around the replay "
+        f"callables, copies in and out included, in turns): one graph {one_ms:.4f} ms, two "
+        f"replicas {two_ms:.4f} ms")
+    del one, two, est
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 39
+    depth_np, com_np = (t[:16].cpu().numpy() for t in (depth, com))
+    n_threads = 4
+
+    def burst(srv, n):
+        futs = [None] * n
+
+        def worker(t):
+            for i in range(t, n, n_threads):
+                futs[i] = srv.submit(depth_np[i % 16], com_np[i % 16])
+
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        return np.stack([f.result(timeout=300) for f in futs])
+
+    parser = serve_http.build_parser()
+    servers = {dp: serve_http.build_server(parser.parse_args(
+        ["--device", str(dev), "--max-batch", "64", "--max-wait-ms", "2", "--dp", str(dp)]))
+        for dp in (1, 2)}
+    try:
+        answers, rate = {}, {1: [], 2: []}
+        for dp in (1, 2):
+            answers[dp] = burst(servers[dp], 64)  # warm: the graphs are captured
+        for dp in (1, 2, 2, 1):
+            t = time.perf_counter()
+            burst(servers[dp], n_req)
+            rate[dp].append(n_req / (time.perf_counter() - t))
+        occ = {dp: servers[dp].occupancy() for dp in (1, 2)}
+    finally:
+        for srv in servers.values():
+            srv.close()
+    gap = float(np.abs(answers[1] - answers[2]).max())
+    proc, port, seen = http_server(["deepprior_tpu_torch.mains.serve_http", "--port", "0",
+                                    "--device", str(dev), "--dp", "2", "--max-wait-ms", "20"])
+    try:
+        health = http_call(port, "GET", "/healthz")
+        buf = io.BytesIO()
+        np.savez(buf, depth=depth_np[0], com=com_np[0])
+        status, body = http_call(port, "POST", "/predict", buf.getvalue())
+    finally:
+        stop(proc)
+    if status != 200 or health[0] != 200 or \
+            np.abs(np.asarray(body["joints"], np.float32) - answers[2][0]).max() > 1e-3:
+        raise AssertionError(f"serve_http --dp 2: {status} {body}, healthz {health}")
+    log(f"[39 serve_http --dp] {tag} serve_http's server (PoseRegNet f32, random weights, "
+        f"max batch 64, graphs replayed), {n_req} requests from {n_threads} threads, in turns: "
+        f"--dp 1 " + ", ".join(f"{r:.1f}" for r in rate[1]) + " requests/s (occupancy "
+        f"{occ[1]:.3f}), --dp 2 (two replicas on one card) "
+        + ", ".join(f"{r:.1f}" for r in rate[2]) + f" requests/s (occupancy {occ[2]:.3f}); "
+        f"answers of the two within {gap:.6f} mm; serve_http --dp 2 as a subprocess: "
+        f"{seen[-1]}; /healthz {health[1]}; /predict 200, joints within 1e-3 mm")
+
+    # --------------------------------------------------------------- 40
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "deepprior_tpu_torch.mains.dryrun"],
+                         capture_output=True, text=True, timeout=600)
+    okline = [ln for ln in res.stdout.splitlines() if ln.startswith("dryrun_multichip OK")]
+    if res.returncode != 0 or not okline:
+        raise AssertionError(f"dryrun failed ({res.returncode}): {res.stdout[-2000:]} "
+                             f"{res.stderr[-3000:]}")
+    log(f"[40 dryrun] {tag} python -m deepprior_tpu_torch.mains.dryrun "
+        f"({time.perf_counter() - t:.1f} s): {okline[0]}")
+    record["normalized_crop"]["launches_by_path"] = dict(
+        record["normalized_crop"].get("launches_by_path", {}), **paths["normalized_crop"])
+
+
+def _gloo_card_rank(rank, world, out, batch, steps):
+    """Phase 41's rank: a dp = ``world`` DistributedTrainer over a
+    'cpu:gloo,cuda:gloo' group whose ranks all use cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.augment import NV_VAL, augment_geometry, sample_augment_params
+    from deepprior_tpu_torch.parallel import DistributedTrainer, make_mesh, multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    multihost.initialize(store=dist.FileStore(f"{out}/store", world), num_processes=world,
+                         process_id=rank, device="cuda", backend="cpu:gloo,cuda:gloo")
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        data, prior, cfg, pose, cam = _gloo_card_setup(batch, steps)
+        mesh = make_mesh(dp=world)
+        hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+        with deterministic_algorithms():
+            tr = DistributedTrainer(pose(), cfg, cam, mesh, prior=prior, device=dev)
+            st, hist = tr.fit(tr.init_state(), data, log=lambda m: None)
+            torch.cuda.synchronize()
+        k5 = dict(hw.LAUNCHES)
+        # K5 at this rank's shape against its plain version
+        local = batch // world
+        bt = data.to(dev).take(torch.arange(local, device=dev))
+        drawn = sample_augment_params(torch.Generator(dev).manual_seed(41), local, 3)
+        modes = ("com", "rot", "none")
+        geo = augment_geometry(drawn, bt["com"], bt["cube"], bt["m"], cam, modes, (128, 128))
+        want = hw.warp_norm_plain(bt["crops"], hw.warp_norm_params(geo.a_fwd, geo.norm),
+                                  0.0, NV_VAL)
+        got = hw.launch_warp_norm(bt["crops"], hw.warp_norm_args(
+            bt["crops"], drawn, bt["com"], bt["cube"], bt["m"], cam, modes), 0.0, NV_VAL)
+        torch.save({"costs": list(hist["train_cost"]), "k5": k5,
+                    "k5_equal": bool(torch.equal(got.out, want)),
+                    "k5_err": float((got.out - want).abs().max()),
+                    "params": {k: v.cpu() for k, v in tr.full_state_dict(st).items()},
+                    "backend": dist.get_backend()}, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_card_setup(batch, steps):
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_sequence
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.prior import fit_pose_prior
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData
+
+    data = TrainData.from_sequence(make_sequence(NYU_CAMERA, batch, seed=41))
+    prior = fit_pose_prior(NYU_CAMERA, np.random.default_rng(41), data.gt3d_crop, data.com,
+                           data.cube, 30, num_poses=20_000)
+    cfg = TrainConfig(batch_size=batch, n_epochs=steps, use_early_stopping=False)
+
+    def pose():
+        return PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
+                          generator=torch.Generator().manual_seed(41))
+
+    return data, prior, cfg, pose, NYU_CAMERA
+
+
+def gloo_card_phase(dev, tag, log, kernels, world=2, batch=128, steps=3,
+                    out="eval/chip_smoke_gloo"):
+    """Phase 41: ``world`` processes, each a rank of one 'cpu:gloo,cuda:gloo'
+    group and all on the one card (CUDA tensors through gloo), train a
+    dp = ``world`` DistributedTrainer at full width (PoseRegNet hidden 1024,
+    PCA 30) for ``steps`` steps at a global B = ``batch`` through K5 (each
+    rank at B / world, K5 held against its plain version there), under
+    deterministic algorithms, against the plain Trainer here on the whole
+    batch: the loss trace within rtol 1e-4 and the parameters within 1e-4
+    (their deviations logged), K5 ``steps`` times on every rank."""
+    import os
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from deepprior_tpu_torch.train.trainer import Trainer
+
+    record = {k["name"]: k for k in kernels}
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t = time.perf_counter()
+    mp.start_processes(_gloo_card_rank, args=(world, out, batch, steps), nprocs=world,
+                       start_method="spawn")
+    wall = time.perf_counter() - t
+    ranks = [torch.load(f"{out}/rank{r}.pt", weights_only=False) for r in range(world)]
+    data, prior, cfg, pose, cam = _gloo_card_setup(batch, steps)
+    with deterministic_algorithms():
+        single = Trainer(pose(), cfg, cam, prior=prior, device=dev)
+        st, hist = single.fit(single.init_state(), data, log=lambda m: None)
+    want = np.asarray(hist["train_cost"])
+    dev_loss = dev_param = 0.0
+    for r, res in enumerate(ranks):
+        if res["k5"] != {"warp_norm": steps, "warp_patch": 0} or not res["k5_equal"]:
+            raise AssertionError(f"gloo rank {r}: K5 {res['k5']}, == plain {res['k5_equal']}")
+        got = np.asarray(res["costs"])
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        dev_loss = max(dev_loss, float(np.max(np.abs(got - want) / np.abs(want))))
+        for k, v in st.model.state_dict().items():
+            d = float((res["params"][k] - v.cpu()).abs().max())
+            if d > 1e-4:
+                raise AssertionError(f"gloo rank {r}: {k} off by {d}")
+            dev_param = max(dev_param, d)
+        record["warp_norm"]["max_abs_err"] = max(record["warp_norm"]["max_abs_err"],
+                                                 res["k5_err"])
+    record["warp_norm"]["launches_by_path"] = dict(
+        record["warp_norm"].get("launches_by_path", {}),
+        **{f"gloo dp={world} on one card, rank {r} (41)": res["k5"]["warp_norm"]
+           for r, res in enumerate(ranks)})
+    log(f"[41 gloo on one card] {tag} {world} processes, one {ranks[0]['backend']} group, "
+        f"all on {dev}: DistributedTrainer dp={world}, PoseRegNet hidden 1024 f32, B={batch} "
+        f"({batch // world} a rank), {steps} steps (deterministic): K5 {steps}x on every "
+        f"rank and == plain at B={batch // world}; losses "
+        f"{[round(float(c), 4) for c in want]} "
+        f"against one device: max relative deviation {dev_loss:.3e}, parameters within "
+        f"{dev_param:.3e}; {wall:.1f} s with the processes' start")
     shutil.rmtree(out, ignore_errors=True)
 
 

@@ -165,19 +165,25 @@ class DepthImporter:
         if not self.use_cache or not frames or not complete:
             return
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        np.savez_compressed(
-            path,
-            dpt=np.stack([f.dpt for f in frames]),
-            gtorig=np.stack([f.gtorig for f in frames]),
-            gtcrop=np.stack([f.gtcrop for f in frames]),
-            T=np.stack([f.T for f in frames]),
-            gt3Dorig=np.stack([f.gt3Dorig for f in frames]),
-            gt3Dcrop=np.stack([f.gt3Dcrop for f in frames]),
-            com=np.stack([f.com for f in frames]),
-            fileName=np.array([f.fileName for f in frames]),
-            subSeqName=np.array([f.subSeqName for f in frames]),
-            side=np.array([f.side for f in frames]),
-        )
+        # a temporary file replaces the cache in one os.replace: the ranks
+        # of a distributed run load and cache the same sequence at once,
+        # and none may read another's half-written file
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as fh:
+            np.savez_compressed(
+                fh,
+                dpt=np.stack([f.dpt for f in frames]),
+                gtorig=np.stack([f.gtorig for f in frames]),
+                gtcrop=np.stack([f.gtcrop for f in frames]),
+                T=np.stack([f.T for f in frames]),
+                gt3Dorig=np.stack([f.gt3Dorig for f in frames]),
+                gt3Dcrop=np.stack([f.gt3Dcrop for f in frames]),
+                com=np.stack([f.com for f in frames]),
+                fileName=np.array([f.fileName for f in frames]),
+                subSeqName=np.array([f.subSeqName for f in frames]),
+                side=np.array([f.side for f in frames]),
+            )
+        os.replace(tmp, path)
 
     # ------------------------------------------------------------------
     def load_refine_net_lazy(self, net, dsize=(128, 128)):

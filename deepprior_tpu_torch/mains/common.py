@@ -13,6 +13,13 @@ memory (``Trainer.fit_streamed``), write a rolling snapshot
 ``load_serving_net`` gives the serving entry points their model and
 prior: random weights, the trained ones from a network_prior.ckpt, or a
 reference-trained pickle.
+
+Under torchrun (``torchrun --nproc-per-node N -m <main> --dp D --tp T``)
+every rank runs the main: ``make_trainer`` builds a ``DistributedTrainer``
+over the ('dp', 'tp') mesh, each rank trains its rows of every batch on its
+card, and only rank 0 logs and writes results.json and network_prior.ckpt
+(whole tensors under tp); --sharded-snapshots makes the rolling snapshot a
+directory every rank writes its shards into.
 """
 
 from __future__ import annotations
@@ -27,8 +34,6 @@ import torch
 
 # the ROADMAP entries of the flags the port does not have yet
 _TODO = {
-    "parallel": "--dp/--tp/--sp and --sharded-snapshots need the scale-out "
-                "port (ROADMAP.md Queue 1 item 19)",
     "accept": "--accept needs the baseline loaders' plumbing and the plots "
               "(ROADMAP.md Queue 1 item 20)",
 }
@@ -110,22 +115,106 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--chunk-steps", type=int, default=8,
                    help="minibatches per streamed chunk")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda; cpu only when asked for)")
-    # not ported yet: parsed so that asking for them fails loudly
-    p.add_argument("--dp", type=int, default=None)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--sp", type=int, default=1)
+                   help="torch device (default: cuda, under torchrun the card "
+                        "LOCAL_RANK; cpu only when asked for)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ranks (default: the process group's world "
+                        "over --tp); more than one needs torchrun")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: the wide FC layers split over them")
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial ranks (not ported: > 1 raises)")
+    p.add_argument("--sharded-snapshots", action="store_true",
+                   help="write the rolling snapshot as a sharded directory "
+                        "(torch.distributed.checkpoint, async, every rank its "
+                        "shards); --resume reads either format")
+    # not ported yet: parsed so that asking for it fails loudly
     p.add_argument("--accept", action="store_true")
-    p.add_argument("--sharded-snapshots", action="store_true")
     return p
 
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag the port does not have yet."""
-    if args.dp is not None or args.tp != 1 or args.sp != 1 or args.sharded_snapshots:
-        raise NotImplementedError(_TODO["parallel"])
+    if args.sp != 1:
+        from deepprior_tpu_torch.parallel.mesh import SP_TODO
+
+        raise NotImplementedError(SP_TODO)
     if args.accept:
         raise NotImplementedError(_TODO["accept"])
+
+
+def main_device(args) -> torch.device:
+    """The main's device and, under torchrun (WORLD_SIZE in the
+    environment), its process group: ``multihost.initialize`` takes the card
+    LOCAL_RANK (NCCL), or the CPU with --device cpu (gloo)."""
+    import torch.distributed as dist
+
+    device = torch.device(args.device) if args.device else default_device()
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        from deepprior_tpu_torch.parallel import multihost
+
+        multihost.initialize(device=device.type)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_trainer(model, cfg, camera, prior=None, dp=None, tp=1, sp=1, device=None):
+    """A ``Trainer`` on one rank, or a ``DistributedTrainer`` over the
+    ('dp', 'tp') mesh of the process group (counterpart of the JAX
+    ``make_trainer``).  Nothing falls back quietly: dp or tp above 1 without
+    a process group, or a group whose world is not dp x tp, raises and names
+    the launcher."""
+    from deepprior_tpu_torch.train.trainer import Trainer
+
+    if not check_world(dp, tp, sp):
+        return Trainer(model, cfg, camera, prior=prior, device=device)
+    from deepprior_tpu_torch.parallel import DistributedTrainer, make_mesh
+
+    return DistributedTrainer(model, cfg, camera, make_mesh(dp=dp, tp=tp or 1),
+                              prior=prior, device=device)
+
+
+def check_world(dp=None, tp=1, sp=1) -> bool:
+    """Whether the run is distributed (a process group exists); raises when
+    the flags and the process group disagree: --sp > 1, dp or tp above 1
+    without a group, or a group whose world is not dp x tp."""
+    import torch.distributed as dist
+
+    from deepprior_tpu_torch.parallel.multihost import LAUNCHER
+
+    if sp not in (None, 1):
+        from deepprior_tpu_torch.parallel.mesh import SP_TODO
+
+        raise NotImplementedError(SP_TODO)
+    tp = tp or 1
+    if not dist.is_initialized():
+        if (dp or 1) * tp > 1:
+            raise RuntimeError(
+                f"--dp {dp or 1} --tp {tp} needs one process per device under a "
+                f"process group; launch with {LAUNCHER}")
+        return False
+    world = dist.get_world_size()
+    if world % tp or (dp is not None and dp * tp != world):
+        raise RuntimeError(
+            f"the process group has {world} ranks, but --dp {dp} x --tp {tp} "
+            f"asks for {(dp or world // tp) * tp}; launch with {LAUNCHER} where "
+            "N = dp x tp")
+    return True
+
+
+def rank_log(log):
+    """``log`` on the rank that writes the run's files, silence elsewhere."""
+    from deepprior_tpu_torch.parallel.multihost import is_writer
+
+    return log if is_writer() else (lambda msg: None)
+
+
+def serving_state_dict(trainer, state):
+    """The trained state dict with every tensor whole (a collective under a
+    DistributedTrainer: every rank calls it)."""
+    full = getattr(trainer, "full_state_dict", None)
+    return full(state) if full is not None else state.model.state_dict()
 
 
 def load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs, num_joints,
@@ -166,8 +255,10 @@ def load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs, num_joi
 def _maybe_resume(args, trainer, state, outdir, log=print):
     """With --resume and a rolling snapshot in ``outdir``, the restored state
     and the epoch to start at; else (state, 0)."""
+    from deepprior_tpu_torch.train.checkpoint_sharded import is_sharded_checkpoint
+
     snap = os.path.join(outdir, "net_last.ckpt")
-    if args.resume and os.path.isfile(snap):
+    if args.resume and (os.path.isfile(snap) or is_sharded_checkpoint(snap)):
         state, start_epoch = trainer.load_train_state(snap, state)
         log(f"resuming from {snap} at epoch {start_epoch}")
         return state, start_epoch
@@ -216,11 +307,14 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
     from deepprior_tpu_torch.prior import fit_pose_prior
     from deepprior_tpu_torch.train.checkpoint import save_checkpoint
-    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+    from deepprior_tpu_torch.parallel.multihost import is_writer
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData
 
     check_ported(args)
     eval_cls = eval_cls or HandposeEvaluation
-    device = torch.device(args.device) if args.device else default_device()
+    device = main_device(args)
+    check_world(args.dp, args.tp, args.sp)
+    log = rank_log(log)
     prefix = args.eval_prefix or f"{train_seq}_EMB_PCA{n_pca}"
     outdir = os.path.join(args.out, prefix)
     os.makedirs(outdir, exist_ok=True)
@@ -259,7 +353,9 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
         validation_frequency=args.validation_frequency,
         aug_fuse_norm=args.aug_fuse_norm, aug_resize=args.aug_resize,
     )
-    trainer = Trainer(model, cfg, camera, prior=prior, device=device)
+    trainer = make_trainer(model, cfg, camera, prior=prior, dp=args.dp, tp=args.tp,
+                           sp=args.sp, device=device)
+    trainer.sharded_snapshots = args.sharded_snapshots
     state, hist = _train(args, trainer, trainer.init_state(), data, val, outdir, log)
 
     # save the final net (a ResNet's BatchNorm statistics with it) + prior
@@ -268,15 +364,17 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     family = {"model": args.model}
     if args.model == "resnet":
         family["resnet_type"] = args.resnet_type
-    save_checkpoint(
-        os.path.join(outdir, "network_prior.ckpt"),
-        {
-            "params": state.model.state_dict(),
-            "pca_components": prior.components,
-            "pca_mean": prior.mean,
-        },
-        config=dict(cfg._asdict(), **family),
-    )
+    params = serving_state_dict(trainer, state)
+    if is_writer():
+        save_checkpoint(
+            os.path.join(outdir, "network_prior.ckpt"),
+            {
+                "params": params,
+                "pca_components": prior.components,
+                "pca_mean": prior.mean,
+            },
+            config=dict(cfg._asdict(), **family),
+        )
 
     # test: decode to mm and the metric suite (main:161-205)
     metrics, results = {}, {}
@@ -303,8 +401,9 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
                 hpe.getJointMeanError(j) for j in range(joints.shape[1])
             ],
         }
-    with open(os.path.join(outdir, "results.json"), "w") as fh:
-        json.dump(metrics, fh, indent=1)
+    if is_writer():
+        with open(os.path.join(outdir, "results.json"), "w") as fh:
+            json.dump(metrics, fh, indent=1)
     return state, results, hist
 
 
@@ -322,11 +421,14 @@ def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
     joint (main:215-250; the shipped baselines wait for --accept).
     Returns (state, {"refined": evaluation, "com": evaluation}, history)."""
     from deepprior_tpu_torch.models import ScaleNet, ScaleNetConfig
+    from deepprior_tpu_torch.parallel.multihost import is_writer
     from deepprior_tpu_torch.train.checkpoint import save_checkpoint
-    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData
 
     check_ported(args)
-    device = torch.device(args.device) if args.device else default_device()
+    device = main_device(args)
+    check_world(args.dp, args.tp, args.sp)
+    log = rank_log(log)
     prefix = args.eval_prefix or f"{train_seq}_COM"
     outdir = os.path.join(args.out, prefix)
     os.makedirs(outdir, exist_ok=True)
@@ -348,10 +450,14 @@ def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
         validation_frequency=args.validation_frequency,
         aug_fuse_norm=args.aug_fuse_norm, aug_resize=args.aug_resize,
     )
-    trainer = Trainer(model, cfg, camera, device=device)
+    trainer = make_trainer(model, cfg, camera, dp=args.dp, tp=args.tp, sp=args.sp,
+                           device=device)
+    trainer.sharded_snapshots = args.sharded_snapshots
     state, hist = _train(args, trainer, trainer.init_state(), data, val, outdir, log)
-    save_checkpoint(os.path.join(outdir, f"net_{prefix}.ckpt"),
-                    {"params": state.model.state_dict()}, config=cfg._asdict())
+    params = serving_state_dict(trainer, state)
+    if is_writer():
+        save_checkpoint(os.path.join(outdir, f"net_{prefix}.ckpt"), {"params": params},
+                        config=cfg._asdict())
     if not tests:
         return state, {}, hist
 
@@ -372,12 +478,13 @@ def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
     log(f"Refined CoM mean error: {results['refined'].getMeanError():.3f}mm, "
         f"max error: {results['refined'].getMaxError():.3f}mm")
     log(f"Raw CoM mean error: {results['com'].getMeanError():.3f}mm")
-    np.save(os.path.join(outdir, f"result_{prefix}.npy"), refined)
     metrics = {k: {"mean_mm": v.getMeanError(), "max_mm": v.getMaxError()}
                for k, v in results.items()}
     metrics["refined"]["n_test_frames"] = int(gt1.shape[0])
-    with open(os.path.join(outdir, "results.json"), "w") as fh:
-        json.dump(metrics, fh, indent=1)
+    if is_writer():
+        np.save(os.path.join(outdir, f"result_{prefix}.npy"), refined)
+        with open(os.path.join(outdir, "results.json"), "w") as fh:
+            json.dump(metrics, fh, indent=1)
     return state, results, hist
 
 

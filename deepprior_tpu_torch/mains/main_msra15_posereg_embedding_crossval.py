@@ -7,6 +7,8 @@ subjects, test on the held-out one, for each of P0..P8 or the --holdout.
         --data <MSRA15 root> --holdout P8 --epochs 100 --out ./eval [--streamed]
 """
 
+import os
+
 import numpy as np
 
 from deepprior_tpu_torch.camera import MSRA15_CAMERA
@@ -46,9 +48,11 @@ def main(argv=None):
     p.add_argument("--holdout", default=None,
                    help="held-out subject (default: each of P0..P8 in turn)")
     args = p.parse_args(argv)
+    # under torchrun only rank 0 prints (the group starts inside the fold)
+    say = print if os.environ.get("RANK", "0") == "0" else (lambda *a, **k: None)
     folds, means = {}, []
     for held in [args.holdout] if args.holdout else SUBJECTS:
-        print(f"=== crossval fold: holding out {held} ===", flush=True)
+        say(f"=== crossval fold: holding out {held} ===", flush=True)
         train_subjects = [s for s in SUBJECTS if s != held]
 
         def importer_cls(basepath, _subj=train_subjects, **kw):
@@ -60,7 +64,7 @@ def main(argv=None):
             num_joints=21, eval_cls=MSRAHandposeEvaluation,
         )
         means.append(folds[held][1][held].getMeanError())
-    print(f"crossval mean over folds: {float(np.mean(means)):.3f}mm", flush=True)
+    say(f"crossval mean over folds: {float(np.mean(means)):.3f}mm", flush=True)
     return folds
 
 

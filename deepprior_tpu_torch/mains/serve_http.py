@@ -22,7 +22,10 @@ Run:  python -m deepprior_tpu_torch.mains.serve_http --port 8000 \\
 network_prior.ckpt of the training main, --ref-pickle a reference-trained
 network_prior.pkl (its PCA decode appended), random weights otherwise.
 --device is the torch device, cuda by default; without a card the server
-raises unless given --device cpu.
+raises unless given --device cpu.  --dp D serves each batch over D
+estimator replicas (parallel/serve.py::ShardedEstimator), one per card in
+turn: on a node of D cards one each, on one card D replicas that overlap;
+--max-batch must be a multiple of D.
 """
 
 import argparse
@@ -33,7 +36,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from deepprior_tpu_torch.mains.common import _TODO, default_device, load_serving_net
+from deepprior_tpu_torch.mains.common import default_device, load_serving_net
 
 
 def _device(args) -> torch.device:
@@ -47,8 +50,12 @@ def build_server(args):
     from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
     from deepprior_tpu_torch.realtime.fused import FusedEstimator
 
-    if getattr(args, "dp", 1) > 1:
-        raise NotImplementedError(_TODO["parallel"])
+    dp = getattr(args, "dp", 1)
+    if dp > 1 and args.max_batch % dp:
+        raise SystemExit(f"--max-batch {args.max_batch} must be a multiple of --dp {dp}")
+    if dp > 1 and (getattr(args, "artifact", None) or getattr(args, "export_artifact", None)):
+        raise SystemExit("--dp serves the estimator; an artifact is one program on "
+                         "one device")
     if getattr(args, "artifact", None):
         # frozen serving artifact (realtime/export.py): weights + geometry
         # baked into one program; no model class or camera table loads.
@@ -80,11 +87,26 @@ def build_server(args):
     return _wrap_server(args, est)
 
 
+def replica_devices(device: torch.device, dp: int):
+    """--dp's device list: the cards of the node in turn (dp replicas on one
+    card when it has one), or ``device`` dp times off CUDA."""
+    if device.type != "cuda":
+        return [device] * dp
+    n = torch.cuda.device_count()
+    first = device.index or 0
+    return [torch.device("cuda", (first + i) % n) for i in range(dp)]
+
+
 def _wrap_server(args, est):
-    """Micro-batcher around the estimator (the JAX server's --dp > 1
-    sharding is not ported: build_server raises for it)."""
+    """Micro-batcher around the estimator; --dp > 1 splits each batch over
+    that many replicas (ShardedEstimator)."""
     from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
 
+    dp = getattr(args, "dp", 1)
+    if dp > 1:
+        from deepprior_tpu_torch.parallel.serve import ShardedEstimator
+
+        est = ShardedEstimator(est, devices=replica_devices(est.device, dp))
     return MicroBatchServer(est, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
 
 
@@ -173,7 +195,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batch", type=int, default=64)
     p.add_argument("--max-wait-ms", type=float, default=2.0)
     p.add_argument("--dp", type=int, default=1,
-                   help="shard each batch over a dp-way device mesh (not ported yet)")
+                   help="split each batch over this many estimator replicas, one per "
+                        "card in turn (several on one card); a divisor of --max-batch")
     p.add_argument("--artifact", default=None,
                    help="serve from a frozen artifact (realtime/export.py: weights "
                         "+ geometry baked into one program; fixed config)")
@@ -196,9 +219,12 @@ def main(argv=None):
     if server is None:  # --export-artifact wrote the artifact and exits
         return
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
+    graph = getattr(server.est, "graph", server.graph)
+    replicas = ", ".join(str(d) for d in getattr(server.est, "devices", []))
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
           f"(max_batch {server.max_batch}, max_wait {args.max_wait_ms}ms, "
-          f"graph {server.graph})", flush=True)
+          f"graph {graph}" + (f", replicas {replicas}" if replicas else "") + ")",
+          flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

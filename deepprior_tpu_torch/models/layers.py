@@ -12,13 +12,19 @@ library's semantics (src/net/):
 - BatchNorm with flax's semantics (``BatchNorm``), for ResNet
 
 Parameters stay float32; ``dtype`` is the compute type (bf16 on the card).
+
+Scale-out (parallel/): a ``BatchNorm`` whose ``groups`` are set takes its
+training statistics over the global batch of those groups' ranks, and an
+``MLPHead`` whose ``split`` is set runs its Dense layers Megatron-style
+over a tensor-parallel group and draws each dropout mask for the global
+batch, keeping this rank's rows and columns.
 """
 
 from __future__ import annotations
 
 import inspect
 import math
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,7 +130,13 @@ class BatchNorm(nn.Module):
     unbiased one).  Eval mode normalizes by the buffers.  Either way one
     ``F.batch_norm`` normalizes: a bf16 input with the float32 weight, bias
     and statistics is normalized in float32 and only the result is rounded
-    to bf16, as flax casts after the bias."""
+    to bf16, as flax casts after the bias.
+
+    ``groups`` (set by parallel/train_dist.py, empty by default): process
+    groups whose ranks hold the rest of the batch.  Training mode then
+    normalizes by the statistics of the global batch, from one
+    differentiable all-reduce of (sum x, sum x^2) per layer, in flax's fast
+    variance, and every rank's running statistics stay equal."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -133,6 +145,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.dtype = dtype
+        self.groups: tuple = ()
 
     def reset_parameters(self):
         with torch.no_grad():
@@ -141,18 +154,44 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def _update_running(self, batch_mean, batch_var):
+        with torch.no_grad():
+            for buf, batch in ((self.running_mean, batch_mean),
+                               (self.running_var, batch_var)):
+                buf.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
+
+    def _forward_global(self, x, acc, weight, bias):
+        """Training mode over the global batch of ``groups``' ranks."""
+        import torch.distributed as dist
+
+        from deepprior_tpu_torch.parallel.collectives import all_reduce_sum
+
+        xf = x.to(acc)
+        c = xf.shape[1]
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                         torch.square(xf).sum(dim=(0, 2, 3))]), self.groups)
+        # every rank holds the same number of rows
+        ranks = math.prod(dist.get_world_size(g) for g in self.groups)
+        count = torch.full((), xf.numel() // c * ranks, dtype=acc, device=xf.device)
+        mean, mean_sq = (sums / count).split(c)
+        var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
+        self._update_running(mean.detach(), var.detach())
+        inv = torch.rsqrt(var + BN_EPS)
+        y = (xf - mean[:, None, None]) * (inv * weight)[:, None, None] + bias[:, None, None]
+        return y.to(self.dtype)
+
     def forward(self, x):
         acc = torch.promote_types(x.dtype, torch.float32)
         weight, bias = self.weight.to(acc), self.bias.to(acc)
+        if self.training and self.groups:
+            return self._forward_global(x, acc, weight, bias)
         if self.training:
             with torch.no_grad():
                 xf = x.detach().to(acc)
                 batch_mean = xf.mean(dim=(0, 2, 3))
                 batch_var = torch.addcmul(torch.square(xf).mean(dim=(0, 2, 3)),
                                           batch_mean, batch_mean, value=-1.0).clamp_(min=0.0)
-                for buf, batch in ((self.running_mean, batch_mean),
-                                   (self.running_var, batch_var)):
-                    buf.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
+                self._update_running(batch_mean, batch_var)
             mean = var = None
         else:
             mean, var = self.running_mean.to(acc), self.running_var.to(acc)
@@ -192,12 +231,40 @@ def conv2d(conv: nn.Conv2d, x, dtype: torch.dtype):
                     conv.stride, conv.padding)
 
 
+class HeadSplit(NamedTuple):
+    """How an ``MLPHead`` splits over ranks (parallel/train_dist.py and
+    parallel/serve.py set it).
+
+    styles:  per Dense layer, 'colwise' (its weight and bias hold this
+             rank's rows of the output features), 'rowwise' (its weight
+             holds this rank's columns of the input features, the bias is
+             whole) or None (whole), in ``param_shardings``' Megatron order
+    tp_group, tp_rank, tp_size: the tensor-parallel group
+    row0, rows: this rank's first row of the global batch and the global
+             batch's rows (None: the local batch is the global one), for
+             the dropout masks"""
+
+    styles: Tuple[Optional[str], ...] = ()
+    tp_group: Any = None
+    tp_rank: int = 0
+    tp_size: int = 1
+    row0: int = 0
+    rows: Optional[int] = None
+
+
 class MLPHead(nn.Module):
     """FC(hidden) - drop - FC(hidden) - drop - [FC(embedding)] - FC(out):
     the regression head of PoseRegNet (reference poseregnet.py:100-143).
 
     A 2-arg ``activation`` (e.g. ``prelu``) gives each hidden layer a
     trainable per-unit ``c{idx}`` initialised to 0.5 (hiddenlayer.py:40-169).
+
+    ``split`` (a ``HeadSplit``, None by default) runs the Dense layers over
+    a tensor-parallel group: a column-parallel layer takes the whole input
+    (its gradient summed over the group) and leaves this rank's features, a
+    row-parallel one sums its partial products over the group before its
+    bias; each dropout mask is drawn for the global batch and every feature,
+    as one device draws it, and this rank keeps its rows and columns.
     """
 
     def __init__(
@@ -225,6 +292,7 @@ class MLPHead(nn.Module):
             self.c1 = nn.Parameter(torch.full((hidden,), 0.5))
         self.dropout = dropout
         self.dtype = dtype
+        self.split: Optional[HeadSplit] = None
 
     def reset_parameters(self, generator=None):
         for i, lin in enumerate(self.dense):
@@ -237,11 +305,27 @@ class MLPHead(nn.Module):
             nn.init.constant_(self.c0, 0.5)
             nn.init.constant_(self.c1, 0.5)
 
+    def _style(self, i) -> Optional[str]:
+        split = self.split
+        return split.styles[i] if split is not None and i < len(split.styles) else None
+
     def _linear(self, i, x):
         lin = self.dense[i]
-        return F.linear(
-            x.to(self.dtype), lin.weight.to(self.dtype), lin.bias.to(self.dtype)
-        )
+        style = self._style(i)
+        if style is None:
+            return F.linear(
+                x.to(self.dtype), lin.weight.to(self.dtype), lin.bias.to(self.dtype)
+            )
+        from deepprior_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+
+        group = self.split.tp_group
+        if style == "colwise":
+            x = copy_to_group(x, group)
+            return F.linear(
+                x.to(self.dtype), lin.weight.to(self.dtype), lin.bias.to(self.dtype)
+            )
+        partial = F.linear(x.to(self.dtype), lin.weight.to(self.dtype))
+        return reduce_from_group(partial, group) + lin.bias.to(self.dtype)
 
     def _activate(self, x, idx: int):
         if self.activation is None:
@@ -250,15 +334,27 @@ class MLPHead(nn.Module):
             return self.activation(x, getattr(self, f"c{idx}"))
         return self.activation(x)
 
-    def _drop(self, x, generator):
+    def _drop(self, x, generator, after: int = 0):
         """Inverted dropout in training mode, as flax's nn.Dropout computes
         it: keep with probability 1 - rate (a Bernoulli mask drawn from
         ``generator``, or PyTorch's default generator when None), and
-        divide the kept units by 1 - rate."""
+        divide the kept units by 1 - rate.  Under a ``split`` the mask is
+        the global batch's (after Dense layer ``after``), cut to this
+        rank's rows and columns."""
         if not (self.dropout and self.training):
             return x
         keep_prob = 1.0 - DROPOUT_RATE
-        keep = torch.empty_like(x).bernoulli_(keep_prob, generator=generator)
+        split = self.split
+        if split is None:
+            keep = torch.empty_like(x).bernoulli_(keep_prob, generator=generator)
+        else:
+            b, f = x.shape
+            sharded = self._style(after) == "colwise"
+            full = torch.empty((split.rows or b, f * split.tp_size if sharded else f),
+                               dtype=x.dtype, device=x.device)
+            full.bernoulli_(keep_prob, generator=generator)
+            col0 = split.tp_rank * f if sharded else 0
+            keep = full[split.row0:split.row0 + b, col0:col0 + f]
         # the divisor is a tensor made on x's device: on CUDA, x /
         # python_float is a multiply by the reciprocal
         divisor = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
@@ -267,8 +363,8 @@ class MLPHead(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """x: (B, ...) features; generator draws the dropout masks."""
         x = x.reshape(x.shape[0], -1)
-        x = self._drop(self._activate(self._linear(0, x), 0), generator)
-        x = self._drop(self._activate(self._linear(1, x), 1), generator)
+        x = self._drop(self._activate(self._linear(0, x), 0), generator, 0)
+        x = self._drop(self._activate(self._linear(1, x), 1), generator, 1)
         for i in range(2, len(self.dense)):
             x = self._linear(i, x)
         return x

@@ -17,6 +17,11 @@ the per-request cube and mirror, and replays.  ``graph=False`` runs the
 pipeline eagerly instead.  An estimator that holds a frozen program is
 called as it is (on a card its loader replays a graph of its own).
 
+A ``parallel.serve.ShardedEstimator`` is called as it is, with every
+batch padded to ``max_batch``, which must be a multiple of its
+data-parallel size (the JAX server's --dp rule); it replays one CUDA graph
+per replica where its replicas capture.
+
 A lone request pays up to ``max_wait_ms`` extra latency; under load the
 batch fills before the deadline.
 """
@@ -64,9 +69,11 @@ class MicroBatchServer:
     ):
         """``est`` is a FusedEstimator, or an estimator that holds a frozen
         program (``realtime.export.ArtifactEstimator``, the JAX server's
-        ``variables=None`` mode): it is called ``est(depth, com)``, its
-        configuration is fixed, so per-request cube/mirror raise
-        ValueError, and ``max_batch`` must be its compiled batch.
+        ``variables=None`` mode) or spans several devices
+        (``parallel.serve.ShardedEstimator``): it is called ``est(depth,
+        com)``, its configuration is fixed, so per-request cube/mirror raise
+        ValueError, and ``max_batch`` must be its compiled batch, or a
+        multiple of its data-parallel size ``dp``.
 
         ``frame_shape`` pins the accepted (H, W); by default it is the
         estimator's camera resolution, so a stray request with another
@@ -79,8 +86,15 @@ class MicroBatchServer:
         batch."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if max_batch % getattr(est, "dp", 1):
+            raise ValueError(f"max_batch {max_batch} is not a multiple of the "
+                             f"estimator's data-parallel size {est.dp}")
         self.est = est
         self._fixed = not isinstance(est, FusedEstimator)
+        # an estimator over CUDA replicas (ShardedEstimator) takes each batch
+        # from pinned host memory, which its replicas copy from asynchronously
+        self._pin_fixed = self._fixed and any(
+            getattr(d, "type", None) == "cuda" for d in getattr(est, "devices", ()))
         self.graph = bool(graph) and not self._fixed and est.captures
         # the card the worker thread launches on, whichever thread captured
         self._cuda_index = None
@@ -255,6 +269,15 @@ class MicroBatchServer:
             )
         return self._staged[shape]
 
+    def _pinned(self, shape):
+        """Pinned host buffers for a (max_batch, *shape) batch and its CoMs,
+        made on first use."""
+        if shape not in self._staged:
+            b = self.max_batch
+            self._staged[shape] = (torch.empty((b, *shape), dtype=torch.float32).pin_memory(),
+                                   torch.empty((b, 3), dtype=torch.float32).pin_memory())
+        return self._staged[shape]
+
     def _run_batch(self, items):
         n = len(items)
         pad = self.max_batch - n
@@ -263,7 +286,15 @@ class MicroBatchServer:
         depths = [r.depth for r in items] + [items[-1].depth] * pad
         coms = [r.com for r in items] + [items[-1].com] * pad
         if self._fixed:
-            joints, _, _ = self.est(np.stack(depths), np.stack(coms))
+            if self._pin_fixed:
+                # the previous batch's copies have landed: its joints' copy
+                # to the host waited for them
+                depth_in, com_in = self._pinned(items[0].depth.shape)
+                np.stack(depths, out=depth_in.numpy())
+                np.stack(coms, out=com_in.numpy())
+            else:
+                depth_in, com_in = np.stack(depths), np.stack(coms)
+            joints, _, _ = self.est(depth_in, com_in)
             self._resolve(items, torch.as_tensor(joints).cpu().numpy())
             return
         custom = any(r.cube is not None or r.mirror for r in items)

@@ -19,7 +19,10 @@ counterpart of the JAX estimator's ahead-of-time compile, captures it into
 one CUDA graph over static device buffers and returns a callable that
 copies its inputs in and replays the graph: the host dispatches one
 replay instead of each operation.  ``MicroBatchServer`` replays the same
-capture (``_capture``) with per-request cube and mirror.
+capture (``_capture``) with per-request cube and mirror.  Every mode
+captures: the detection (``ops/com.py::detect_closest``) and the refinement
+(``refine_com_iterative``) are fixed counts of tensor operations with no
+read back to the host, and 'nd_bilinear' is the plain gather.
 """
 
 from __future__ import annotations
@@ -37,8 +40,6 @@ from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.train.trainer import float32_compute
 
 _CROP_METHODS = ("auto", "pallas", "hopper", "gather", "onehot")
-_CAPTURE_TODO = ("{} does not run under a CUDA graph yet (ROADMAP.md Queue 1 "
-                 "item 7): {}")
 
 
 class Captured(NamedTuple):
@@ -223,28 +224,14 @@ class FusedEstimator:
     @property
     def captures(self) -> bool:
         """Whether ``aot_compile`` and ``MicroBatchServer`` replay a CUDA
-        graph of this estimator: a CUDA device and a mode that captures."""
-        return self.device.type == "cuda" and self._capture_refused() is None
-
-    def _capture_refused(self) -> Optional[str]:
-        if self.detect:
-            return _CAPTURE_TODO.format(
-                "detect=True", "label_components reads each pass's count on the host")
-        if self.refine_iters:
-            return _CAPTURE_TODO.format(
-                "refine_iters", "the refinement runs ops/com.py's host-synced passes")
-        if self.resize == "nd_bilinear":
-            return _CAPTURE_TODO.format("resize='nd_bilinear'", "it has not been tried")
-        return None
+        graph of this estimator: on a CUDA device, in every mode."""
+        return self.device.type == "cuda"
 
     def _capture(self, batch: int, hw) -> Captured:
         """Capture ``_pipeline_cfg`` at (batch, *hw) into one CUDA graph
         (``capture_graph``).  The static buffers are allocated on the
         device under ``torch.inference_mode`` (write them under it too);
         the cube starts as the constructor's and mirror as False."""
-        why = self._capture_refused()
-        if why is not None:
-            raise NotImplementedError(why)
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA estimator, not {self.device}")
         dev = self.device
@@ -269,11 +256,7 @@ class FusedEstimator:
         ``replay_fn``): it returns clones that the caller owns, so a later
         call does not overwrite an earlier result, and calls from several
         threads take turns.  On a CPU estimator fn checks the shapes and
-        runs the pipeline.  ``detect``, ``refine_iters`` and
-        ``'nd_bilinear'`` raise NotImplementedError."""
-        why = self._capture_refused()
-        if why is not None:
-            raise NotImplementedError(why)
+        runs the pipeline.  Every mode compiles, as in the JAX package."""
         batch, hw = int(batch), tuple(int(v) for v in hw)
         if self.device.type == "cuda":
             return replay_fn(self._capture(batch, hw))

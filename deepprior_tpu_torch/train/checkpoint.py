@@ -25,6 +25,7 @@ import difflib
 import io
 import json
 import os
+import shutil
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -89,13 +90,20 @@ def _shape(leaf):
 
 def save_checkpoint(path: str, tree: Any, config: Any = None) -> None:
     """Write the tree and the config fingerprint.  Atomic: a temporary file
-    replaces ``path``.  A directory at ``path`` (the JAX package's sharded
-    snapshots) is refused: that format waits for the scale-out port."""
+    replaces ``path``.  A sharded checkpoint directory at ``path`` (a run
+    with --sharded-snapshots, train/checkpoint_sharded.py) is replaced, as
+    the rolling snapshot's contract is overwrite; so is an empty directory
+    (a sharded save interrupted before its first marker).  A directory that
+    holds anything else raises IsADirectoryError: an output directory
+    passed where a file belongs is never removed."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if os.path.isdir(path):
-        raise IsADirectoryError(
-            f"{path} is a directory; sharded checkpoints are not ported yet "
-            "(ROADMAP.md Queue 1 item 19)")
+        from deepprior_tpu_torch.train.checkpoint_sharded import MARKERS
+
+        if not set(os.listdir(path)) <= MARKERS:
+            raise IsADirectoryError(
+                f"refusing to overwrite non-checkpoint directory {path}")
+        shutil.rmtree(path)
     flat = {k: _to_payload(v) for k, v in _flatten(tree).items()}
     buf = io.BytesIO()
     torch.save(flat, buf)

@@ -31,8 +31,15 @@ same augmentation draws through ``_train_step_core``.
 
 Snapshots (``save_train_state``/``load_train_state``) hold the state dict,
 the optimizer's moments and counts, the step, the epoch and the
-early-stopping tracker, in the port's checkpoint format
-(train/checkpoint.py) with the TrainConfig fingerprint.
+early-stopping tracker, with the TrainConfig fingerprint: one file in the
+port's checkpoint format (train/checkpoint.py), or with
+``sharded_snapshots`` a directory that every rank writes its shards into
+(train/checkpoint_sharded.py, async); loads take either.
+
+parallel/train_dist.py::DistributedTrainer runs this loop on many ranks
+through the hooks ``_take``, ``_penalty``, ``_reduce_grads``,
+``_epoch_costs``, ``_eval_rows``, ``_forward_rows``, ``_stream_indices``,
+``_leaf_out`` and ``_leaf_in``; on one device each is the identity.
 """
 
 from __future__ import annotations
@@ -235,6 +242,10 @@ class Trainer:
         self._precision = (float32_compute if cfg_dtype == torch.float32
                            else contextlib.nullcontext)
         self.history: Dict[str, list] = {"train_cost": [], "val_error_mm": []}
+        # the rolling snapshot's format: one file (train/checkpoint.py) or,
+        # True, a sharded directory (train/checkpoint_sharded.py)
+        self.sharded_snapshots = False
+        self._sharded_ckptr = None
 
     # ------------------------------------------------------------------
     def init_state(self, example_crops=None, state_dict=None) -> TrainState:
@@ -298,11 +309,46 @@ class Trainer:
             out = model(crops[:, None], generator=drop_generator)
             loss = _loss_from_targets(out, y)
             if cfg.weightreg_factor > 0.0 and not cfg.model_has_dropout:
-                loss = loss + cfg.weightreg_factor * _l2_penalty(model)
+                loss = loss + cfg.weightreg_factor * self._penalty(model)
             loss.backward()
+            self._reduce_grads(model)
             opt.step()
         state.step += 1
         return state, loss.detach()
+
+    # the hooks of the distributed trainer; on one device, the identity
+    def _take(self, data, idx):
+        """The step's batch: the rows ``idx`` of the training data."""
+        return data.take(idx)
+
+    def _penalty(self, model):
+        return _l2_penalty(model)
+
+    def _reduce_grads(self, model):
+        """Between backward and the optimizer: the gradients as they are."""
+
+    def _epoch_costs(self, losses):
+        """The epoch's per-step losses, fetched to the host."""
+        return torch.stack(losses).cpu().numpy()
+
+    def _eval_rows(self, fn, batch):
+        """fn(batch) -> per-sample tensors, for the whole batch."""
+        return fn(batch)
+
+    def _forward_rows(self, model, x):
+        return model(x)
+
+    def _stream_indices(self, chunks):
+        """fit_streamed's (k, B) index chunks, as this process stages them."""
+        return chunks
+
+    def _leaf_out(self, name, t, sharded: bool):
+        """A snapshot's tensor of parameter ``name`` as it is written."""
+        return t
+
+    def _leaf_in(self, name, t):
+        """A restored tensor of parameter ``name`` as the live state holds it."""
+        return t
 
     # ------------------------------------------------------------------
     def evaluate(self, state: TrainState, data: TrainData) -> Dict[str, float]:
@@ -323,27 +369,32 @@ class Trainer:
         sum_c, sum_e, sum_d = zero, zero, zero
         max_d = torch.full((), -np.inf, dtype=torch.float32, device=self.device)
         model.eval()
+
+        def per_sample(batch):
+            """(cost, normalized error, joint distances) of each sample."""
+            gt3d, half = batch["gt3d_crop"], batch["cube"][:, 2] / 2.0
+            y = self._targets(gt3d / half[:, None, None])
+            out = model(batch["crops"][:, None])
+            if y.dim() == 2:
+                cost_ps = torch.sum(torch.square(out - y), dim=1)
+                err_ps = torch.sqrt(cost_ps)
+            else:
+                sq = torch.sum(torch.square(out.reshape(y.shape) - y), dim=2)
+                cost_ps = torch.mean(sq, dim=1)
+                err_ps = torch.mean(torch.sqrt(sq), dim=1)
+            if self.prior is not None:
+                d3 = self.prior.inverse_transform(out).reshape(gt3d.shape)
+            else:
+                d3 = out.reshape(gt3d.shape)
+            dist = torch.sqrt(torch.sum(
+                torch.square(d3 * half[:, None, None] - gt3d), dim=2))
+            return cost_ps, err_ps, dist
+
         with self._precision(), torch.no_grad():
             for s in range(n_steps):
                 sl = slice(s * b, (s + 1) * b)
-                batch = data.take(idx[sl])
                 mk = mask[sl]
-                gt3d, half = batch["gt3d_crop"], batch["cube"][:, 2] / 2.0
-                y = self._targets(gt3d / half[:, None, None])
-                out = model(batch["crops"][:, None])
-                if y.dim() == 2:
-                    cost_ps = torch.sum(torch.square(out - y), dim=1)
-                    err_ps = torch.sqrt(cost_ps)
-                else:
-                    sq = torch.sum(torch.square(out.reshape(y.shape) - y), dim=2)
-                    cost_ps = torch.mean(sq, dim=1)
-                    err_ps = torch.mean(torch.sqrt(sq), dim=1)
-                if self.prior is not None:
-                    d3 = self.prior.inverse_transform(out).reshape(gt3d.shape)
-                else:
-                    d3 = out.reshape(gt3d.shape)
-                dist = torch.sqrt(torch.sum(
-                    torch.square(d3 * half[:, None, None] - gt3d), dim=2))
+                cost_ps, err_ps, dist = self._eval_rows(per_sample, data.take(idx[sl]))
                 sum_c = sum_c + torch.sum(cost_ps * mk)
                 sum_e = sum_e + torch.sum(err_ps * mk)
                 sum_d = sum_d + torch.sum(dist * mk[:, None])
@@ -374,7 +425,7 @@ class Trainer:
                 pad = b - chunk.shape[0]
                 if pad:
                     chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1, -1)])
-                out = model(chunk[:, None])
+                out = self._forward_rows(model, chunk[:, None])
                 outs.append(out[: b - pad] if pad else out)
         return torch.cat(outs).cpu().numpy()
 
@@ -420,48 +471,106 @@ class Trainer:
             tree["count"] = opt.param_groups[0]["count"]
         return tree
 
+    def _train_tree(self, state: TrainState, epoch: int, best, sharded: bool):
+        """The snapshot's tree, each parameter-shaped tensor through
+        ``_leaf_out``."""
+        def out(sd):
+            return {k: self._leaf_out(k, v, sharded) for k, v in sd.items()}
+
+        opt = self._opt_tree(state)
+        opt["state"] = {name: {k: self._leaf_out(name, t, sharded) for k, t in slots.items()}
+                        for name, slots in opt["state"].items()}
+        tree = {
+            "params": out(state.model.state_dict()),
+            "opt_state": opt,
+            "step": int(state.step),
+            "epoch": int(epoch),
+        }
+        if best is not None and best[1] is not None:
+            tree["best"] = {"val": float(best[0]), "params": out(best[1]),
+                            "epoch": int(best[2])}
+        return tree
+
     def save_train_state(self, path, state: TrainState, epoch: int, best=None):
         """A resumable snapshot: the state dict (BatchNorm statistics
         included), the optimizer's moments and count, the step and the
         epoch, fingerprinted with the TrainConfig.  ``best`` is fit's
         early-stopping tracker (val error, state dict, epoch); kept in the
-        snapshot, a resumed run restores the pre-interruption best."""
-        tree = {
-            "params": state.model.state_dict(),
-            "opt_state": self._opt_tree(state),
-            "step": int(state.step),
-            "epoch": int(epoch),
-        }
-        if best is not None and best[1] is not None:
-            tree["best"] = {"val": float(best[0]), "params": best[1],
-                            "epoch": int(best[2])}
-        save_checkpoint(path, tree, config=self.cfg._asdict())
+        snapshot, a resumed run restores the pre-interruption best.  With
+        ``sharded_snapshots`` the snapshot is a sharded directory written
+        asynchronously (every rank its shards); ``fit`` drains it at its
+        end."""
+        config = self.cfg._asdict()
+        if self.sharded_snapshots:
+            tree = self._train_tree(state, epoch, best, sharded=True)
+            self._snapshot_ckptr().save(path, tree, config=config)
+            return
+        from deepprior_tpu_torch.parallel.multihost import barrier, is_writer
+
+        tree = self._train_tree(state, epoch, best, sharded=False)
+        if is_writer():
+            save_checkpoint(path, tree, config=config)
+        barrier()
+
+    def _snapshot_ckptr(self):
+        """The trainer's async sharded checkpointer, made on first use (saves
+        overlap the training and serialize with each other)."""
+        if self._sharded_ckptr is None:
+            from deepprior_tpu_torch.train.checkpoint_sharded import ShardedCheckpointer
+
+            self._sharded_ckptr = ShardedCheckpointer(async_save=True)
+        return self._sharded_ckptr
+
+    def _drain_snapshots(self):
+        """Block until an async sharded snapshot in flight is committed:
+        fit and fit_streamed call it at their end, so the rolling snapshot
+        is whole before the caller writes its results or exits."""
+        if self._sharded_ckptr is not None:
+            self._sharded_ckptr.wait_until_finished()
 
     def load_train_state(self, path, state: TrainState):
-        """Restore a snapshot into an initialized state, on the state's
-        device whichever device wrote it.  Returns (state, next epoch); the
-        snapshot's best tracker waits on the trainer for the next resumed
-        ``fit``/``fit_streamed`` (start_epoch > 0)."""
+        """Restore a snapshot, a file or a sharded directory, into an
+        initialized state, on the state's device whichever device wrote it.
+        Returns (state, next epoch); the snapshot's best tracker waits on
+        the trainer for the next resumed ``fit``/``fit_streamed``
+        (start_epoch > 0).  A sharded snapshot is read straight into the
+        live tensors; a config mismatch warns with the unified diff."""
+        from deepprior_tpu_torch.train.checkpoint_sharded import is_sharded_checkpoint
+
+        sharded = is_sharded_checkpoint(path)
         model = state.model
+        if sharded:
+            ck = self._snapshot_ckptr()
+            self._drain_snapshots()
+            has_best = "best" in ck.metadata_keys(path)
+        else:
+            has_best = "best" in checkpoint_keys(path)
+        # the target: the live tensors (read in place by a sharded restore)
+        # and, for the best tracker, copies
+        best = (0.0, self._best_copy(state), 0) if has_best else None
+        target = self._train_tree(state, 0, best, sharded)
+        if sharded:
+            tree, _ = ck.restore(path, target, config=self.cfg._asdict(),
+                                 allow_mismatch=True)
+        else:
+            tree, _ = load_checkpoint(path, target, config=self.cfg._asdict())
+
+        def into(sd):
+            return {k: self._leaf_in(k, v) for k, v in sd.items()}
+
         live = self._opt_tree(state)
-        target = {"params": model.state_dict(), "opt_state": live, "step": 0,
-                  "epoch": 0}
-        has_best = "best" in checkpoint_keys(path)
-        if has_best:
-            target["best"] = {"val": 0.0, "params": model.state_dict(), "epoch": 0}
-        tree, _ = load_checkpoint(path, target, config=self.cfg._asdict())
-        model.load_state_dict(tree["params"])
+        model.load_state_dict(into(tree["params"]))
         with torch.no_grad():
             for name, slots in live["state"].items():
                 for k, t in slots.items():
-                    t.copy_(tree["opt_state"]["state"][name][k])
+                    t.copy_(self._leaf_in(name, tree["opt_state"]["state"][name][k]))
             if "count" in live:
                 live["count"].copy_(tree["opt_state"]["count"])
         state.step = int(tree["step"])
         self._resumed_best = None
         if has_best:
             b = tree["best"]
-            self._resumed_best = (float(b["val"]), b["params"], int(b["epoch"]))
+            self._resumed_best = (float(b["val"]), into(b["params"]), int(b["epoch"]))
         return state, int(tree["epoch"]) + 1
 
     def _take_resumed_best(self):
@@ -495,7 +604,7 @@ class Trainer:
         observers (unless sub-epoch ones ran), the log line, the hook and
         the rolling snapshot.  Returns the best tracker."""
         cfg = self.cfg
-        costs = torch.stack(losses).cpu().numpy()
+        costs = self._epoch_costs(losses)
         self.history["train_cost"].extend(costs.tolist())
         if not np.isfinite(costs).all():
             bad = self.check_nans(state)
@@ -571,7 +680,7 @@ class Trainer:
             losses = []
             for s in range(steps):
                 state, loss = self._train_step_core(
-                    state, data.take(idxs[s]), aug_gen, drop_gen, lr)
+                    state, self._take(data, idxs[s]), aug_gen, drop_gen, lr)
                 losses.append(loss)
                 if seg and ((s + 1) % seg == 0 or s + 1 == steps):
                     # sub-epoch observers (nettrainer.py:859-889)
@@ -579,6 +688,7 @@ class Trainer:
             best = self._end_epoch(state, epoch, lr, losses, val, sub_obs, best,
                                    (time.time() - t0) / (epoch - start_epoch + 1),
                                    log, on_epoch_end, snapshot_path)
+        self._drain_snapshots()
         return self._restore_best(state, best, log), self.history
 
     def fit_streamed(
@@ -622,8 +732,9 @@ class Trainer:
         source = {k: torch.from_numpy(np.ascontiguousarray(arrays[k], np.float32))
                   for k in TrainData._fields}
         it = self.prefetcher = DevicePrefetcher(
-            index_chunks(n, cfg.batch_size, n_epochs, chunk_steps, seed=cfg.seed,
-                         start_epoch=start_epoch, segment_steps=seg),
+            self._stream_indices(index_chunks(
+                n, cfg.batch_size, n_epochs, chunk_steps, seed=cfg.seed,
+                start_epoch=start_epoch, segment_steps=seg)),
             source, depth=prefetch_depth, device=self.device)
         t0 = time.time()
         done = 0
@@ -654,4 +765,5 @@ class Trainer:
             # an abandoned iteration (an exception above) must not leave
             # the worker holding staged chunks
             it.close()
+        self._drain_snapshots()
         return self._restore_best(state, best, log), self.history

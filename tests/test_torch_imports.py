@@ -49,7 +49,10 @@ def test_port_imports_no_jax():
                 "models.resnet", "utils.refweights", "data.importers", "data.dataset",
                 "data.trees", "eval.datasets", "mains.main_icvl_posereg_embedding",
                 "mains.main_msra15_posereg_embedding_crossval", "mains.main_nyu_com_refine",
-                "mains.main_icvl_com_refine", "mains.main_msra15_com_refine"):
+                "mains.main_icvl_com_refine", "mains.main_msra15_com_refine",
+                "parallel", "parallel.mesh", "parallel.collectives", "parallel.multihost",
+                "parallel.train_dist", "parallel.serve", "train.checkpoint_sharded",
+                "mains.dryrun"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 

@@ -354,7 +354,8 @@ def test_artifact_kind_mismatch_and_jax_artifact_rejected(setup, tmp_path):
 def test_serve_http_checkpoint_and_artifact(setup, tmp_path):
     """serve_http on the CPU: --checkpoint serves the checkpoint's weights
     (the estimator's joints); --export-artifact writes an artifact that
-    --artifact serves with the same joints; --dp raises."""
+    --artifact serves with the same joints; --dp must divide --max-batch
+    and serves the estimator only."""
     _, depth, com, _ = setup
     model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
                        generator=torch.Generator().manual_seed(5))
@@ -389,8 +390,10 @@ def test_serve_http_checkpoint_and_artifact(setup, tmp_path):
     finally:
         srv.close()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_http.main(["--dp", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="multiple of --dp 3"):
+        serve_http.main(["--dp", "3", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="artifact"):
+        serve_http.main(["--dp", "2", "--device", "cpu", "--artifact", art])
     # the checkpoint names its family: a PoseRegNet's is refused as a ResNet
     with pytest.raises(ValueError, match="poseregnet"):
         serve_http.build_server(parser.parse_args(["--model", "resnet", "--checkpoint", ckpt,
@@ -466,7 +469,9 @@ def test_resnet_artifacts_match_eager(tmp_path):
 # ----------------------------------------------------------------------
 def test_aot_compile_on_cpu_matches_eager(setup):
     """On a CPU estimator aot_compile's callable checks the fixed shapes and
-    gives the eager call's outputs; the modes that do not capture raise."""
+    gives the eager call's outputs, in every mode: detection, refinement and
+    'nd_bilinear' compile too (the CUDA graph of each is held to the eager
+    pipeline in chip_smoke.py)."""
     est, depth, com, _ = setup
     fn = est.aot_compile(4, depth.shape[1:])
     got = fn(depth[:4], com[:4])
@@ -477,8 +482,9 @@ def test_aot_compile_on_cpu_matches_eager(setup):
     assert not est.captures
     for kw in (dict(detect=True), dict(refine_iters=2), dict(resize="nd_bilinear")):
         other = FusedEstimator(est.model, NYU_CAMERA, prior=est.prior, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            other.aot_compile(1, depth.shape[1:])
+        got = other.aot_compile(2, depth.shape[1:])(depth[:2], com[:2])
+        want = other(depth[:2], com[:2])
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), kw
 
 
 @pytest.mark.parametrize("linear", [False, True])

@@ -319,8 +319,16 @@ def test_main_trains_resnet_on_cpu(tmp_path):
         load_serving_net("poseregnet", checkpoint=ckpt, device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--accept"], ["--sharded-snapshots"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--accept"], ["--sp", "2"]])
 def test_main_unported_flags_raise(tmp_path, flag):
+    """--accept and --sp raise naming their ROADMAP items; --dp 2 without a
+    process group raises naming the launcher (--sharded-snapshots is ported:
+    tests/test_torch_checkpoint_sharded.py)."""
+    if flag[0] == "--dp":
+        with pytest.raises(RuntimeError, match="torchrun"):
+            main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path),
+                                             "--device", "cpu"] + flag)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path)] + flag)
 
