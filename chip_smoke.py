@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (deepprior_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--order-probe SECONDS]
 
 Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the
 nearest crop K1 and the cv2-linear crop K2; warp.cu: the augmentation
@@ -79,6 +79,17 @@ with --dp 2 against --dp 1 and serve_http --dp 2 as a subprocess, the dry
 run (python -m deepprior_tpu_torch.mains.dryrun) at world size 1, and two
 processes in one 'cpu:gloo,cuda:gloo' group on the one card training
 dp = 2 against one device (phase 41).
+Phases 42-45 (run after phase 34, before phase 35) drive the evaluation
+and capture surfaces: the randomized differential sweeps of
+deepprior_tpu_torch/prof/sweeps.py on the card (K1 and K2 on random crop
+scenes at 640x480 and 320x240, K5 through augment_batch(params=) at B =
+512 and 128, each == its plain version, the plain crops and K5 against the
+numpy twins, the detection layer against the host HandCropper), the
+native capture shim (cpp/capture.cpp, built with g++) -> the realtime
+pipeline -> K1 with every getter checked, demo_realtime --device capture
+--save-view (the canvas and its status light; a PNG only with
+matplotlib), and main_nyu_posereg_embedding --synthetic --accept at B =
+128 (the acceptance record, a non-zero exit on a miss).
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -190,6 +201,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--profile", action="store_true",
                     help="also profile the train step and its stages (phase 11)")
+    ap.add_argument("--order-probe", type=float, default=None, metavar="SECONDS",
+                    help="diagnose the phase order that hung once instead of the smoke "
+                         "run: after the build, phase 41 first and then phases 35-40 in "
+                         "this process; past SECONDS every thread's stack is dumped to "
+                         "stderr and the process exits")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -237,6 +253,10 @@ def main(argv=None):
                  if "registers" in ln or "spill" in ln]
         log(f"[2 build] {src} built and loaded ({build_s:.3f} s for all) "
             f"({'cached' if not ptxas else '; '.join(ptxas)})")
+
+    if args.order_probe is not None:
+        order_probe(dev, tag, args.order_probe)
+        return
 
     # ---------------------------------------------------------------- 3
     rng = np.random.default_rng(23455)
@@ -536,6 +556,7 @@ def main(argv=None):
     # before the probe scripts: after them torch.profiler saw no device events
     resnet_phases(dev, tag, log, kernels, figures)
     dataset_phases(dev, tag, log, kernels)
+    evaluation_phases(dev, tag, log, kernels, model, prior)
     scaleout_phases(dev, tag, log, kernels)
     sharded_serving_phases(dev, tag, log, kernels)
     gloo_card_phase(dev, tag, log, kernels)
@@ -545,6 +566,26 @@ def main(argv=None):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)
+
+
+def order_probe(dev, tag, seconds):
+    """Phase 41 (two gloo processes on the card) and then phases 35-40 in one
+    process, the order that once hung after phase 37, under
+    ``faulthandler.dump_traceback_later``: a hang prints every thread's
+    stack and exits non-zero."""
+    import faulthandler
+
+    kernels = [{"name": name, "max_abs_err": 0.0} for name in ("normalized_crop", "warp_norm")]
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    t = time.perf_counter()
+    try:
+        gloo_card_phase(dev, tag, log, kernels)
+        scaleout_phases(dev, tag, log, kernels)
+        sharded_serving_phases(dev, tag, log, kernels)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    log(f"[order probe] {tag} phase 41, then phases 35-40, in one process: no hang, "
+        f"{time.perf_counter() - t:.1f} s; launches {json.dumps(kernels)}")
 
 
 # device operations of one augment_batch call via K5, at most (phase 10
@@ -2560,6 +2601,295 @@ def dataset_phases(dev, tag, log, kernels, frames=256, nyu_frames=128, batch=128
         record[name]["launches_by_path"] = dict(record[name].get("launches_by_path", {}),
                                                 **by_path)
     shutil.rmtree(out, ignore_errors=True)
+
+
+def evaluation_phases(dev, tag, log, kernels, model, prior, nyu_scenes=512, icvl_scenes=256,
+                      detect_scenes=128, twin_scenes=128, aug_distinct=128, frames=60,
+                      demo_frames=30, accept_nmax=384, out="eval/chip_smoke_eval"):
+    """Phases 42-45, the evaluation and capture surfaces, run after phase 34:
+    (42) the port's differential sweeps (prof/sweeps.py) on the card:
+    random crop scenes at NYU 640x480 (``nyu_scenes`` in one B=512 batch)
+    and ICVL 320x240 (``icvl_scenes`` in B=128 batches), K1 and K2 on the
+    raw frames (fused clamp) against their plain versions bit for bit, and
+    the plain mm crops (nearest, 'linear', 'nd_bilinear') of the first
+    ``twin_scenes`` of each camera against the numpy oracle; K5 through
+    augment_batch(params=) at B=512 and 128 against its plain version bit
+    for bit and against the augmentation twin; calculate_com,
+    refine_com_iterative and detect over ``detect_scenes`` random detection
+    scenes a camera against the host HandCropper; (43) the capture shim
+    (cpp/capture.cpp, built with g++) in synthetic mode at 30 fps ->
+    RealtimeHandposePipeline with the full-width bf16 PoseRegNet ->
+    K1, ``frames`` frames: frames/s, K1 launches a frame, every frame's
+    joints against the plain crop's on the card, every getter once; (44)
+    demo_realtime --device capture --save-view: the canvas's shape and
+    the status bar's state light, the PNG where matplotlib is installed;
+    (45) main_nyu_posereg_embedding --synthetic --accept at B=128 (K5 once
+    a step): results.json's acceptance record, a missed threshold exits
+    non-zero, the curves and overlays where matplotlib is installed.
+    Adds these paths' launches to K1's, K2's and K5's records."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import torch
+
+    from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
+    from deepprior_tpu_torch.mains import demo_realtime, main_nyu_posereg_embedding
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops._build import host_library_path
+    from deepprior_tpu_torch.ops.augment import (NV_VAL, augment_batch, augment_geometry,
+                                                 sample_augment_params)
+    from deepprior_tpu_torch.ops.crop import clamp_depth, crop3d, normalized_crop
+    from deepprior_tpu_torch.prof import sweeps
+    from deepprior_tpu_torch.realtime.camera import CaptureDevice
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.realtime.pipeline import STATE_COLORS, RealtimeHandposePipeline
+
+    record = {k["name"]: k for k in kernels}
+    paths = {"normalized_crop": {}, "normalized_crop_linear": {}, "warp_norm": {}}
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def reset():
+        hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+        hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+
+    # --------------------------------------------------------------- 42
+    t42 = time.perf_counter()
+    rng = np.random.default_rng(42)
+    crop_stats = []
+    for cam, n, bsz in ((NYU_CAMERA, nyu_scenes, 512), (ICVL_CAMERA, icvl_scenes, 128)):
+        dpts, coms, cubes = sweeps.crop_scenes(rng, cam, n)
+        k_diff, twin_bad, k1 = 0, [], {"normalized_crop": 0, "normalized_crop_linear": 0}
+        for s in range(0, n, bsz):
+            raw, com, cube = put(dpts[s:s + bsz]), put(coms[s:s + bsz]), put(cubes[s:s + bsz])
+            clamped = clamp_depth(raw)[0]
+            reset()
+            got = [hopper_crop.hopper_normalized_crop(raw, com, cube, cam.fx, cam.fy,
+                                                      fuse_clamp=True, use_bilinear=lin)
+                   for lin in (False, True)]
+            torch.cuda.synchronize()
+            for key, v in hopper_crop.LAUNCHES.items():
+                k1[key] += v
+            for lin, (crops, m) in zip((False, True), got):
+                want, m_want = normalized_crop(clamped, com, cube, cam.fx, cam.fy,
+                                               use_bilinear=lin)
+                name = "normalized_crop_linear" if lin else "normalized_crop"
+                err = float((crops - want).abs().max())
+                record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+                k_diff += int(((crops != want).flatten(1).any(1)
+                               | (m != m_want).flatten(1).any(1)).sum())
+            n_twin = max(0, min(bsz, twin_scenes - s))
+            if n_twin:
+                mm = {mode: crop3d(clamped[:n_twin], com[:n_twin], cube[:n_twin], cam.fx,
+                                   cam.fy, resize=mode) for mode in
+                      ("nearest", "linear", "nd_bilinear")}
+                twin_bad += sweeps.check_crops(
+                    cam, clamped[:n_twin].cpu().numpy(), coms[s:s + n_twin],
+                    cubes[s:s + n_twin], {k: v[0].cpu().numpy() for k, v in mm.items()},
+                    mm["nearest"][1].cpu().numpy())
+        if k1 != {"normalized_crop": -(-n // bsz), "normalized_crop_linear": -(-n // bsz)}:
+            raise AssertionError(f"the crop sweep launched {k1}")
+        for key, v in k1.items():
+            paths[key][f"crop sweep {cam.width}x{cam.height} B={bsz} (42)"] = v
+        crop_stats.append(f"{cam.width}x{cam.height}: {n} scenes at B={bsz}, K1/K2 != plain "
+                          f"on {k_diff} samples, {min(n, twin_scenes)} against the oracle in "
+                          f"3 resize modes: {len(twin_bad)} disagreements")
+        if k_diff or twin_bad:
+            raise AssertionError(f"crop sweep {cam.width}x{cam.height}: {k_diff} kernel != "
+                                 f"plain; oracle: {twin_bad[:5]}")
+    aug_stats = []
+    for cam, modes, zero_one in ((NYU_CAMERA, ("com", "rot", "sc", "none"), False),
+                                 (ICVL_CAMERA, ("com", "rot", "none"), True)):
+        base = sweeps.augment_inputs(rng, cam, aug_distinct, zero_one)
+        for bsz in (512, 128):
+            inputs = tuple(np.concatenate([a] * -(-bsz // aug_distinct))[:bsz] for a in base)
+            tens = tuple(put(a) for a in inputs)
+            params = sample_augment_params(torch.Generator(dev).manual_seed(bsz), bsz,
+                                           len(modes))
+            reset()
+            got = augment_batch(None, *tens, cam, aug_modes=modes, norm_zero_one=zero_one,
+                                params=params)
+            torch.cuda.synchronize()
+            if hw.LAUNCHES != {"warp_patch": 0, "warp_norm": 1}:
+                raise AssertionError(f"augment_batch launched {hw.LAUNCHES}")
+            paths["warp_norm"][f"augment sweep {cam.width}x{cam.height} B={bsz} (42)"] = 1
+            geo = augment_geometry(params, tens[2], tens[3], tens[4], cam, modes, (128, 128),
+                                   zero_one)
+            want = hw.warp_norm_plain(tens[0], hw.warp_norm_params(geo.a_fwd, geo.norm), 0.0,
+                                      NV_VAL)
+            err = float((got[0] - want).abs().max())
+            record["warp_norm"]["max_abs_err"] = max(record["warp_norm"]["max_abs_err"], err)
+            if not (torch.equal(got[0], want) and torch.equal(got[4], geo.m_out)
+                    and torch.equal(got[2], geo.new_com) and torch.equal(got[3], geo.new_cube)):
+                raise AssertionError(f"K5 at B={bsz} {cam.width}x{cam.height} != plain ({err})")
+            bad = sweeps.check_augment(cam, inputs, [p.cpu().numpy() for p in params],
+                                       [t.cpu().numpy() for t in got], modes, zero_one,
+                                       f"B={bsz}")
+            if bad:
+                raise AssertionError(f"K5 against the augmentation twin: {bad[:5]}")
+            aug_stats.append(f"{cam.width}x{cam.height} B={bsz} {'/'.join(modes)}"
+                             f"{' [0,1]' if zero_one else ''}: K5 == plain, twin 0")
+    det_stats = []
+    for cam in (NYU_CAMERA, ICVL_CAMERA):
+        raws, seeds, cubes = sweeps.detect_scenes(rng, cam, detect_scenes)
+        got = sweeps.run_detection(raws, seeds, cubes, cam, dev)
+        bad = sweeps.check_detection(cam, raws, seeds, cubes, got)
+        det_stats.append(f"{cam.width}x{cam.height}: {detect_scenes} scenes, "
+                         f"{len(bad)} disagreements")
+        if bad:
+            raise AssertionError(f"detection sweep {cam.width}x{cam.height}: {bad[:5]}")
+    s42 = time.perf_counter() - t42
+    log(f"[42 sweeps] {tag} crops: {'; '.join(crop_stats)}; K5: {'; '.join(aug_stats)}; "
+        f"detection (calculate_com, refine 2/5, detect 20/200 and 10/50) against "
+        f"HandCropper: {'; '.join(det_stats)}; {s42:.1f} s")
+
+    # --------------------------------------------------------------- 43
+    t43 = time.perf_counter()
+    t = time.perf_counter()
+    lib = host_library_path("capture.cpp")
+    build_s = time.perf_counter() - t
+    device = CaptureDevice(lib, mode="synthetic", fps=30.0)
+    device.start()
+    try:
+        cam = device.getDepthIntrinsics()
+        shapes = {}
+        for name, fn in (("getDepth", device.getDepth), ("getRGB", device.getRGB),
+                         ("getVertices", device.getVertices),
+                         ("getVertices(fp=True)", lambda: device.getVertices(fp=True)),
+                         ("getUVMap", device.getUVMap), ("getSyncMap", device.getSyncMap)):
+            ok, arr = fn()
+            if not ok:
+                raise AssertionError(f"capture {name} returned no frame")
+            shapes[name] = (tuple(arr.shape), str(arr.dtype))
+        shapes["getAcceleration"] = tuple(device.getAcceleration().shape)
+        shapes["getExtrinsics"] = tuple(device.getExtrinsics().shape)
+        color = device.getColorIntrinsics()
+        counts = (device.getLastDepthNum(), device.getLastColorNum())
+    finally:
+        device.stop()
+    want_shapes = {"getDepth": ((240, 320), "float32"), "getRGB": ((480, 640, 3), "uint8"),
+                   "getVertices": ((240, 320, 3), "int16"),
+                   "getVertices(fp=True)": ((240, 320, 3), "float32"),
+                   "getUVMap": ((240, 320, 2), "float32"),
+                   "getSyncMap": ((240, 320, 3), "uint8"), "getAcceleration": (3,),
+                   "getExtrinsics": (3, 4)}
+    if shapes != want_shapes or (color.width, color.height) != (640, 480) or min(counts) < 1:
+        raise AssertionError(f"capture getters: {shapes}, colour {color}, counts {counts}")
+    est = FusedEstimator(model, cam, prior=prior, crop_method="auto", device=dev)
+    plain = FusedEstimator(model, cam, prior=prior, crop_method="gather", device=dev)
+    pipe = RealtimeHandposePipeline(est, {"fx": cam.fx, "fy": cam.fy,
+                                          "cube": (250.0, 250.0, 250.0)})
+    pipe.process_video(CaptureDevice(lib, mode="synthetic", fps=30.0), max_frames=3)  # warm
+    reset()
+    t = time.perf_counter()
+    results = pipe.process_video(CaptureDevice(lib, mode="synthetic", fps=30.0),
+                                 max_frames=frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k1_capture = hopper_crop.LAUNCHES["normalized_crop"]
+    if not results or k1_capture != len(results):
+        raise AssertionError(f"{len(results)} captured frames posed, K1 {k1_capture}x")
+    paths["normalized_crop"][f"capture pipeline, {len(results)} frames (43)"] = k1_capture
+    jerr = 0.0
+    for r in results:
+        pj, _, _ = plain(r["frame"][None], np.asarray(r["com"], np.float32)[None],
+                         cube=np.asarray(r["cube"], np.float32), mirror=np.asarray([False]))
+        jerr = max(jerr, float(np.abs(pj[0].cpu().numpy() - r["joints3d"]).max()))
+    if jerr > 1e-3:
+        raise AssertionError(f"captured frames' joints differ from the plain crop's by {jerr} mm")
+    s43 = time.perf_counter() - t43
+    log(f"[43 capture] {tag} capture.cpp built with g++ in {build_s:.3f} s; CaptureDevice "
+        f"synthetic 30 fps (fx {cam.fx:.2f}, {cam.width}x{cam.height}) -> pipeline "
+        f"(detect on the card) -> K1 -> PoseRegNet hidden 1024 bf16: {len(results)} of "
+        f"{frames} frames posed in {wall:.3f} s = {len(results) / wall:.2f} frames/s, K1 "
+        f"{k1_capture / len(results):.2f} launches a frame, joints against the plain crop's "
+        f"max |d| {jerr:.3e} mm; getters {shapes}, colour {color.width}x{color.height}, "
+        f"frame counters {counts}; {s43:.1f} s")
+
+    # --------------------------------------------------------------- 44
+    t44 = time.perf_counter()
+    png = os.path.abspath(f"{out}/view.png")
+    lines = []
+    reset()
+    pipe, results = demo_realtime.main(["--device", "capture", "--frames", str(demo_frames),
+                                        "--save-view", png], log=lines.append)
+    k1_demo = hopper_crop.LAUNCHES["normalized_crop"]
+    if not results or k1_demo != len(results):
+        raise AssertionError(f"the demo posed {len(results)} frames, K1 {k1_demo}x")
+    paths["normalized_crop"][f"demo --device capture, {len(results)} frames (44)"] = k1_demo
+    canvas = demo_realtime.view_canvas(pipe, results[-1])
+    light = tuple(int(c) for c in canvas[9, 7])
+    if canvas.shape != (240 + 20, 2 * 320, 3) or light != STATE_COLORS[pipe.state]:
+        raise AssertionError(f"canvas {canvas.shape}, state light {light} in state {pipe.state}")
+    wrote = os.path.isfile(png)
+    if wrote != have_mpl or (not have_mpl and "no PNG written" not in lines[-1]):
+        raise AssertionError(f"matplotlib {have_mpl}, PNG written {wrote}: {lines}")
+    log(f"[44 drawing] {tag} demo_realtime --device capture --frames {demo_frames} "
+        f"--save-view: {lines[0]}; K1 {k1_demo}x; canvas {canvas.shape}, state light {light} "
+        f"(state {pipe.state}); {lines[-1]}; {time.perf_counter() - t44:.1f} s")
+
+    # --------------------------------------------------------------- 45
+    t45 = time.perf_counter()
+    steps = accept_nmax // 128
+
+    def accept(sub, *extra):
+        buf = io.StringIO()
+        argv = ["--synthetic", "--accept", "--epochs", "1", "--batch-size", "128", "--nmax",
+                str(accept_nmax), "--out", f"{out}/{sub}", *extra]
+        exit_msg = None
+        with contextlib.redirect_stdout(buf):
+            try:
+                main_nyu_posereg_embedding.main(argv)
+            except SystemExit as exc:
+                exit_msg = str(exc)
+        rec = json.load(open(f"{out}/{sub}/train_EMB_PCA30/results.json"))["acceptance"]
+        return rec, exit_msg, buf.getvalue().splitlines()
+
+    reset()
+    rec, exit_msg, lines = accept("pass", "--accept-mm", "1000")
+    k5 = hw.LAUNCHES["warp_norm"]
+    if k5 != steps or exit_msg is not None or not rec["pass"]:
+        raise AssertionError(f"--accept: K5 {k5}x for {steps} steps, exit {exit_msg}, {rec}")
+    paths["warp_norm"][f"--accept main, {steps} steps (45)"] = k5
+    keys = {"mean_mm", "max_mm", "threshold_mm", "n_test_frames", "synthetic", "pass"}
+    if not keys <= set(rec) or not rec["synthetic"]:
+        raise AssertionError(f"acceptance record {rec}")
+    files = os.listdir(f"{out}/pass/train_EMB_PCA30")
+    plots = sorted(f for f in files if f.endswith((".png", ".pdf")))
+    missed = [ln for ln in lines if ln.startswith("plot not written")]
+    if have_mpl:
+        need = {"train_EMB_PCA30_cost.png", "train_EMB_PCA30_errs.png", "train_EMB_PCA30_0.png",
+                "train_EMB_PCA30_accept_frameswithin.pdf"}
+        if not need <= set(plots) or missed:
+            raise AssertionError(f"plots {plots}, not written {missed}")
+    elif plots or not missed or not all("matplotlib" in ln for ln in missed):
+        raise AssertionError(f"without matplotlib: plots {plots}, lines {missed}")
+    verdict = next(ln for ln in lines if ln.startswith("acceptance ["))
+    rec_fail, exit_fail, _ = accept("fail", "--nmax", "128", "--accept-mm", "0.0001")
+    if not exit_fail or "acceptance FAILED" not in exit_fail or rec_fail["pass"]:
+        raise AssertionError(f"a missed threshold: exit {exit_fail}, {rec_fail}")
+    log(f"[45 acceptance] {tag} main_nyu_posereg_embedding --synthetic --accept, B=128, "
+        f"{steps} steps: K5 {k5}x; {verdict}; record {rec}; plots written {len(plots)}, "
+        f"lines for plots not written {len(missed)}"
+        f"{' (' + missed[0] + ', ...)' if missed else ''}; --accept-mm 0.0001 exits non-zero "
+        f"({exit_fail}); {time.perf_counter() - t45:.1f} s")
+
+    for name, by_path in paths.items():
+        record[name]["launches_by_path"] = dict(record[name].get("launches_by_path", {}),
+                                                **by_path)
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"[42-45] {tag} {time.perf_counter() - t42:.1f} s in all")
 
 
 def http_server(argv, ready="serving on http://", timeout=240):

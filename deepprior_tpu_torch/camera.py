@@ -58,6 +58,52 @@ class Camera(NamedTuple):
         v = torch.where(at_zero, self.uy, v)
         return torch.stack([u, v, z], dim=-1)
 
+    def to_3d(self, uvd):  # alias
+        return self.img_to_3d(uvd)
+
+    def to_img(self, xyz):  # alias
+        return self.three_d_to_img(xyz)
+
+    def intrinsics(self) -> torch.Tensor:
+        """3x3 intrinsic matrix K (reference importers.py:136-146); -fy
+        when flip_y, so that K is consistent with the projection."""
+        sy = -self.fy if self.flip_y else self.fy
+        return torch.tensor(
+            [[self.fx, 0.0, self.ux], [0.0, sy, self.uy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32,
+        )
+
+    def projection(self) -> torch.Tensor:
+        """4x4 homogeneous projection matrix (reference importers.py:121-134)."""
+        sy = -self.fy if self.flip_y else self.fy
+        return torch.tensor(
+            [
+                [self.fx, 0.0, self.ux, 0.0],
+                [0.0, sy, self.uy, 0.0],
+                [0.0, 0.0, 1.0, 0.0],
+                [0.0, 0.0, 1.0, 0.0],
+            ],
+            dtype=torch.float32,
+        )
+
+    def depth_to_pcl(self, dpt, crop_transform=None, background_val=0.0):
+        """A depth map (H, W) as an (N, 3) metric point cloud, on the host.
+
+        With ``crop_transform`` (a crop's 3x3 M, ops/crop.py) the map is a
+        normalized crop and pixel centres go back to the full frame through
+        M^-1 first (reference importers.py:156-173)."""
+        dpt = np.asarray(dpt)
+        vs, us = np.where(~np.isclose(dpt, background_val))
+        d = dpt[vs, us].astype(np.float32)
+        pts = np.stack([us + 0.5, vs + 0.5, np.ones_like(d)], axis=1)
+        if crop_transform is not None:
+            m_inv = np.linalg.inv(np.asarray(crop_transform))
+            pts = pts @ m_inv.T
+            pts = pts[:, :2] / pts[:, 2:3]
+        else:
+            pts = pts[:, :2]
+        return self.img_to_3d_np(np.column_stack([pts, d]))
+
     # numpy twins for host-side code (the synthetic generator)
     def img_to_3d_np(self, uvd):
         uvd = np.asarray(uvd, np.float32)
@@ -93,3 +139,5 @@ MSRA15_CAMERA = Camera(
 NYU_CAMERA = Camera(
     fx=588.03, fy=587.07, ux=320.0, uy=240.0, flip_y=True, width=640, height=480
 )
+
+CAMERAS = {"icvl": ICVL_CAMERA, "msra15": MSRA15_CAMERA, "nyu": NYU_CAMERA}

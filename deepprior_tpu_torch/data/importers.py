@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import os
 import struct
+import tempfile
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -121,6 +122,11 @@ class DepthImporter:
     def joints3DToImg(self, xyz):
         return self.joint3DToImg(xyz)
 
+    def depthToPCL(self, dpt, T, background_val=0.0):
+        """(N, 3) metric points of a depth map; ``T`` maps the full frame to
+        ``dpt`` when it is a crop (``Camera.depth_to_pcl``)."""
+        return self.camera.depth_to_pcl(dpt, T, background_val)
+
     def getDepthMapNV(self):
         return 32001
 
@@ -167,9 +173,11 @@ class DepthImporter:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         # a temporary file replaces the cache in one os.replace: the ranks
         # of a distributed run load and cache the same sequence at once,
-        # and none may read another's half-written file
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as fh:
+        # and none may read another's half-written file.  The name is unique
+        # per writer, thread or process (spawn_cpu runs a rank a thread).
+        fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
+                                   suffix=".tmp", dir=os.path.dirname(os.path.abspath(path)))
+        with os.fdopen(fd, "wb") as fh:
             np.savez_compressed(
                 fh,
                 dpt=np.stack([f.dpt for f in frames]),

@@ -1,8 +1,7 @@
 """Per-dataset evaluation classes: joint names, skeleton edges, fps
 (counterpart of deepprior_tpu/eval/datasets.py; reference
-src/util/handpose_evaluation.py:684-913).  The numbers are
-``HandposeEvaluation``'s; drawing is not ported yet (ROADMAP.md Queue 1
-item 21)."""
+src/util/handpose_evaluation.py:684-913).  The numbers and the plots are
+``HandposeEvaluation``'s."""
 
 from __future__ import annotations
 

@@ -3,25 +3,24 @@
 A numpy copy of the numbers of deepprior_tpu/eval/metrics.py (reference
 src/util/handpose_evaluation.py:92-228): mean/max/median errors, per-joint
 variants, per-frame sequences and frames-within-distance counts, with the
-same NaN contract.  The plots are not ported yet (ROADMAP.md Queue 1
-item 1, ``eval/plots.py``).
+same NaN contract; the plots are eval/plots.py's (matplotlib, imported
+when a figure is drawn).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
-
-_PLOTS_TODO = (
-    "evaluation plots are not ported yet (ROADMAP.md Queue 1 item 1, "
-    "eval/plots.py)"
-)
 
 
 class HandposeEvaluation:
     """Metric container over ground truth and predictions in mm."""
 
+    # per-dataset subclasses (eval/datasets.py) fill these in
+    joint_names: Sequence[str] = ()
+    joint_connections: Sequence = ()
+    camera = None
     plot_max_dist = 80.0  # mm, threshold-curve x-range
 
     def __init__(self, gt: np.ndarray, joints: np.ndarray, dolegend=True):
@@ -154,4 +153,32 @@ class HandposeEvaluation:
 
     # ------------------------------------------------------------------
     def plotEvaluation(self, name: str, methodName="Ours", baseline=None):
-        raise NotImplementedError(_PLOTS_TODO)
+        """The threshold curve and per-joint mean/max bars as PDFs under
+        ``subfolder`` (handpose_evaluation.py:230-346); ``baseline`` is a
+        list of (label, HandposeEvaluation).  Returns the files."""
+        from deepprior_tpu_torch.eval.plots import plot_evaluation
+
+        return plot_evaluation(self, name, methodName, baseline or [])
+
+    def plotResult(self, dpt, gtcrop, joint_2d, name=None, showGT=True):
+        """The 2D skeleton overlay on a depth patch
+        (handpose_evaluation.py:348-433)."""
+        from deepprior_tpu_torch.eval.plots import plot_result
+
+        return plot_result(self, dpt, gtcrop, joint_2d, name, showGT)
+
+    def plotJoints(self, ax, joint, color="nice", jcolor=None, annoscale=1):
+        """This dataset's skeleton and joint markers on a matplotlib axis or
+        an (H, W, 3) uint8 image (handpose_evaluation.py:435-487)."""
+        from deepprior_tpu_torch.eval.plots import plot_joints
+
+        return plot_joints(self, ax, joint, color, jcolor, annoscale)
+
+    def getPCL(self, dpt, T) -> np.ndarray:
+        """(N, 3) metric point cloud of a cropped frame: pixel coordinates
+        map back through the crop transform T, then the dataset's camera
+        back-projects (handpose_evaluation.py:730, 843, 906)."""
+        if self.camera is None:
+            raise NotImplementedError(
+                "use a per-dataset evaluation class (eval/datasets.py)")
+        return self.camera.depth_to_pcl(dpt, crop_transform=T)

@@ -1,10 +1,12 @@
-"""2D point transforms on tensors, batched over leading axes.
+"""2D and 3D point transforms on tensors, batched over leading axes.
 
-Counterpart of the 2D part of deepprior_tpu/geometry.py (reference
-src/data/transformations.py:34-102), plus the numpy twins that host-side
+Counterpart of deepprior_tpu/geometry.py (reference
+src/data/transformations.py:34-167), plus the numpy twins that host-side
 code (the synthetic frames, the pose prior's fit) uses.  Same op order as
 the JAX functions; divisors that are not powers of two are tensors (see
-ops/crop.py's module note).
+ops/crop.py's module note); the small matrix products are elementwise
+products summed in a fixed order (``matmul3x3``), where the JAX package
+asks XLA for full float32 precision.
 """
 
 from __future__ import annotations
@@ -102,6 +104,73 @@ def rotate_points_2d(pts, center, angle_deg) -> torch.Tensor:
     if pts.shape[-1] > 2:
         return torch.cat([out, pts[..., 2:]], dim=-1)
     return out
+
+
+def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., n, k) @ (..., k) summed left to right, broadcast over the
+    leading axes."""
+    out = m[..., 0] * v[..., None, 0]
+    for j in range(1, v.shape[-1]):
+        out = out + m[..., j] * v[..., None, j]
+    return out
+
+
+def euler_rotation_matrix(angle_x_deg, angle_y_deg, angle_z_deg) -> torch.Tensor:
+    """(..., 3, 3) rotation from 'rxyz' Euler angles in degrees:
+    R = Rx(ax) Ry(ay) Rz(az), transforms3d's euler2mat(ax, ay, az, 'rxyz')
+    that the reference uses (transformations.py:105-120)."""
+    ax, ay, az = torch.broadcast_tensors(
+        _deg2rad(angle_x_deg), _deg2rad(angle_y_deg), _deg2rad(angle_z_deg))
+    cx, sx = torch.cos(ax), torch.sin(ax)
+    cy, sy = torch.cos(ay), torch.sin(ay)
+    cz, sz = torch.cos(az), torch.sin(az)
+    one, zero = torch.ones_like(cx), torch.zeros_like(cx)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    rx = mat([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    ry = mat([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    rz = mat([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    return matmul3x3(rx, matmul3x3(ry, rz))
+
+
+def rotate_points_3d(pts, center, angle_x_deg, angle_y_deg, angle_z_deg) -> torch.Tensor:
+    """Rotate (..., 3) points about a 3D center by 'rxyz' Euler angles in
+    degrees (reference transformations.py:123-155)."""
+    pts = torch.as_tensor(pts, dtype=torch.float32)
+    center = torch.as_tensor(center, dtype=torch.float32, device=pts.device)
+    r = euler_rotation_matrix(angle_x_deg, angle_y_deg, angle_z_deg).to(pts.device)
+    return _matvec(r, pts - center) + center
+
+
+def transform_points_3d(pts, m) -> torch.Tensor:
+    """Apply a 4x4 homogeneous transform to (..., 3) points (reference
+    transformations.py:158-166)."""
+    pts = torch.as_tensor(pts)
+    m = torch.as_tensor(m, dtype=pts.dtype, device=pts.device)
+    xyz1 = torch.cat([pts, torch.ones(pts.shape[:-1] + (1,), dtype=pts.dtype,
+                                      device=pts.device)], dim=-1)
+    out = _matvec(m, xyz1)
+    return out[..., :3] / out[..., 3:4]
+
+
+def affine_2d(center=(0.0, 0.0), rot_rad=0.0, trans=(0.0, 0.0), scale=1.0) -> torch.Tensor:
+    """The 2x3 affine of the reference's tracking overlay
+    (transformations.py:34-44) as a flat 6-vector [a, b, tx, c, d, ty]."""
+    rot = torch.as_tensor(rot_rad, dtype=torch.float32)
+    ca, sa = torch.cos(rot), torch.sin(rot)
+    sc = torch.as_tensor(scale, dtype=torch.float32)
+    cx, cy = center
+    tx, ty = trans
+    return torch.stack([
+        ca * sc,
+        -sa * sc,
+        sc * (ca * (-tx - cx) + sa * (cy + ty)) + cx,
+        sa * sc,
+        ca * sc,
+        sc * (ca * (-ty - cy) + sa * (-tx - cx)) + cy,
+    ])
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,16 @@ memory (``Trainer.fit_streamed``), write a rolling snapshot
 prior: random weights, the trained ones from a network_prior.ckpt, or a
 reference-trained pickle.
 
+Every run writes the reference's plots beside results.json: the training
+curves, each test sequence's threshold curve and per-joint bars, and the
+skeleton overlays of every 20th frame of the first test sequence.
+--accept adds the acceptance gate (``_acceptance``): the combined test
+set against the dataset's shipped baseline predictions and a mean-error
+threshold, recorded in results.json, with a non-zero exit on a miss.
+Plots are files and no part of the device path: where matplotlib is
+missing, the main logs one line for each plot file it could not write and
+goes on.
+
 Under torchrun (``torchrun --nproc-per-node N -m <main> --dp D --tp T``)
 every rank runs the main: ``make_trainer`` builds a ``DistributedTrainer``
 over the ('dp', 'tp') mesh, each rank trains its rows of every batch on its
@@ -32,11 +42,11 @@ import time
 import numpy as np
 import torch
 
-# the ROADMAP entries of the flags the port does not have yet
-_TODO = {
-    "accept": "--accept needs the baseline loaders' plumbing and the plots "
-              "(ROADMAP.md Queue 1 item 20)",
-}
+# the shipped baseline predictions --accept compares with (the JAX mains'
+# specs): Tompson et al.'s on NYU, Tang et al.'s LRF on ICVL; MSRA15 ships none
+NYU_BASELINE = {"label": "Tompson et al.",
+                "relpath": os.path.join("test", "test_predictions.mat"), "kind": "mat"}
+ICVL_BASELINE = {"label": "Tang et al.", "relpath": "LRF_Results_seq_1.txt", "kind": "txt"}
 
 # poses the PCA prior samples from imported and from synthetic frames, the
 # JAX mains' recipe constants
@@ -128,8 +138,18 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="write the rolling snapshot as a sharded directory "
                         "(torch.distributed.checkpoint, async, every rank its "
                         "shards); --resume reads either format")
-    # not ported yet: parsed so that asking for it fails loudly
-    p.add_argument("--accept", action="store_true")
+    p.add_argument("--accept", action="store_true",
+                   help="acceptance mode: evaluate the combined test set against "
+                        "the shipped baseline predictions, write the paper's "
+                        "curves, and exit non-zero unless the mean error beats "
+                        "the threshold")
+    p.add_argument("--accept-mm", type=float, default=None,
+                   help="acceptance threshold in mm (default: the dataset's "
+                        "BASELINE.md rebuild target)")
+    p.add_argument("--baseline-file", default=None,
+                   help="baseline predictions file (default: the dataset's "
+                        "shipped file under --data, e.g. NYU "
+                        "test/test_predictions.mat or ICVL LRF_Results_seq_1.txt)")
     return p
 
 
@@ -139,8 +159,6 @@ def check_ported(args) -> None:
         from deepprior_tpu_torch.parallel.mesh import SP_TODO
 
         raise NotImplementedError(SP_TODO)
-    if args.accept:
-        raise NotImplementedError(_TODO["accept"])
 
 
 def main_device(args) -> torch.device:
@@ -284,13 +302,157 @@ def _train(args, trainer, state, data, val, outdir, log):
     return state, hist
 
 
+# ---------------------------------------------------------------------------
+# the epilogue: plots, baselines, the acceptance gate
+# ---------------------------------------------------------------------------
+def _plots(log, paths, draw):
+    """``draw()``, which writes the plot files ``paths``; where matplotlib
+    is missing, one line for each file it could not write instead."""
+    try:
+        return draw()
+    except ImportError as exc:
+        if "matplotlib" not in str(exc):
+            raise
+        for path in paths:
+            log(f"plot not written ({exc}): {path}")
+        return []
+
+
+def _evaluation_files(outdir, name):
+    return [os.path.join(outdir, f"{name}_{kind}.pdf")
+            for kind in ("frameswithin", "meanerror", "maxerror")]
+
+
+def _load_baseline_predictions(args, importer_cls, baseline_spec, gt_full):
+    """The shipped baseline predictions (reference main_nyu_posereg_embedding.py:
+    192, main_icvl:184): --baseline-file, else the spec's ``relpath`` under
+    --data; a Tompson .mat through ``loadBaseline`` with the ground truth's
+    depths, an LRF .txt as it is.  Returns (predictions cut to gt_full's
+    frames, path), or (None, None) without a spec or a file.  The importer
+    only parses the file here, on the host."""
+    bl_path = args.baseline_file
+    if bl_path is None and args.data and baseline_spec:
+        cand = os.path.join(args.data, baseline_spec["relpath"])
+        bl_path = cand if os.path.isfile(cand) else None
+    if not (bl_path and baseline_spec):
+        return None, None
+    imp = importer_cls(args.data or os.path.dirname(bl_path) or ".", device="cpu")
+    if baseline_spec["kind"] == "mat":
+        preds = imp.loadBaseline(bl_path, gt=gt_full)
+    else:
+        preds = imp.loadBaseline(bl_path)
+    return np.asarray(preds[: gt_full.shape[0]], np.float32), bl_path
+
+
+def _plot_training_curves(hist, outdir, prefix, log=print):
+    """The semilogy cost and validation-error curves, written after every
+    run (main_nyu_posereg_embedding.py:133-142, main_nyu_com_refine.py:
+    198-207).  Returns the files written."""
+    series = [(hist.get(key), os.path.join(outdir, f"{prefix}_{tag}.png"))
+              for key, tag in (("train_cost", "cost"), ("val_error_mm", "errs"))]
+    series = [(values, path) for values, path in series if values]
+
+    def draw():
+        from deepprior_tpu_torch.eval.plots import pyplot
+
+        plt = pyplot()
+        for values, path in series:
+            fig = plt.figure()
+            plt.semilogy(np.asarray(values))
+            fig.savefig(path)
+            plt.close(fig)
+        return [path for _, path in series]
+
+    return _plots(log, [path for _, path in series], draw)
+
+
+def _plot_overlays(hpe, camera, seq, joints, prefix, stride=20, log=print):
+    """The 2D skeleton overlays of every ``stride``-th frame of one test
+    sequence (main_nyu_posereg_embedding.py:199-205); ``joints`` are the
+    predicted (N, J, 3) mm poses of ``seq.data``.  Returns the files."""
+    from deepprior_tpu_torch.geometry import transform_points_2d_np
+
+    inds = range(0, len(seq.data), stride)
+
+    def draw():
+        written = []
+        for ind in inds:
+            fr = seq.data[ind]
+            jt2d = transform_points_2d_np(camera.three_d_to_img_np(joints[ind]), fr.T)
+            written.append(hpe.plotResult(fr.dpt, fr.gtcrop, jt2d, name=f"{prefix}_{ind}"))
+        return written
+
+    return _plots(log, [os.path.join(hpe.subfolder, f"{prefix}_{i}.png") for i in inds],
+                  draw)
+
+
+def _verdict(rec, what, log):
+    status = "PASS" if rec["pass"] else "FAIL"
+    if rec["synthetic"]:
+        status += " (synthetic smoke)"
+    log(f"acceptance [{status}]: {what} {rec['mean_mm']:.3f}mm vs threshold "
+        f"{rec['threshold_mm']:.3f}mm over {rec['n_test_frames']} frames")
+
+
+def _acceptance(args, importer_cls, camera, eval_cls, tests, all_gt3d, all_joints,
+                outdir, prefix, baseline_spec, accept_mm, log=print):
+    """The acceptance gate: the reference's baseline comparison
+    (main_nyu_posereg_embedding.py:161-205) as one command.  One evaluation
+    over the combined test set (main:163-166), the shipped baseline
+    predictions (``_load_baseline_predictions``), the threshold curve and
+    per-joint bars with the baseline overlaid (main:197), and the
+    threshold: --accept-mm, else ``accept_mm``.
+
+    Returns the record for results.json (mean_mm, max_mm, threshold_mm,
+    n_test_frames, synthetic, baseline, pass); the caller exits non-zero
+    when it did not pass."""
+    thr = args.accept_mm if args.accept_mm is not None else accept_mm
+    gt = np.concatenate(all_gt3d, axis=0)
+    joints = np.concatenate(all_joints, axis=0)
+    hpe = eval_cls(gt, joints)
+    hpe.subfolder = outdir
+    rec = {"mean_mm": float(hpe.getMeanError()),
+           "max_mm": float(hpe.getMaxError()),
+           "threshold_mm": float(thr),
+           "n_test_frames": int(gt.shape[0]),
+           # a synthetic run tests the harness; it is no evidence against
+           # the real dataset's target
+           "synthetic": bool(getattr(args, "synthetic", False))}
+    baseline = []
+    preds, bl_path = _load_baseline_predictions(args, importer_cls, baseline_spec, gt)
+    if preds is not None:
+        hpe_base = eval_cls(gt[: preds.shape[0]], preds)
+        hpe_base.subfolder = outdir
+        baseline = [(baseline_spec["label"], hpe_base)]
+        rec["baseline"] = {"label": baseline_spec["label"],
+                           "mean_mm": float(hpe_base.getMeanError()),
+                           "file": bl_path}
+        log(f"baseline {baseline_spec['label']}: mean {hpe_base.getMeanError():.3f}mm")
+    name = f"{prefix}_accept"
+    _plots(log, _evaluation_files(outdir, name),
+           lambda: hpe.plotEvaluation(name, methodName="Our regr", baseline=baseline))
+    rec["pass"] = bool(rec["mean_mm"] < thr)
+    _verdict(rec, "mean", log)
+    return rec
+
+
+def _fail_unless_passed(rec):
+    if rec is not None and not rec["pass"]:
+        raise SystemExit(f"acceptance FAILED: {rec['mean_mm']:.3f}mm >= "
+                         f"{rec['threshold_mm']:.3f}mm")
+
+
 def _model_dtype(args):
     return torch.bfloat16 if args.bf16 else torch.float32
 
 
 def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_joints,
-                          eval_cls=None, n_pca: int = 30, log=print):
+                          eval_cls=None, n_pca: int = 30, baseline_spec=None,
+                          accept_mm: float = 10.0, log=print):
     """The flagship recipe.
+
+    baseline_spec ({"label", "relpath", "kind": "mat" or "txt"}) and
+    accept_mm (the BASELINE.md mean-error target) configure --accept.
 
     ``--model resnet`` trains ResNet-47 of head type ``--resnet-type``
     (default 2, the dropout head); weight decay applies iff the net has no
@@ -301,8 +463,10 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     <out>/<prefix>/network_prior.ckpt (the trained weights, a ResNet's
     BatchNorm statistics and the PCA prior, fingerprinted with the
     TrainConfig and the family; ``load_serving_net`` reads it),
-    <out>/<prefix>/net_last.ckpt (the rolling snapshot) and
-    <out>/<prefix>/results.json with the JAX main's metrics."""
+    <out>/<prefix>/net_last.ckpt (the rolling snapshot),
+    <out>/<prefix>/results.json with the JAX main's metrics (and with
+    --accept its acceptance record; a miss then raises SystemExit after the
+    file is written) and the plots."""
     from deepprior_tpu_torch.eval.metrics import HandposeEvaluation
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
     from deepprior_tpu_torch.prior import fit_pose_prior
@@ -357,6 +521,8 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
                            sp=args.sp, device=device)
     trainer.sharded_snapshots = args.sharded_snapshots
     state, hist = _train(args, trainer, trainer.init_state(), data, val, outdir, log)
+    if is_writer():
+        _plot_training_curves(hist, outdir, prefix, log)
 
     # save the final net (a ResNet's BatchNorm statistics with it) + prior
     # (the reference appends the PCA decode layer and saves
@@ -378,6 +544,7 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
 
     # test: decode to mm and the metric suite (main:161-205)
     metrics, results = {}, {}
+    all_gt3d, all_joints = [], []
     for seq in tests:
         tdata = TrainData.from_sequence(seq)
         emb = torch.from_numpy(trainer.predict(state, tdata.crops))
@@ -387,9 +554,15 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
         com3d = camera.img_to_3d_np(np.asarray(tdata.com))
         joints = decoded * (cube_z / 2.0) + com3d[:, None, :]
         gt3d = np.stack([f.gt3Dorig for f in seq.data])
+        all_gt3d.append(gt3d)
+        all_joints.append(joints)
         hpe = eval_cls(gt3d, joints)
+        hpe.subfolder = outdir
         log(f"{seq.name}: mean {hpe.getMeanError():.3f}mm "
             f"max {hpe.getMaxError():.3f}mm")
+        if is_writer():
+            name = f"{prefix}_{seq.name}"
+            _plots(log, _evaluation_files(outdir, name), lambda: hpe.plotEvaluation(name))
         results[seq.name] = hpe
         metrics[seq.name] = {
             "mean_mm": hpe.getMeanError(),
@@ -401,14 +574,25 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
                 hpe.getJointMeanError(j) for j in range(joints.shape[1])
             ],
         }
+    accept_rec = None
+    if is_writer() and tests:
+        # the overlays of the first test sequence, on every run (main:199-205)
+        _plot_overlays(results[tests[0].name], camera, tests[0], all_joints[0], prefix,
+                       log=log)
+        if args.accept:
+            accept_rec = metrics["acceptance"] = _acceptance(
+                args, importer_cls, camera, eval_cls, tests, all_gt3d, all_joints, outdir,
+                prefix, baseline_spec, accept_mm, log)
     if is_writer():
         with open(os.path.join(outdir, "results.json"), "w") as fh:
             json.dump(metrics, fh, indent=1)
+    _fail_unless_passed(accept_rec)
     return state, results, hist
 
 
 def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
-                   crop_joint_idx, eval_cls, log=print):
+                   crop_joint_idx, eval_cls, baseline_spec=None, accept_mm=None,
+                   log=print):
     """CoM-refinement training (reference main_nyu_com_refine.py): ScaleNet
     over docom crops, at batch min(--batch-size, 64) (main:164), with the
     augmentation (K5 on a CUDA device) and without early stopping
@@ -417,8 +601,12 @@ def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
     dict}, fingerprinted with the TrainConfig; an importer's
     ``load_refine_net_lazy`` reads it), the rolling snapshot, and, with
     test sequences, result_<prefix>.npy (the refined CoMs as 1-joint poses,
-    mm) and results.json: the refined and the raw CoM against the crop
-    joint (main:215-250; the shipped baselines wait for --accept).
+    mm), results.json and the plots: the refined CoM, the shipped
+    baseline's crop joint (``baseline_spec``; MSRA15 ships none) and the raw
+    CoM against the crop joint, and the threshold curve with both baselines
+    overlaid (main:198-257).  --accept gates the refined mean error on
+    --accept-mm, else ``accept_mm``, else the raw CoM's mean (the refiner
+    must beat the detector it refines).
     Returns (state, {"refined": evaluation, "com": evaluation}, history)."""
     from deepprior_tpu_torch.models import ScaleNet, ScaleNetConfig
     from deepprior_tpu_torch.parallel.multihost import is_writer
@@ -458,33 +646,72 @@ def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
     if is_writer():
         save_checkpoint(os.path.join(outdir, f"net_{prefix}.ckpt"), {"params": params},
                         config=cfg._asdict())
+        _plot_training_curves(hist, outdir, prefix, log)
     if not tests:
         return state, {}, hist
 
     # refined CoM = offset * cube_z / 2 + the detected CoM (mm), as a
     # 1-joint pose against gt3Dorig[crop_joint] (main:215-233)
-    gt1, refined, com3d = [], [], []
+    gt_full, refined, com3d = [], [], []
     for seq in tests:
         tdata = to_refine_data(seq)
         pred = trainer.predict(state, tdata.crops)  # (N, 3)
         c3 = camera.img_to_3d_np(np.asarray(tdata.com))
         refined.append(c3 + pred * (np.asarray(tdata.cube)[:, 2][:, None] / 2.0))
         com3d.append(c3)
-        gt1.append(np.stack([f.gt3Dorig[crop_joint_idx] for f in seq.data]))
-    gt1 = np.concatenate(gt1).astype(np.float32)[:, None, :]
+        gt_full.append(np.stack([f.gt3Dorig for f in seq.data]))
+    gt_full = np.concatenate(gt_full).astype(np.float32)
+    gt1 = gt_full[:, crop_joint_idx:crop_joint_idx + 1]
     refined = np.concatenate(refined).astype(np.float32)[:, None, :]
     com3d = np.concatenate(com3d).astype(np.float32)[:, None, :]
     results = {"refined": eval_cls(gt1, refined), "com": eval_cls(gt1, com3d)}
-    log(f"Refined CoM mean error: {results['refined'].getMeanError():.3f}mm, "
-        f"max error: {results['refined'].getMaxError():.3f}mm")
-    log(f"Raw CoM mean error: {results['com'].getMeanError():.3f}mm")
-    metrics = {k: {"mean_mm": v.getMeanError(), "max_mm": v.getMaxError()}
-               for k, v in results.items()}
-    metrics["refined"]["n_test_frames"] = int(gt1.shape[0])
+    for ev in results.values():
+        ev.subfolder = outdir
+    hpe, hpe_com = results["refined"], results["com"]
+    log(f"Refined CoM mean error: {hpe.getMeanError():.3f}mm, "
+        f"max error: {hpe.getMaxError():.3f}mm")
+    metrics = {"refined": {"mean_mm": hpe.getMeanError(), "max_mm": hpe.getMaxError(),
+                           "n_test_frames": int(gt1.shape[0])}}
+    # baseline 1: the shipped predictions' crop joint (main:240-244)
+    baseline = []
+    preds, bl_path = _load_baseline_predictions(args, importer_cls, baseline_spec, gt_full)
+    if preds is not None:
+        preds1 = preds[:, crop_joint_idx:crop_joint_idx + 1]
+        hpe_base = eval_cls(gt1[: preds1.shape[0]], preds1)
+        hpe_base.subfolder = outdir
+        log(f"Baseline {baseline_spec['label']} crop-joint mean error: "
+            f"{hpe_base.getMeanError():.3f}mm")
+        baseline.append((baseline_spec["label"], hpe_base))
+        metrics["baseline"] = {"label": baseline_spec["label"],
+                               "mean_mm": hpe_base.getMeanError(), "file": bl_path}
+    # baseline 2: the raw detected CoM (main:246-250)
+    log(f"Raw CoM mean error: {hpe_com.getMeanError():.3f}mm")
+    metrics["com"] = {"mean_mm": hpe_com.getMeanError(), "max_mm": hpe_com.getMaxError()}
+    baseline.append(("CoM", hpe_com))
+    accept_rec = None
+    if args.accept:
+        thr = args.accept_mm if args.accept_mm is not None else accept_mm
+        if thr is None:
+            thr = hpe_com.getMeanError()
+        accept_rec = metrics["acceptance"] = {
+            "mean_mm": float(hpe.getMeanError()),
+            "com_mean_mm": float(hpe_com.getMeanError()),
+            "threshold_mm": float(thr),
+            "n_test_frames": int(gt1.shape[0]),
+            "synthetic": bool(args.synthetic),
+        }
+        accept_rec["pass"] = bool(accept_rec["mean_mm"] < thr)
+        _verdict(accept_rec, "refined", log)
     if is_writer():
         np.save(os.path.join(outdir, f"result_{prefix}.npy"), refined)
+        # the threshold curve and bars with the baselines overlaid
+        # (main_msra15_com_refine.py:257)
+        _plots(log, _evaluation_files(outdir, prefix),
+               lambda: hpe.plotEvaluation(prefix, methodName="Refined CoM",
+                                          baseline=baseline))
         with open(os.path.join(outdir, "results.json"), "w") as fh:
             json.dump(metrics, fh, indent=1)
+    _fail_unless_passed(accept_rec)
     return state, results, hist
 
 

@@ -8,7 +8,7 @@ mains/main_icvl_com_refine.py; reference src/main_icvl_com_refine.py).
 from deepprior_tpu_torch.camera import ICVL_CAMERA
 from deepprior_tpu_torch.data.importers import ICVLImporter
 from deepprior_tpu_torch.eval.datasets import ICVLHandposeEvaluation
-from deepprior_tpu_torch.mains.common import base_parser, run_com_refine
+from deepprior_tpu_torch.mains.common import ICVL_BASELINE, base_parser, run_com_refine
 
 
 def main(argv=None):
@@ -18,6 +18,7 @@ def main(argv=None):
     return run_com_refine(
         args, ICVLImporter, ICVL_CAMERA, train_seq="train", test_seqs=["test_seq_1"],
         num_joints=16, crop_joint_idx=0, eval_cls=ICVLHandposeEvaluation,
+        baseline_spec=ICVL_BASELINE,
     )
 
 

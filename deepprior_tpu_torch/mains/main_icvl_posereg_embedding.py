@@ -9,7 +9,7 @@ src/main_icvl_posereg_embedding.py).
 from deepprior_tpu_torch.camera import ICVL_CAMERA
 from deepprior_tpu_torch.data.importers import ICVLImporter
 from deepprior_tpu_torch.eval.datasets import ICVLHandposeEvaluation
-from deepprior_tpu_torch.mains.common import base_parser, run_posereg_embedding
+from deepprior_tpu_torch.mains.common import ICVL_BASELINE, base_parser, run_posereg_embedding
 
 
 def main(argv=None):
@@ -17,6 +17,9 @@ def main(argv=None):
     return run_posereg_embedding(
         args, ICVLImporter, ICVL_CAMERA, train_seq="train", test_seqs=["test_seq_1"],
         num_joints=16, eval_cls=ICVLHandposeEvaluation,
+        # --accept: against Tang et al.'s LRF predictions (reference
+        # main_icvl_posereg_embedding.py:184), BASELINE.md's 8.1 mm + 5%
+        baseline_spec=ICVL_BASELINE, accept_mm=8.5,
     )
 
 

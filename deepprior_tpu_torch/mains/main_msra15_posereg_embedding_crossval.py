@@ -7,6 +7,7 @@ subjects, test on the held-out one, for each of P0..P8 or the --holdout.
         --data <MSRA15 root> --holdout P8 --epochs 100 --out ./eval [--streamed]
 """
 
+import json
 import os
 
 import numpy as np
@@ -43,14 +44,17 @@ class _MultiSubjectImporter:
 
 
 def main(argv=None):
-    """Returns {held-out subject: (state, results, history)}."""
+    """Returns {held-out subject: (state, results, history)}; a fold that
+    misses --accept's threshold has None there.  With --accept every fold
+    runs, and then the main exits non-zero when a fold or the mean over
+    the folds missed it."""
     p = base_parser(__doc__)
     p.add_argument("--holdout", default=None,
                    help="held-out subject (default: each of P0..P8 in turn)")
     args = p.parse_args(argv)
     # under torchrun only rank 0 prints (the group starts inside the fold)
     say = print if os.environ.get("RANK", "0") == "0" else (lambda *a, **k: None)
-    folds, means = {}, []
+    folds, means, failed = {}, [], []
     for held in [args.holdout] if args.holdout else SUBJECTS:
         say(f"=== crossval fold: holding out {held} ===", flush=True)
         train_subjects = [s for s in SUBJECTS if s != held]
@@ -59,12 +63,33 @@ def main(argv=None):
             return _MultiSubjectImporter(basepath, _subj, **kw)
 
         args.eval_prefix = f"MSRA_EMB_crossval_{held}"
-        folds[held] = run_posereg_embedding(
-            args, importer_cls, MSRA15_CAMERA, train_seq="train", test_seqs=[held],
-            num_joints=21, eval_cls=MSRAHandposeEvaluation,
-        )
-        means.append(folds[held][1][held].getMeanError())
-    say(f"crossval mean over folds: {float(np.mean(means)):.3f}mm", flush=True)
+        try:
+            folds[held] = run_posereg_embedding(
+                args, importer_cls, MSRA15_CAMERA, train_seq="train", test_seqs=[held],
+                num_joints=21, eval_cls=MSRAHandposeEvaluation,
+                # --accept: no shipped baseline (the reference plots "Our
+                # regr" alone, main_msra15:226); BASELINE.md's 9.5 mm + 5%
+                accept_mm=10.0,
+            )
+            means.append(folds[held][1][held].getMeanError())
+        except SystemExit as exc:
+            # a fold that missed the threshold wrote its results.json first;
+            # the other folds still run, so that the mean covers them all
+            rj = os.path.join(args.out, args.eval_prefix, "results.json")
+            if not os.path.isfile(rj):
+                raise
+            with open(rj) as fh:
+                means.append(float(json.load(fh)[held]["mean_mm"]))
+            folds[held] = None
+            failed.append((held, str(exc)))
+    cv_mean = float(np.mean(means))
+    say(f"crossval mean over folds: {cv_mean:.3f}mm"
+        + (f" ({len(failed)} fold(s) failed acceptance)" if failed else ""), flush=True)
+    thr = args.accept_mm if args.accept_mm is not None else 10.0
+    if args.accept and (failed or cv_mean >= thr):
+        detail = "; ".join(f"{h}: {m}" for h, m in failed)
+        raise SystemExit(f"acceptance FAILED: crossval mean {cv_mean:.3f}mm vs {thr}mm"
+                         + (f" (failed folds: {detail})" if detail else ""))
     return folds
 
 

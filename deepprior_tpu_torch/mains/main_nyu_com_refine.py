@@ -9,7 +9,7 @@ mains/main_nyu_com_refine.py; reference src/main_nyu_com_refine.py: batch
 from deepprior_tpu_torch.camera import NYU_CAMERA
 from deepprior_tpu_torch.data.importers import NYUImporter
 from deepprior_tpu_torch.eval.datasets import NYUHandposeEvaluation
-from deepprior_tpu_torch.mains.common import base_parser, run_com_refine
+from deepprior_tpu_torch.mains.common import NYU_BASELINE, base_parser, run_com_refine
 
 
 def main(argv=None):
@@ -19,6 +19,7 @@ def main(argv=None):
     return run_com_refine(
         args, NYUImporter, NYU_CAMERA, train_seq="train", test_seqs=["test_1", "test_2"],
         num_joints=14, crop_joint_idx=13, eval_cls=NYUHandposeEvaluation,
+        baseline_spec=NYU_BASELINE,
     )
 
 

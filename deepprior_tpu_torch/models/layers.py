@@ -79,6 +79,40 @@ def xavier_init_(weight: torch.Tensor, fan_in: int, fan_out: int, generator=None
         return weight.uniform_(-limit, limit, generator=generator)
 
 
+def orthogonal_init_(weight: torch.Tensor, scale: float = 1.0, generator=None):
+    """The reference's SVD-orthogonalized init option (layer.py:~90), as
+    flax's ``initializers.orthogonal()`` draws it: a normal matrix's QR, Q
+    with the signs of R's diagonal, of (out features, the rest flattened);
+    rows orthonormal where there are at most as many as columns, columns
+    otherwise.  Bits differ from flax's (another RNG); the law is the same."""
+    rows = weight.shape[0]
+    cols = weight.numel() // rows
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=generator,
+                    dtype=torch.float32, device=weight.device)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < cols:
+        q = q.T
+    with torch.no_grad():
+        return weight.copy_((scale * q).reshape(weight.shape))
+
+
+def pool2d(x, window: Tuple[int, int], kind: str = "max"):
+    """Standalone NCHW pooling with the reference PoolLayer's kinds
+    (poollayer.py:39-157): 'max', 'avg' (floored, like ``ConvPool``),
+    'subsample' (a strided pick) and 'none'."""
+    window = tuple(window)
+    if kind == "none" or window == (1, 1):
+        return x
+    if kind == "max":
+        return F.max_pool2d(x, window, window)
+    if kind == "avg":
+        return F.avg_pool2d(x, window, window)
+    if kind == "subsample":
+        return x[:, :, :: window[0], :: window[1]]
+    raise ValueError(f"unknown pool kind {kind!r}")
+
+
 class ConvPool(nn.Module):
     """conv(valid) -> floor max-pool -> activation: the reference
     ConvPoolLayer (convpoollayer.py:39-305).

@@ -1,10 +1,14 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
-Each source under ``csrc/`` compiles on first use into a shared library
-with a plain C interface, in ``deepprior_tpu_torch/_build/``.  The file
-name carries a hash of the source, the shared headers (``csrc/*.cuh``)
-and the flags, so an edited source or header rebuilds and an unchanged
-one loads at once.  Nothing builds at import.
+Each CUDA source under ``csrc/`` compiles with nvcc on first use into a
+shared library with a plain C interface, in ``deepprior_tpu_torch/_build/``
+(``load_library``); each host C++ source under ``cpp/`` (the capture shim)
+the same way with g++ (``host_library_path``).  The file name carries a
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds and an unchanged one loads at once.
+A build writes a temporary file of its own and renames it into place, so
+concurrent builds and loaders never see half a library; a failed build
+raises.  Nothing builds at import.
 """
 
 from __future__ import annotations
@@ -15,9 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+CPP = os.path.join(_PKG, "cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # no --use_fast_math and no -prec-div=false: the crop's bit-exactness rests
@@ -27,6 +33,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# the host shim's flags (deepprior_tpu/cpp/CMakeLists.txt builds the JAX
+# package's copy the same way)
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 # what the last build of each source printed (nvcc -Xptxas -v reports each
 # kernel's registers, shared memory and spills)
@@ -59,25 +68,55 @@ def source_digest(source: str, csrc: str = CSRC) -> str:
     return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per content hash) and load it."""
-    path = os.path.join(CSRC, source)
-    digest = source_digest(source)
-    stem = os.path.splitext(source)[0]
-    lib = os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
-    if not os.path.exists(lib):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib}.tmp.{os.getpid()}"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, path]
+def _build(source: str, path: str, lib: str, compiler: list, flags, libs=()) -> str:
+    """Compile ``path`` into ``lib`` unless it is there: into a temporary
+    file of its own, renamed into place (atomic: a concurrent
+    loader never sees half a file).  Raises RuntimeError naming the
+    compiler's output when the build fails."""
+    if os.path.exists(lib):
+        return lib
+    build_dir = os.path.dirname(lib)
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(lib) + ".", suffix=".tmp",
+                               dir=build_dir)
+    os.close(fd)
+    cmd = [*compiler, *flags, "-o", tmp, path, *libs]
+    try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         BUILD_LOG[source] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {path}:\n"
+                f"{os.path.basename(cmd[0])} failed ({proc.returncode}) building {path}:\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return ctypes.CDLL(lib)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` with nvcc (once per content hash) and load it."""
+    digest = source_digest(source)
+    stem = os.path.splitext(source)[0]
+    lib = os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
+    return ctypes.CDLL(_build(source, os.path.join(CSRC, source), lib, [find_nvcc()],
+                              NVCC_FLAGS))
+
+
+@functools.lru_cache(maxsize=None)
+def host_library_path(source: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile ``cpp/<source>`` with g++ (once per content hash) into
+    ``build_dir`` and return the library's path (``realtime/camera.py``
+    loads it with ctypes)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH; the capture shim cpp/capture.cpp needs it")
+    path = os.path.join(CPP, source)
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode()).hexdigest()
+    stem = os.path.splitext(source)[0]
+    lib = os.path.join(build_dir, f"lib{stem}-{digest[:16]}.so")
+    return _build(source, path, lib, [gxx], HOST_FLAGS, ("-lpthread",))

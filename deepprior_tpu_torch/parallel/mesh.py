@@ -171,6 +171,11 @@ def shard_model(model: nn.Module, plan: Dict[str, object], tp_group, tp_rank: in
     the bias whole), and each ``MLPHead`` gets its ``HeadSplit``.  The
     weights must be whole (every rank the same) when this is called.
 
+    A learned activation's per-unit ``c{i}`` follows the split of the
+    Dense layer whose output it activates: after a column-parallel layer it
+    keeps this rank's block of the output features, after a row-parallel
+    layer (whose all-reduce makes the features whole) it stays whole.
+
     Returns {parameter name: the dim it is split along}: the layout the
     trainer's checkpoints and ``unshard_model`` read."""
     from deepprior_tpu_torch.models.layers import HeadSplit, MLPHead
@@ -190,13 +195,16 @@ def shard_model(model: nn.Module, plan: Dict[str, object], tp_group, tp_rank: in
                 lin.bias = nn.Parameter(lin.bias.chunk(tp_size, 0)[tp_rank].clone())
                 layout[f"{fqn}.bias"] = 0
         styles[id(lin)] = "colwise" if colwise else "rowwise"
-    for head in model.modules():
+    for head_name, head in model.named_modules():
         if isinstance(head, MLPHead):
             head_styles = tuple(styles.pop(id(lin), None) for lin in head.dense)
-            if head.learned and any(head_styles):
-                raise NotImplementedError(
-                    "a learned activation (prelu) under tp: its per-unit "
-                    "parameters would need the column split too")
+            for i in range(2 if head.learned else 0):
+                if head_styles[i] == "colwise":
+                    c = getattr(head, f"c{i}")
+                    with torch.no_grad():
+                        setattr(head, f"c{i}",
+                                nn.Parameter(c.chunk(tp_size, 0)[tp_rank].clone()))
+                    layout[f"{head_name}.c{i}" if head_name else f"c{i}"] = 0
             head.split = HeadSplit(head_styles, tp_group, tp_rank, tp_size, row0, rows)
     if styles:
         raise ValueError("the plan splits Linear layers outside an MLPHead")

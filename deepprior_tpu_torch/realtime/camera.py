@@ -7,14 +7,19 @@ start/stop/getDepth/getRGB/getDepthIntrinsics/...):
 - ``FileDevice``       replays depth frames (cameradevice.py:348-457)
 - ``SyntheticDevice``  streams generated hand scenes; from the same seed
                        it yields the JAX package's frames bit for bit
+- ``CaptureDevice``    binds the native capture shim (cpp/capture.cpp, the
+                       reference's lib_dscapture equivalent, built with g++
+                       at first use) through ctypes
 
-The native capture shim (``CaptureDevice``, cpp/capture.cpp) is not ported
-yet (ROADMAP.md Queue 1 item 22).
+The shim publishes each frame through a seqlock of two slots, depth and
+colour together, so ``getDepth`` never observes a torn frame.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -139,3 +144,153 @@ class SyntheticDevice(CameraDevice):
 
     def getLastDepthNum(self):
         return self._t - 1
+
+
+def _ptr(buf: np.ndarray, ctype):
+    return buf.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+class CaptureDevice(CameraDevice):
+    """The native capture shim through ctypes: the reference's
+    lib_dscapture module surface (depthsense.cxx:203-223), a depth stream
+    of 320x240 float32 mm and a 640x480 RGB colour stream.
+
+    lib_path: a built shim (default: ``cpp/capture.cpp`` built with g++
+    into ``deepprior_tpu_torch/_build/`` at first use; a failed build
+    raises).  mode: 'synthetic' (a moving hand-like scene at ``fps``) or
+    'file' (``source``: int32 h, w, n, then n float32 frames)."""
+
+    def __init__(self, lib_path: Optional[str] = None, mode: str = "synthetic",
+                 source: str = "", fps: float = 30.0, mirror: bool = False):
+        super().__init__(mirror)
+        if lib_path is None:
+            from deepprior_tpu_torch.ops._build import host_library_path
+
+            lib_path = host_library_path("capture.cpp")
+        lib = self.lib = ctypes.CDLL(os.path.abspath(lib_path))
+        f32, u8, i16 = (ctypes.POINTER(t) for t in (ctypes.c_float, ctypes.c_uint8,
+                                                     ctypes.c_int16))
+        sigs = {
+            "ds_start": ([ctypes.c_char_p, ctypes.c_char_p, ctypes.c_double], ctypes.c_int),
+            "ds_stop": ([], None),
+            "ds_get_depth": ([f32, ctypes.c_int], ctypes.c_int),
+            "ds_depth_width": ([], ctypes.c_int),
+            "ds_depth_height": ([], ctypes.c_int),
+            "ds_frame_counter": ([], ctypes.c_longlong),
+            "ds_get_intrinsics": ([f32], None),
+            "ds_get_accel": ([f32], None),
+            # the colour / vertex / UV / sync surface
+            "ds_colour_width": ([], ctypes.c_int),
+            "ds_colour_height": ([], ctypes.c_int),
+            "ds_colour_frame_counter": ([], ctypes.c_longlong),
+            "ds_get_colour": ([u8, ctypes.c_int], ctypes.c_int),
+            "ds_get_vertices": ([i16, ctypes.c_int], ctypes.c_int),
+            "ds_get_vertices_fp": ([f32, ctypes.c_int], ctypes.c_int),
+            "ds_get_uv": ([f32, ctypes.c_int], ctypes.c_int),
+            "ds_get_sync": ([u8, ctypes.c_int], ctypes.c_int),
+            "ds_get_color_intrinsics": ([f32], None),
+            "ds_get_extrinsics": ([f32], None),
+        }
+        for name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        self.mode = mode
+        self.source = source
+        self.fps = fps
+        self._shape = None
+
+    def start(self):
+        """Start the capture thread and wait (up to 5 s) for its first
+        frame, as a camera's start does."""
+        rc = self.lib.ds_start(self.mode.encode(), self.source.encode(),
+                               ctypes.c_double(self.fps))
+        if rc != 0:
+            raise RuntimeError(f"capture shim failed to start (rc={rc})")
+        self._shape = (self.lib.ds_depth_height(), self.lib.ds_depth_width())
+        deadline = time.monotonic() + 5.0
+        while self.lib.ds_frame_counter() == 0 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        if self.lib.ds_frame_counter() == 0:
+            raise RuntimeError("capture shim produced no frame within 5 s")
+
+    def stop(self):
+        self.lib.ds_stop()
+
+    def _read(self, fn, shape, dtype, ctype, mirror=True):
+        """(ok, buffer) from one of the shim's getters; mirrored with the
+        depth frame."""
+        buf = np.empty(shape, dtype)
+        if not fn(_ptr(buf, ctype), buf.size):
+            return False, None
+        if self.mirror and mirror:
+            buf = buf[:, ::-1]
+        return True, buf
+
+    def getDepth(self):
+        if self._shape is None:
+            return False, None
+        return self._read(self.lib.ds_get_depth, self._shape, np.float32, ctypes.c_float)
+
+    def getDepthIntrinsics(self) -> Camera:
+        vals = (ctypes.c_float * 4)()
+        self.lib.ds_get_intrinsics(vals)
+        h, w = self._shape if self._shape else (240, 320)
+        return Camera(fx=vals[0], fy=vals[1], ux=vals[2], uy=vals[3], width=w, height=h)
+
+    def getAcceleration(self) -> np.ndarray:
+        vals = (ctypes.c_float * 3)()
+        self.lib.ds_get_accel(vals)
+        return np.array(vals[:], np.float32)
+
+    def getLastDepthNum(self) -> int:
+        return int(self.lib.ds_frame_counter())
+
+    # ---- the colour / vertex / UV / sync surface (reference depthsense.cxx
+    # getColourMap / getVertices(FP) / getUVMap / getSyncMap, :203-223) ----
+    def getRGB(self):
+        """(ok, (cH, cW, 3) uint8) from the colour stream."""
+        h, w = self.lib.ds_colour_height(), self.lib.ds_colour_width()
+        if h == 0 or w == 0:
+            return False, None
+        return self._read(self.lib.ds_get_colour, (h, w, 3), np.uint8, ctypes.c_uint8)
+
+    def getVertices(self, fp: bool = False):
+        """(ok, (dH, dW, 3) vertex map in depth-camera mm): fp=False the
+        reference's saturating int16 map, fp=True exact float32.  mirror
+        flips the pixel layout, so that the map stays aligned with
+        getDepth(); the x values keep the physical camera's sign."""
+        if self._shape is None:
+            return False, None
+        if fp:
+            return self._read(self.lib.ds_get_vertices_fp, (*self._shape, 3), np.float32,
+                              ctypes.c_float)
+        return self._read(self.lib.ds_get_vertices, (*self._shape, 3), np.int16,
+                          ctypes.c_int16)
+
+    def getUVMap(self):
+        """(ok, (dH, dW, 2) normalized colour coordinates; invalid pixels
+        (-1, -1)); the values index the unmirrored colour stream."""
+        if self._shape is None:
+            return False, None
+        return self._read(self.lib.ds_get_uv, (*self._shape, 2), np.float32, ctypes.c_float)
+
+    def getSyncMap(self):
+        """(ok, (dH, dW, 3) uint8 colour remapped onto the depth pixels)."""
+        if self._shape is None:
+            return False, None
+        return self._read(self.lib.ds_get_sync, (*self._shape, 3), np.uint8, ctypes.c_uint8)
+
+    def getColorIntrinsics(self) -> Camera:
+        vals = (ctypes.c_float * 4)()
+        self.lib.ds_get_color_intrinsics(vals)
+        return Camera(fx=vals[0], fy=vals[1], ux=vals[2], uy=vals[3],
+                      width=self.lib.ds_colour_width(), height=self.lib.ds_colour_height())
+
+    def getExtrinsics(self) -> np.ndarray:
+        """Row-major (3, 4) [R|t]: a colour-camera point is R @ X + t (mm)."""
+        vals = (ctypes.c_float * 12)()
+        self.lib.ds_get_extrinsics(vals)
+        return np.array(vals[:], np.float32).reshape(3, 4)
+
+    def getLastColorNum(self) -> int:
+        return int(self.lib.ds_colour_frame_counter())

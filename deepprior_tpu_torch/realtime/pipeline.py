@@ -33,10 +33,9 @@ STATE_RUN = 2
 HAND_LEFT = 0
 HAND_RIGHT = 1
 
-_DRAWING_TODO = (
-    "drawing the pipeline's views needs eval/datasets.py and utils/text.py, "
-    "not ported yet (ROADMAP.md Queue 1 item 21)"
-)
+# the status bar's state light: a disc of radius 5 at (7, 9) of the bar
+STATE_COLORS = {STATE_IDLE: (255, 0, 0), STATE_INIT: (255, 255, 0), STATE_RUN: (0, 255, 0)}
+STATUS_LIGHT = np.add.outer((np.arange(20) - 9) ** 2, (np.arange(14) - 7) ** 2) <= 25
 
 
 class RealtimeHandposePipeline:
@@ -305,15 +304,85 @@ class RealtimeHandposePipeline:
         self.hand_sizes = []
 
     # ------------------------------------------------------------------
+    # the views: host numpy, the JAX pipeline's pixels
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _draw_skeleton(img, uvd, connections, line_color=(0, 255, 0),
+                       joint_color=(255, 0, 0)):
+        h, w = img.shape[:2]
+        for a, b in connections or []:
+            pa, pb = uvd[a], uvd[b]
+            n = int(max(abs(pb[0] - pa[0]), abs(pb[1] - pa[1])) + 1)
+            us = np.linspace(pa[0], pb[0], n).astype(int)
+            vs = np.linspace(pa[1], pb[1], n).astype(int)
+            ok = (us >= 0) & (us < w) & (vs >= 0) & (vs < h)
+            img[vs[ok], us[ok]] = line_color
+        for u, v in uvd[:, :2]:
+            ui, vi = int(u), int(v)
+            if 0 <= ui < w and 0 <= vi < h:
+                img[max(0, vi - 1): vi + 2, max(0, ui - 1): ui + 2] = joint_color
+        return img
+
     def show(self, result: Dict[str, Any]) -> np.ndarray:
-        """The skeleton overlay (realtimehandposepipeline.py:372-446)."""
-        raise NotImplementedError(_DRAWING_TODO)
+        """The skeleton overlay as an (H, W, 3) uint8 RGB array: the frame
+        in gray, the skeleton, and the CoM marker (the reference draws with
+        cv2.imshow, realtimehandposepipeline.py:372-446; the caller chooses
+        the sink)."""
+        from deepprior_tpu_torch.eval.datasets import evaluation_for
+
+        frame = result["frame"]
+        joints3d = result["joints3d"]
+        uvd = self.camera.three_d_to_img_np(joints3d)
+        ev_cls = evaluation_for(joints3d.shape[0])
+        lo = frame[frame > 0].min() if (frame > 0).any() else 0.0
+        hi = max(frame.max(), 1.0)
+        norm = np.clip((frame - lo) / max(hi - lo, 1e-6), 0, 1)
+        img = np.stack([norm * 255] * 3, axis=-1).astype(np.uint8)
+        self._draw_skeleton(img, uvd, ev_cls.joint_connections)
+        # the CoM marker (the reference draws a green circle, :419-424)
+        com = result.get("com")
+        if com is not None:
+            ui, vi = int(com[0]), int(com[1])
+            h, w = frame.shape
+            if 0 <= ui < w and 0 <= vi < h:
+                img[max(0, vi - 2): vi + 3, max(0, ui - 2): ui + 3, 1] = 255
+        return img
 
     def show_side(self, result: Dict[str, Any]) -> np.ndarray:
-        """The 90-degree side view (realtimehandposepipeline.py:426-446)."""
-        raise NotImplementedError(_DRAWING_TODO)
+        """The 90-degree side view: the pose rotated by Euler (0, 90, 0)
+        about config['crop_joint_idx'] when set (the reference's
+        importer.crop_joint_idx), else the pose's mean, and projected into
+        a blank canvas (the reference's ``poseimg``,
+        realtimehandposepipeline.py:426-446)."""
+        from deepprior_tpu_torch.eval.datasets import evaluation_for
+        from deepprior_tpu_torch.geometry import rotate_points_3d_np
+
+        frame = result["frame"]
+        joints3d = np.asarray(result["joints3d"], np.float32)
+        cj = self.config.get("crop_joint_idx")
+        center = joints3d[int(cj)] if cj is not None else joints3d.mean(axis=0)
+        rotated = np.asarray(rotate_points_3d_np(joints3d, center[None], 0.0, 90.0, 0.0),
+                             np.float32)
+        uvd = self.camera.three_d_to_img_np(rotated)
+        ev_cls = evaluation_for(joints3d.shape[0])
+        img = np.zeros((frame.shape[0], frame.shape[1], 3), np.uint8)
+        self._draw_skeleton(img, uvd, ev_cls.joint_connections)
+        return img
 
     def add_status_bar(self, img: np.ndarray) -> np.ndarray:
-        """The 20-px status bar (addStatusBar, realtimehandposepipeline.py:
-        449-492)."""
-        raise NotImplementedError(_DRAWING_TODO)
+        """``img`` under the reference's 20-px status bar (addStatusBar,
+        realtimehandposepipeline.py:449-492): fps, hand, cube size,
+        tracking (T) or detection (D), the detector, and the state light
+        (IDLE red, INIT yellow, RUN green)."""
+        from deepprior_tpu_torch.utils.text import draw_text
+
+        barsz = 20
+        out = np.full((img.shape[0] + barsz, img.shape[1], 3), 255, np.uint8)
+        out[barsz:] = img
+        draw_text(out, f"FPS {self.fps():2.1f}", 20, 6)
+        draw_text(out, "LEFT" if self.hand == HAND_LEFT else "RIGHT", 80, 6)
+        draw_text(out, f"HC-{int(self.config['cube'][0])}", 130, 6)
+        draw_text(out, "T" if self.tracking else "D", 200, 6)
+        draw_text(out, "COM", 220, 6)
+        out[0:barsz, 0:14][STATUS_LIGHT] = STATE_COLORS.get(self.state, STATE_COLORS[STATE_IDLE])
+        return out

@@ -145,6 +145,58 @@ def test_nmax_load_does_not_write_the_cache(roots, tmp_path):
     assert not os.path.isdir(str(tmp_path / "c2"))
 
 
+def test_concurrent_cache_writes_never_show_a_partial_file(roots, tmp_path):
+    """Two writers cache the same sequence at once, over and over, while a
+    reader loads the cache whenever it exists: every load it makes is the
+    whole sequence (each writer's temporary file is its own, and one
+    os.replace publishes it).  The switch interval is shortened so that the
+    threads interleave inside a write."""
+    import threading
+    import time
+
+    cache = str(tmp_path / "cache")
+    imp = ti.MSRA15Importer(roots["msra"], cache_dir=cache, device="cpu")
+    seq = imp.loadSequence("P8")
+    path = imp._cache_path("P8", False, seq.config["cube"])
+    frames = list(seq.data) * 8  # 40 frames of 320x240: a write of some MB
+    os.remove(path)
+    want = np.stack([f.dpt for f in frames])
+    stop, errors, loads = threading.Event(), [], [0]
+
+    def write():
+        while not stop.is_set():
+            imp._save_cache(path, frames)
+
+    def read():
+        while not stop.is_set():
+            try:
+                got = imp._load_cache(path, "P8", seq.config, False, None, np.inf)
+            except Exception as exc:  # a partial file fails to parse
+                errors.append(repr(exc))
+                continue
+            if got is not None:
+                if not np.array_equal(np.stack([f.dpt for f in got.data]), want):
+                    errors.append("a load differs from the sequence")
+                loads[0] += 1
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=f) for f in (write, write, read)]
+        for t in threads:
+            t.start()
+        time.sleep(2.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert loads[0] > 0
+    assert [f for f in os.listdir(cache) if f.endswith(".tmp")] == []
+
+
 @pytest.mark.parametrize("case", ["msra", "icvl"])
 def test_subsequence_filters_match_jax(roots, case):
     if case == "msra":

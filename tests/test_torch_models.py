@@ -132,3 +132,45 @@ def test_bf16_compute_keeps_float32_params_and_output():
     assert out.dtype == torch.float32 and out.shape == (3, 30)
     # bf16 keeps about 3 significant digits through 5 layers
     torch.testing.assert_close(out, want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("kind", ["max", "avg", "subsample", "none"])
+@pytest.mark.parametrize("window", [(2, 2), (3, 2), (1, 1)])
+def test_pool2d_matches_jax(kind, window):
+    """The standalone pooling kinds on an odd-sized NCHW map against the
+    JAX NHWC pool2d: bit-equal (max and subsample pick, avg sums its window
+    in either order within rtol 1e-6)."""
+    from deepprior_tpu.models.layers import pool2d as jax_pool2d
+    from deepprior_tpu_torch.models.layers import pool2d
+
+    x = np.random.default_rng(2).standard_normal((2, 3, 11, 13)).astype(np.float32)
+    want = np.asarray(jax_pool2d(jnp.asarray(x.transpose(0, 2, 3, 1)), window, kind))
+    got = pool2d(torch.from_numpy(x), window, kind).numpy().transpose(0, 2, 3, 1)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6 if kind == "avg" else 0, atol=0)
+    with pytest.raises(ValueError, match="unknown pool kind"):
+        pool2d(torch.from_numpy(x), (2, 2), "median")
+
+
+@pytest.mark.parametrize("shape", [(64, 968), (968, 64), (32, 8, 3, 3), (16, 16)])
+def test_orthogonal_init_is_orthogonal(shape):
+    """The orthogonal init: the shape kept, rows orthonormal where there
+    are at most as many as columns, columns otherwise (flax's
+    initializers.orthogonal() on the transposed kernel has the same law;
+    bits cannot match across RNGs), within 1e-5; deterministic per seed."""
+    from deepprior_tpu.models.layers import orthogonal_init
+    from deepprior_tpu_torch.models.layers import orthogonal_init_
+
+    w = orthogonal_init_(torch.empty(shape), generator=torch.Generator().manual_seed(0))
+    assert w.shape == shape
+    m = w.reshape(shape[0], -1).double()
+    gram = m @ m.T if m.shape[0] <= m.shape[1] else m.T @ m
+    np.testing.assert_allclose(gram.numpy(), np.eye(gram.shape[0]), atol=1e-5)
+    again = orthogonal_init_(torch.empty(shape), generator=torch.Generator().manual_seed(0))
+    assert torch.equal(w, again)
+    # flax's init of the same matrix as a (rest, out) kernel: the same Gram
+    kern = np.asarray(orthogonal_init(jax.random.key(0), (m.shape[1], m.shape[0])))
+    k = kern.astype(np.float64)
+    jgram = k.T @ k if k.shape[1] <= k.shape[0] else k @ k.T
+    np.testing.assert_allclose(jgram, np.eye(jgram.shape[0]), atol=1e-5)
+    assert jgram.shape == gram.shape

@@ -54,9 +54,15 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _pose(hidden=HIDDEN, dropout=True):
+def _pose(hidden=HIDDEN, dropout=True, activation=torch.relu):
     return PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=hidden,
-                                       dropout=dropout))
+                                       dropout=dropout, activation=activation))
+
+
+def _prelu_pose():
+    from deepprior_tpu_torch.models.layers import prelu
+
+    return _pose(activation=prelu)
 
 
 def _resnet():
@@ -102,6 +108,9 @@ def _flax_params(sd):
             kern = kern.reshape(c, side, side, -1).transpose(1, 2, 0, 3).reshape(kern.shape)
         head[f"Dense_{i}"] = {"kernel": np.ascontiguousarray(kern),
                               "bias": sd[f"head.dense.{i}.bias"].numpy()}
+    for c in ("c0", "c1"):
+        if f"head.{c}" in sd:
+            head[c] = sd[f"head.{c}"].numpy()
     params["MLPHead_0"] = head
     return params
 
@@ -194,7 +203,13 @@ def _dp2tp2_rank(rank, world, tmp):
         "pose": fit(_pose(), CFG),
         "resnet": fit(_resnet(), RES_CFG),
         "dcn": fit(_pose(), CFG, m=make_mesh(slices=2, tp=2), shard=True),
+        "prelu": fit(_prelu_pose(), CFG, state_dict=inp["prelu_weights"]),
     }
+    tr = DistributedTrainer(_prelu_pose(), CFG, NYU_CAMERA, mesh, prior=prior)
+    tr.init_state(state_dict=inp["prelu_weights"])
+    out["prelu_layout"] = dict(tr.layout)
+    out["prelu_local"] = {k: v.clone() for k, v in tr.model.state_dict().items()
+                          if k.startswith("head.c")}
     torch.save(out, os.path.join(tmp, f"dp2tp2_{rank}.pt"))
 
 
@@ -211,6 +226,15 @@ def inputs(tmp_path_factory):
     jax_model.reset_parameters(torch.Generator().manual_seed(3))
     rng = np.random.default_rng(5)
     frames = [make_depth_frame(NYU_CAMERA, rng) for _ in range(4)]
+    # a prelu head's weights from a flax tree (c0, c1 its own leaves, as
+    # the JAX MLPHead keeps them), through utils/convert.py
+    from deepprior_tpu_torch.utils.convert import poseregnet_state_dict_from_flax
+
+    prelu_model = _prelu_pose()
+    prelu_model.reset_parameters(torch.Generator().manual_seed(4))
+    with torch.no_grad():  # per-unit values, so that a wrong block shows
+        prelu_model.head.c0.copy_(torch.linspace(0.1, 0.9, HIDDEN))
+        prelu_model.head.c1.copy_(torch.linspace(0.9, 0.1, HIDDEN))
     serve_model = _pose(1024)
     serve_model.reset_parameters(torch.Generator().manual_seed(6))
     inp = {
@@ -219,6 +243,8 @@ def inputs(tmp_path_factory):
         "jax_weights": jax_model.state_dict(),
         "depth": np.stack([f[0] for f in frames]), "com": np.stack([f[1] for f in frames]),
         "serve_weights": serve_model.state_dict(),
+        "prelu_weights": poseregnet_state_dict_from_flax(
+            _flax_params(prelu_model.state_dict())),
         "serve_prior": PCAPrior(rng.standard_normal((30, 42)).astype(np.float32) * 0.05,
                                 np.zeros(42, np.float32)),
     }
@@ -264,7 +290,8 @@ def single(inputs):
         return Trainer(model, cfg, NYU_CAMERA, prior=prior, device="cpu")
 
     return {"pose": _fit(trainer(_pose()), data, val=inp["val"]),
-            "resnet": _fit(trainer(_resnet(), RES_CFG), data)}
+            "resnet": _fit(trainer(_resnet(), RES_CFG), data),
+            "prelu": _fit(trainer(_prelu_pose()), data, state_dict=inp["prelu_weights"])}
 
 
 def _close(got, want, rtol):
@@ -438,6 +465,31 @@ def test_dp_tp_fit_matches_single_device(dp2tp2, single):
         assert dp2tp2["pose"][1][k].shape == v.shape, k
         np.testing.assert_allclose(dp2tp2["pose"][1][k].numpy(), v.numpy(), rtol=0,
                                    atol=1e-4, err_msg=k)
+
+
+def test_dp_tp_prelu_fit_matches_single_device(dp2tp2, single, inputs):
+    """A learned activation under dp x tp = 2 x 2, from flax weights through
+    utils/convert.py: c0 takes the column-parallel Dense_0's output block,
+    c1 stays whole after Dense_1's all-reduce; the single-device loss trace
+    at rtol 1e-3 (the other tp cases' bound) and the gathered parameters,
+    c0 and c1 whole again, within 1e-3 (measured: one weight of 495,616 at
+    2.0e-4, the rest within 1e-4; Adam's first steps are sign-like, so a
+    weight whose gradient is near 0 moves by up to lr = 3e-3 either way, as
+    test_resnet_batchnorm_matches_single_device allows)."""
+    _, inp = inputs
+    want_c0 = inp["prelu_weights"]["head.c0"]
+    assert dp2tp2["prelu_layout"] == {"head.dense.0.weight": 0, "head.dense.0.bias": 0,
+                                      "head.dense.1.weight": 1, "head.c0": 0}
+    for r, rank in enumerate(dp2tp2["ranks"]):
+        tp_rank = r % 2  # ranks row-major over ('dp', 'tp')
+        assert torch.equal(rank["prelu_local"]["head.c0"],
+                           want_c0.chunk(2)[tp_rank]), r
+        assert torch.equal(rank["prelu_local"]["head.c1"], inp["prelu_weights"]["head.c1"])
+    _close(dp2tp2["prelu"][0], single["prelu"][0], rtol=1e-3)
+    for k, v in single["prelu"][1].items():
+        assert dp2tp2["prelu"][1][k].shape == v.shape, k
+        np.testing.assert_allclose(dp2tp2["prelu"][1][k].numpy(), v.numpy(), rtol=0,
+                                   atol=1e-3, err_msg=k)
 
 
 def test_resnet_batchnorm_matches_single_device(dp2tp2, single):

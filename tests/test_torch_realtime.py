@@ -17,6 +17,7 @@ one seed, at ICVL's 320x240.
   tests/test_com.py).
 """
 
+import os
 import pickle
 
 import jax
@@ -216,10 +217,40 @@ def test_pipeline_threaded_and_empty_frames(nets, frames):
     assert all(np.isfinite(r["joints3d"]).all() for r in results)
     # an empty frame detects nothing and yields no result
     assert tpipe.process_frame(np.zeros_like(frames[0])) is None
-    for draw, arg in ((tpipe.show, {}), (tpipe.show_side, {}),
-                      (tpipe.add_status_bar, np.zeros((4, 4, 3), np.uint8))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            draw(arg)
+
+
+@pytest.mark.parametrize("crop_joint", [None, 13])
+def test_drawing_matches_jax(nets, frames, crop_joint):
+    """show, show_side and add_status_bar on the same result dict and
+    state: the JAX pipeline's arrays bit for bit, in every state (the
+    status light's colour), each hand, tracking or detection; a pose
+    half outside the frame is clipped the same way."""
+    jpipe, tpipe = _pipelines(nets, False)
+    result = tpipe.process_frame(frames[0])
+    off = dict(result, joints3d=result["joints3d"] + np.float32([150.0, 0.0, 0.0]),
+               com=np.float32([-5.0, 3.0, 600.0]))
+    for p in (jpipe, tpipe):
+        p._fps_hist = [0.0, 0.04, 0.08]  # 25 fps on both
+        if crop_joint is not None:
+            p.config["crop_joint_idx"] = crop_joint
+    for res in (result, off):
+        front = tpipe.show(res)
+        np.testing.assert_array_equal(front, jpipe.show(res))
+        assert front.shape == res["frame"].shape + (3,) and front.dtype == np.uint8
+        side = tpipe.show_side(res)
+        np.testing.assert_array_equal(side, jpipe.show_side(res))
+        assert (side > 0).any() and not np.array_equal(side, front)
+    for state, hand, tracking in ((tpipeline.STATE_IDLE, 0, False),
+                                  (tpipeline.STATE_INIT, 1, True),
+                                  (tpipeline.STATE_RUN, 0, True)):
+        for p in (jpipe, tpipe):
+            p.state, p.hand, p.tracking = state, hand, tracking
+        bar = tpipe.add_status_bar(front)
+        np.testing.assert_array_equal(bar, jpipe.add_status_bar(front))
+        assert bar.shape == (front.shape[0] + 20,) + front.shape[1:]
+        np.testing.assert_array_equal(bar[9, 7], tpipeline.STATE_COLORS[state])
+        assert (bar[:20][~np.pad(tpipeline.STATUS_LIGHT, ((0, 0), (0, front.shape[1] - 14)))]
+                != 255).any()  # the text
 
 
 def test_demo_main_on_cpu(tmp_path):
@@ -259,10 +290,43 @@ def test_demo_main_on_cpu(tmp_path):
     for k, v in pipe.estimator.model.state_dict().items():
         assert torch.equal(v, model.state_dict()[k]), k
     assert torch.equal(pipe.estimator.prior.components, torch.from_numpy(comps))
-    for argv in (["--device", "capture"], ["--save-view", "x.png"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            demo_realtime.main(argv + ["--frames", "1", "--device", "cpu"]
-                               if argv[0] != "--device" else argv + ["--frames", "1"])
+    # the native capture camera with its own intrinsics, and --save-view:
+    # the canvas is the front view under the status bar beside the side view
+    view = str(tmp_path / "view.png")
+    pipe, results = demo_realtime.main(["--camera", "capture", "--frames", "2",
+                                        "--device", "cpu", "--save-view", view],
+                                       log=lines.append)
+    assert len(results) == 2 and pipe.camera.fx == pytest.approx(224.5)
+    assert lines[-1] == f"saved view to {view}"
+    canvas = demo_realtime.view_canvas(pipe, results[-1])
+    assert canvas.shape == (240 + 20, 2 * 320, 3)
+    import matplotlib.pyplot as plt
+
+    png = plt.imread(view)
+    assert png.shape[:2] == canvas.shape[:2]
+    np.testing.assert_array_equal(np.rint(png[..., :3] * 255).astype(np.uint8), canvas)
+    # without matplotlib: no PNG, and the demo says so
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_matplotlib(name, *a, **k):
+        if name.startswith("matplotlib"):
+            raise ImportError(f"No module named {name!r}")
+        return real_import(name, *a, **k)
+
+    builtins.__import__ = no_matplotlib
+    try:
+        assert not demo_realtime.save_view(canvas, str(tmp_path / "none.png"), lines.append)
+    finally:
+        builtins.__import__ = real_import
+    assert "no PNG written" in lines[-1] and "matplotlib" in lines[-1]
+    assert not os.path.exists(tmp_path / "none.png")
+    # the JAX demo's spelling of the capture camera runs on the default
+    # device (the card), and raises without one
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            demo_realtime.main(["--device", "capture", "--frames", "1"])
 
 
 def test_demo_main_resnet_with_reference_pickles(tmp_path):
