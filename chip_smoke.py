@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (deepprior_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--order-probe SECONDS]
+    python3 chip_smoke.py [--profile] [--order-probe SECONDS] [--deadline SECONDS]
 
 Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the
 nearest crop K1 and the cv2-linear crop K2; warp.cu: the augmentation
@@ -90,6 +90,19 @@ pipeline -> K1 with every getter checked, demo_realtime --device capture
 --save-view (the canvas and its status light; a PNG only with
 matplotlib), and main_nyu_posereg_embedding --synthetic --accept at B =
 128 (the acceptance record, a non-zero exit on a miss).
+Phases 46-48 (run after phase 41) drive the last two modules: two
+processes in one 'cpu:gloo,cuda:gloo' group on the one card split the crop
+height over sp = 2 (parallel/spatial.py: halo exchanges around the
+convolutions, the last map gathered before the head, K5 on every rank at
+the whole batch), training full-width PoseRegNet at B = 128 (46), ResNet-47
+(float32 and float64) and ScaleNet (ADAM and sgd_momentum) at B = 32 (47)
+against the plain Trainer on the same batches;
+then the JAX package's checkpoint format on a machine without jax (48):
+PoseRegNet's and ResNet-47's network_prior.ckpt written in it
+(``write_jax_checkpoint``) through load_serving_net at B = 512, K1 once a
+call, joints bit-equal to the port's format, serve_http --checkpoint on
+the JAX file, and a JAX-format ScaleNet through load_refine_net_lazy into
+a comref import.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -101,6 +114,11 @@ optimizer) at B = 128 and 512, printing host ms, device busy ms, busy
 share and launches per call, and the kernels that take the most device
 time and the most launches.
 
+After each group of phases a "[time] phases ..." line gives its wall and
+CPU seconds, on stdout and on stderr.  Past --deadline (1100 s) the run
+prints the last line it logged and every thread's stack to stderr, ends
+its child processes and exits with code 3, printing no result.
+
 Needs one CUDA card; without one it exits non-zero before any result.
 Imports nothing of jax or of the JAX package.
 """
@@ -110,6 +128,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import signal
 import subprocess
 import sys
@@ -121,8 +140,111 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 
+# a collective or a subprocess that waits longer raises, naming itself, well
+# inside the run's deadline
+GROUP_TIMEOUT_S = 300
+SUBPROCESS_TIMEOUT_S = 300
+_LAST_LOGGED = ["(nothing logged yet)"]
+_STARTED = time.monotonic()
+_EXPIRED = threading.Event()  # set by the watchdog: the run prints no result
+
+
 def log(msg):
-    print(msg, flush=True)
+    """Prints ``msg`` with the run's seconds so far."""
+    _LAST_LOGGED[0] = str(msg)[:300]
+    print(f"{msg} @{time.monotonic() - _STARTED:.1f}s", flush=True)
+
+
+def _cpu_seconds():
+    """CPU seconds of this process and of its children waited for so far."""
+    t = os.times()
+    return t.user + t.system + t.children_user + t.children_system
+
+
+def host_info():
+    """The host's CPUs as this process sees them, and its load."""
+    import torch
+
+    quota = "none"
+    with contextlib.suppress(OSError):
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota = f.read().strip()
+    return (f"cpus {os.cpu_count()}, affinity {len(os.sched_getaffinity(0))}, cgroup "
+            f"cpu.max {quota}, torch threads {torch.get_num_threads()}, load "
+            f"{' '.join(f'{x:.2f}' for x in os.getloadavg())}")
+
+
+@contextlib.contextmanager
+def stage(label):
+    """Logs the seconds phases ``label`` took, the CPU seconds this process and
+    its children spent in them, the host's load, and the run's seconds so far,
+    on stdout and stderr (so that the end of stderr shows how far a run got)."""
+    t, c = time.monotonic(), _cpu_seconds()
+    yield
+    report(label, t, c)
+
+
+def report(label, t, c):
+    """The line of ``stage``, for phases ``label`` begun at monotonic time
+    ``t`` with ``c`` CPU seconds spent."""
+    line = (f"[time] phases {label}: {time.monotonic() - t:.1f} s, "
+            f"{_cpu_seconds() - c:.1f} CPU s, load {os.getloadavg()[0]:.2f} "
+            f"({time.monotonic() - _STARTED:.1f} s since the start)")
+    log(line)
+    sys.stderr.write(line + "\n")
+    sys.stderr.flush()
+
+
+def _descendants():
+    """The pids of every process under this one (from /proc)."""
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    parent[int(entry)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    found, frontier = [], [os.getpid()]
+    while frontier:
+        kids = [p for p, pp in parent.items() if pp in frontier]
+        found += kids
+        frontier = kids
+    return found
+
+
+def start_watchdog(seconds):
+    """Ends a run that outlasts ``seconds``, so that a hang shows where it
+    is instead of outliving the run's time limit: a daemon thread prints the
+    last line logged and every thread's stack to stderr, sends SIGABRT to
+    every process under this one (Python processes print their threads'
+    stacks then, PYTHONFAULTHANDLER being set for them here), SIGKILL two
+    seconds later, and exits with code 3.  faulthandler's own timer exits 30
+    s later still, should that thread never get the interpreter."""
+    import faulthandler
+
+    os.environ["PYTHONFAULTHANDLER"] = "1"
+    faulthandler.enable()
+    faulthandler.dump_traceback_later(seconds + 30, exit=True)
+
+    def watch():
+        time.sleep(seconds)
+        _EXPIRED.set()
+        sys.stderr.write(f"chip_smoke: still running after {seconds:.0f} s; the last line "
+                         f"logged: {_LAST_LOGGED[0]}\n")
+        sys.stderr.flush()
+        faulthandler.dump_traceback(all_threads=True)
+        kids = _descendants()
+        for sig in (signal.SIGABRT, signal.SIGKILL):
+            for pid in kids:
+                try:
+                    os.kill(pid, sig)
+                except OSError:
+                    pass
+            time.sleep(2)
+        os._exit(3)
+
+    threading.Thread(target=watch, name="chip_smoke watchdog", daemon=True).start()
 
 
 def time_ms(fn, iters, warmup=3):
@@ -206,6 +328,10 @@ def main(argv=None):
                          "run: after the build, phase 41 first and then phases 35-40 in "
                          "this process; past SECONDS every thread's stack is dumped to "
                          "stderr and the process exits")
+    ap.add_argument("--deadline", type=float, default=1100.0, metavar="SECONDS",
+                    help="end the run past SECONDS (default 1100, under the 1200 s a "
+                         "smoke run is given), printing every thread's stack and the "
+                         "last line logged to stderr; exit code 3")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -213,6 +339,7 @@ def main(argv=None):
             "chip_smoke: torch.cuda.is_available() is False; this script "
             "runs the port on a CUDA card and has no CPU fallback"
         )
+    start_watchdog(args.deadline)
 
     from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_depth_frame
@@ -239,7 +366,8 @@ def main(argv=None):
     log(f"[1 device] {name}; count {torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; python "
         f"{sys.version.split()[0]}")
-    log(card)
+    print(card, flush=True)  # as nvidia-smi gives it
+    log(f"[1 host] {host_info()}")
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -549,19 +677,37 @@ def main(argv=None):
         "kernel_only_ms": launch_ms,
         "wrapper_device_ops_per_call": len(wrapper_ops),
     }]
+    report("1-6", _STARTED, 0.0)
     trained = {}
-    kernels += training_phases(dev, tag, log, profile=args.profile, trained=trained)
-    kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
-    serving_phases(dev, tag, log, model, prior, trained, figures)
+    with stage("7-11"):
+        kernels += training_phases(dev, tag, log, profile=args.profile, trained=trained)
+    with stage("12-16"):
+        kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
+    with stage("21-26"):
+        serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
-    resnet_phases(dev, tag, log, kernels, figures)
-    dataset_phases(dev, tag, log, kernels)
-    evaluation_phases(dev, tag, log, kernels, model, prior)
-    scaleout_phases(dev, tag, log, kernels)
-    sharded_serving_phases(dev, tag, log, kernels)
-    gloo_card_phase(dev, tag, log, kernels)
-    kernels += probe_phases(dev, tag, log)
-    roofline_phases(dev, tag, log, model, prior, kernels)
+    with stage("27-30"):
+        resnet_phases(dev, tag, log, kernels, figures)
+    with stage("31-34"):
+        dataset_phases(dev, tag, log, kernels)
+    with stage("42-45"):
+        evaluation_phases(dev, tag, log, kernels, model, prior)
+    with stage("35-37"):
+        scaleout_phases(dev, tag, log, kernels)
+    with stage("38-40"):
+        sharded_serving_phases(dev, tag, log, kernels)
+    with stage("41"):
+        gloo_card_phase(dev, tag, log, kernels)
+    with stage("46-47"):
+        spatial_card_phases(dev, tag, log, kernels)
+    with stage("48"):
+        jax_checkpoint_phase(dev, tag, log, kernels)
+    with stage("17-18"):
+        kernels += probe_phases(dev, tag, log)
+    with stage("19-20"):
+        roofline_phases(dev, tag, log, model, prior, kernels)
+    if _EXPIRED.is_set():
+        raise SystemExit(3)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -628,6 +774,8 @@ def graph_outputs(fn):
     fn() call (warmed up on a side stream first, as capture requires)."""
     import torch
 
+    from deepprior_tpu_torch.utils.profiling import graph_capture
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -635,7 +783,7 @@ def graph_outputs(fn):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graph_capture(graph):
         out = fn()
     graph.replay()
     out = [t.clone() for t in out]  # out of the graph's memory pool
@@ -1011,10 +1159,12 @@ def training_phases(dev, tag, log, profile=False, trained=None):
     ]
 
 
-def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
+def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64, n_cpu=16):
     """Phases 12-16: K2 against its plain version, the 'linear' estimator
-    through K2 at B = 512, detection and refinement on the card at B = 64,
-    the realtime pipeline and the demo main, and their timings.  ``model``
+    through K2 at B = 512, detection and refinement on the card at B =
+    ``n_det`` (the first ``n_cpu`` frames also on the CPU, the slow side of
+    the comparison), the realtime pipeline and the demo main, and their
+    timings.  ``model``
     is the full-width bf16 PoseRegNet of phase 4.  Returns K2's JSON
     record."""
     import os
@@ -1148,9 +1298,10 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
 
     # --------------------------------------------------------------- 14
     b64 = n_det
-    # b64 distinct frames, every one also detected on the CPU
+    # b64 distinct frames on the card, the first n_cpu also detected on the
+    # CPU (each frame's detection is its own: clamp limits per image)
     depth_6, com_6 = frames(cam, b64)
-    cpu_6 = depth_6.cpu()
+    cpu_6 = depth_6[:n_cpu].cpu()
     dc6, dmin6, dmax6 = clamp_depth(depth_6)
     det_dev = tcom.detect_closest(dc6, cube, cam.fx, cam.fy, min_depth=dmin6,
                                   max_depth=dmax6)
@@ -1159,8 +1310,8 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
                                   max_depth=dmaxc)
     full_dev = tcom.detect(depth_6, cube, cam.fx, cam.fy)
     full_cpu = tcom.detect(cpu_6, cube, cam.fx, cam.fy)
-    com_err = max((det_dev.cpu() - det_cpu).abs().max().item(),
-                  (full_dev.cpu() - full_cpu).abs().max().item())
+    com_err = max((det_dev[:n_cpu].cpu() - det_cpu).abs().max().item(),
+                  (full_dev[:n_cpu].cpu() - full_cpu).abs().max().item())
     if com_err > 0.5:
         raise AssertionError(f"CoMs on the card differ from the CPU's by {com_err}")
     modes = (("detect, K1", dict(detect=True), "normalized_crop"),
@@ -1179,14 +1330,14 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
         pj, pc3, pcr = pe(depth_6, com_6)
         if not (torch.equal(crops, pcr) and torch.equal(c3, pc3)):
             raise AssertionError(f"{label}: crops or CoMs != the plain path's")
-        cerr = (c3.cpu() - ce(cpu_6, com_6.cpu())[1]).abs().max().item()
+        cerr = (c3[:n_cpu].cpu() - ce(cpu_6, com_6[:n_cpu].cpu())[1]).abs().max().item()
         if cerr > 0.5 or not torch.isfinite(joints).all():
             raise AssertionError(f"{label}: CoM vs CPU {cerr} mm")
         com_err = max(com_err, cerr)
         log(f"[14 detection] {label} B={b64}: launches {got}, crops and CoMs == "
-            f"plain path, com3d vs CPU max |d| {cerr} mm")
+            f"plain path, com3d vs CPU (first {n_cpu}) max |d| {cerr} mm")
     log(f"[14 detection] detect_closest and detect (slice scan) on the card at "
-        f"B={b64} distinct frames vs the CPU on all of them: max |d| {com_err} "
+        f"B={b64} distinct frames vs the CPU on the first {n_cpu}: max |d| {com_err} "
         f"px/mm (bound 0.5)")
 
     # --------------------------------------------------------------- 15
@@ -1197,12 +1348,12 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
     # and detected CoMs; a TF32 run of the same net shows what a leak of
     # TF32 into the refiner would cost
     cpu_scalenet = copy.deepcopy(scalenet).cpu()
-    ref_err = (refiner(dc6, det_dev, cube).cpu()
-               - CNNComRefiner(cpu_scalenet, cam)(dcc, det_dev.cpu(), cube)
+    ref_err = (refiner(dc6, det_dev, cube)[:n_cpu].cpu()
+               - CNNComRefiner(cpu_scalenet, cam)(dcc, det_dev[:n_cpu].cpu(), cube)
                ).abs().max().item()
     crops6 = hopper_crop.hopper_normalized_crop(dc6, det_dev, cube, cam.fx, cam.fy)[0]
     with torch.inference_mode():
-        off_cpu = cpu_scalenet(crops6.cpu()[:, None])
+        off_cpu = cpu_scalenet(crops6[:n_cpu].cpu()[:, None])
         with float32_compute():
             off_f32 = scalenet(crops6[:, None]).cpu()
         backends = torch.backends.cudnn, torch.backends.cuda.matmul
@@ -1214,13 +1365,14 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
         finally:
             for b, v in zip(backends, saved):
                 b.allow_tf32 = v
-    f32_mm = (off_f32 - off_cpu).abs().max().item() * cube[2] / 2.0
-    tf32_mm = (off_tf32 - off_cpu).abs().max().item() * cube[2] / 2.0
+    f32_mm = (off_f32[:n_cpu] - off_cpu).abs().max().item() * cube[2] / 2.0
+    tf32_mm = (off_tf32[:n_cpu] - off_cpu).abs().max().item() * cube[2] / 2.0
     if ref_err > 0.5 or not f32_mm < tf32_mm:
         raise AssertionError(f"ScaleNet refiner on the card vs CPU: {ref_err} px/mm, "
                              f"offset {f32_mm} mm (TF32 run: {tf32_mm} mm)")
     log(f"[15 refiner] CNNComRefiner (ScaleNet hidden 1024 f32) on the card vs a CPU "
-        f"copy, B={b64}: refined CoMs max |d| {ref_err} px/mm (bound 0.5); offsets "
+        f"copy, B={b64} (the first {n_cpu} on the CPU): refined CoMs max |d| {ref_err} "
+        f"px/mm (bound 0.5); offsets "
         f"max |d| {f32_mm} mm, vs {tf32_mm} mm with TF32 allowed")
     cfg = {"fx": cam.fx, "fy": cam.fy, "cube": cube}
     pipe = RealtimeHandposePipeline(est, cfg, com_refiner=refiner)
@@ -1277,7 +1429,7 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64):
     demo = subprocess.run(
         [sys.executable, "-m", "deepprior_tpu_torch.mains.demo_realtime",
          "--frames", "50", "--comref"],
-        capture_output=True, text=True, timeout=600,
+        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S,
         env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))),
     )
     if demo.returncode != 0 or " frames on cuda" not in demo.stdout:
@@ -1439,6 +1591,19 @@ def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max
         f"{torch.__version__})")
 
     # --------------------------------------------------------------- 22
+    # every capture of the port goes through graph_capture, which holds the
+    # cyclic collector off: a dead graph it destroyed mid-capture once
+    # invalidated phase 38's capture (prof_graph_gc shows the mechanism)
+    from deepprior_tpu_torch.prof.prof_graph_gc import capture_with_garbage
+    from deepprior_tpu_torch.utils.profiling import graph_capture
+
+    for trial in range(3):
+        err = capture_with_garbage(graph_capture, dev)
+        if err:
+            raise AssertionError(f"graph_capture with a dead graph pending, trial {trial}: "
+                                 f"{err}")
+    log("[22 capture] graph_capture with a dead CUDA graph in a reference cycle and the "
+        "collector's threshold at 1: 3 of 3 captures replay == eager")
     est = FusedEstimator(model, cam, prior=prior, device=dev)
     if not est.captures:
         raise AssertionError("the serving estimator does not capture")
@@ -2439,10 +2604,18 @@ def dataset_phases(dev, tag, log, kernels, frames=256, nyu_frames=128, batch=128
 
     # --------------------------------------------------------------- 32
     def run(main, argv):
+        """``main`` on the tree, its prior cut to the synthetic mains' count of
+        poses (the host fit of the recipe's count, about 10 s, is timed once
+        below and not repeated in each of the six runs)."""
         hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+        saved = common.PRIOR_POSES
+        common.PRIOR_POSES = common.PRIOR_POSES_SYNTHETIC
         t = time.perf_counter()
-        res = main(argv + ["--data", root, "--cache-dir", cache, "--device", str(dev)])
-        torch.cuda.synchronize()
+        try:
+            res = main(argv + ["--data", root, "--cache-dir", cache, "--device", str(dev)])
+            torch.cuda.synchronize()
+        finally:
+            common.PRIOR_POSES = saved
         return res, dict(hw.LAUNCHES), time.perf_counter() - t
 
     fold = ["--holdout", "P8", "--batch-size", str(batch)]
@@ -2523,8 +2696,8 @@ def dataset_phases(dev, tag, log, kernels, frames=256, nyu_frames=128, batch=128
         f"algorithms: K5 {epochs * steps}x in each run; streamed loss trace == resident "
         f"({c_res[0]:.4f} -> {c_res[-1]:.4f}), parameters equal, P8 mean {e_res:.3f} mm; "
         f"main wall resident {w_res:.1f} s, streamed {w_str:.1f} s (import from the cache "
-        f"and prior included; the prior of {common.PRIOR_POSES:,} poses alone "
-        f"{prior_s:.2f} s on the host); K5 == plain at B={batch} and 64 on these crops; "
+        f"and a prior of {common.PRIOR_POSES_SYNTHETIC:,} poses included; the recipe's "
+        f"prior of {common.PRIOR_POSES:,} poses alone {prior_s:.2f} s on the host); K5 == plain at B={batch} and 64 on these crops; "
         + "; ".join(f"{m}: {1e3 * batch / v[0]:.1f} samples/s ({v[0]:.4f} ms/step), busy "
                     f"share {v[1]:.3f}" + (f", staging {v[2]:.3f} ms/chunk of 8 steps "
                                            f"(median)" if v[2] is not None else "")
@@ -2975,7 +3148,7 @@ def scaleout_phases(dev, tag, log, kernels, batch=128, steps=12,
 
     # --------------------------------------------------------------- 35
     multihost.initialize(store=dist.FileStore(f"{out}/store", 1), num_processes=1,
-                         process_id=0, device="cuda")
+                         process_id=0, device="cuda", timeout=GROUP_TIMEOUT_S)
     try:
         mesh = make_mesh()
         group = (f"{dist.get_backend()} group of {dist.get_world_size()}, mesh "
@@ -3301,7 +3474,7 @@ def sharded_serving_phases(dev, tag, log, kernels, replica_batch=64, n_req=2048)
     # --------------------------------------------------------------- 40
     t = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "deepprior_tpu_torch.mains.dryrun"],
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S)
     okline = [ln for ln in res.stdout.splitlines() if ln.startswith("dryrun_multichip OK")]
     if res.returncode != 0 or not okline:
         raise AssertionError(f"dryrun failed ({res.returncode}): {res.stdout[-2000:]} "
@@ -3326,7 +3499,8 @@ def _gloo_card_rank(rank, world, out, batch, steps):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     multihost.initialize(store=dist.FileStore(f"{out}/store", world), num_processes=world,
-                         process_id=rank, device="cuda", backend="cpu:gloo,cuda:gloo")
+                         process_id=rank, device="cuda", backend="cpu:gloo,cuda:gloo",
+                         timeout=GROUP_TIMEOUT_S)
     try:
         dev = torch.device("cuda", torch.cuda.current_device())
         data, prior, cfg, pose, cam = _gloo_card_setup(batch, steps)
@@ -3434,6 +3608,536 @@ def gloo_card_phase(dev, tag, log, kernels, world=2, batch=128, steps=3,
         f"against one device: max relative deviation {dev_loss:.3e}, parameters within "
         f"{dev_param:.3e}; {wall:.1f} s with the processes' start")
     shutil.rmtree(out, ignore_errors=True)
+
+
+def _spatial_card_setups(batch, steps, res_batch, res_steps):
+    """Phases 46-47's legs: {name: (data, prior, cfg, make, camera,
+    parameter bound, exact leg)}.  Full-width PoseRegNet (hidden 1024, PCA
+    30, dropout, the augmentation, ADAM, float32); ResNet-47 in float32,
+    the model users train, and in float64; ScaleNet (the comref net) in
+    float32 under ADAM, the optimizer users train it with, and under
+    sgd_momentum.  Every leg holds its losses to rtol 1e-4 of one device's
+    and ResNet's BatchNorm running statistics to 1e-5, and its parameters
+    to 1e-4 where the bound is set (read elsewhere), except a leg that
+    names an exact one: float32 ResNet-47 at its initial weights takes the
+    loss from 36 to 20 in one step, and two float32 summation orders then
+    part by about 5e-4 (both about as far from float64), so that leg is
+    bound to one device up to its first update and to the float64 losses
+    at rtol 1e-3.  ADAM's first steps are sign-like, so a weight whose
+    gradient is small moves by up to lr either way: ScaleNet's ADAM leg
+    reads its parameters and logs the worst tensor's last gradient, plain
+    and split."""
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_sequence
+    from deepprior_tpu_torch.models import (
+        PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig, ScaleNet, ScaleNetConfig)
+    from deepprior_tpu_torch.prior import fit_pose_prior
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData
+
+    cam = NYU_CAMERA
+    data = TrainData.from_sequence(make_sequence(cam, batch, seed=46))
+    prior = fit_pose_prior(cam, np.random.default_rng(46), data.gt3d_crop, data.com,
+                           data.cube, 30, num_poses=20_000)
+    cfg = TrainConfig(batch_size=batch, n_epochs=steps, use_early_stopping=False)
+    small = TrainData(*(np.asarray(a)[:res_batch] for a in data))
+    com = small._replace(gt3d_crop=small.gt3d_crop[:, :1])
+    rcfg = cfg._replace(batch_size=res_batch, n_epochs=res_steps)
+    sgd = rcfg._replace(optimizer="sgd_momentum")
+
+    def seeded(cls, cfg_):
+        return lambda: cls(cfg_, generator=torch.Generator().manual_seed(46))
+
+    def resnet(dtype):
+        return seeded(ResNet, ResNetConfig(num_joints=1, n_dims=30, dtype=dtype))
+
+    scalenet = seeded(ScaleNet, ScaleNetConfig(num_joints=1, n_dims=3))
+    return {
+        "pose": (data, prior, cfg, seeded(PoseRegNet, PoseRegNetConfig(num_joints=1, n_dims=30)),
+                 cam, 1e-4, None),
+        "resnet f32": (small, prior, sgd._replace(model_has_dropout=False),
+                       resnet(torch.float32), cam, None, "resnet f64"),
+        "resnet f64": (small, prior, sgd._replace(model_has_dropout=False),
+                       resnet(torch.float64), cam, 1e-4, None),
+        "scalenet adam": (com, None, rcfg, scalenet, cam, None, None),
+        "scalenet sgd": (com, None, sgd, scalenet, cam, 1e-4, None),
+    }
+
+
+def _spatial_card_rank(rank, world, out, sizes, device="cuda"):
+    """Phases 46-47's rank: a DistributedTrainer of each model over a dp = 1
+    x sp = ``world`` mesh of a 'cpu:gloo,cuda:gloo' group whose ranks all use
+    cuda:0 (a gloo group on the CPU with ``device`` 'cpu', for a rehearsal),
+    and K5 at this path's shape against its plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from deepprior_tpu_torch.ops import hopper_warp as hw
+    from deepprior_tpu_torch.ops.augment import NV_VAL, augment_geometry, sample_augment_params
+    from deepprior_tpu_torch.parallel import DistributedTrainer, make_mesh, multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    multihost.initialize(store=dist.FileStore(f"{out}/store", world), num_processes=world,
+                         process_id=rank, device=device,
+                         backend="cpu:gloo,cuda:gloo" if device == "cuda" else "gloo",
+                         timeout=GROUP_TIMEOUT_S)
+    try:
+        dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+               else torch.device("cpu"))
+        mesh = make_mesh(dp=1, sp=world)
+        setups = _spatial_card_setups(*sizes)
+        result = {"backend": dist.get_backend()}
+        with deterministic_algorithms():
+            for name, (data, prior, cfg, make, cam, *_) in setups.items():
+                hw.LAUNCHES.update(dict.fromkeys(hw.LAUNCHES, 0))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                tr = DistributedTrainer(make(), cfg, cam, mesh, prior=prior, device=dev)
+                st, hist = tr.fit(tr.init_state(), data, log=lambda m: None)
+                torch.cuda.synchronize()
+                result[name] = {"costs": list(hist["train_cost"]), "k5": dict(hw.LAUNCHES),
+                                "s": time.perf_counter() - t,
+                                "params": {k: v.cpu() for k, v in
+                                           tr.full_state_dict(st).items()},
+                                "grads": {k: p.grad.cpu() for k, p in
+                                          st.model.named_parameters()}}
+        # K5 at this path's shape: every sp rank warps the whole batch
+        data, _, cfg, _, cam, *_ = setups["pose"]
+        b = cfg.batch_size
+        bt = data.to(dev).take(torch.arange(b, device=dev))
+        drawn = sample_augment_params(torch.Generator(dev).manual_seed(46), b, 3)
+        modes = ("com", "rot", "none")
+        geo = augment_geometry(drawn, bt["com"], bt["cube"], bt["m"], cam, modes, (128, 128))
+        want = hw.warp_norm_plain(bt["crops"], hw.warp_norm_params(geo.a_fwd, geo.norm),
+                                  0.0, NV_VAL)
+        got = hw.launch_warp_norm(bt["crops"], hw.warp_norm_args(
+            bt["crops"], drawn, bt["com"], bt["cube"], bt["m"], cam, modes), 0.0, NV_VAL)
+        result["k5_equal"] = bool(torch.equal(got.out, want))
+        result["k5_err"] = float((got.out - want).abs().max())
+        torch.save(result, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_card_phases(dev, tag, log, kernels, world=2, batch=128, steps=3, res_batch=32,
+                        res_steps=2, out="eval/chip_smoke_sp"):
+    """Phases 46-47, the 'sp' axis: ``world`` processes, each a rank of one
+    'cpu:gloo,cuda:gloo' group and all on the one card, split the crop height
+    over sp = ``world`` (parallel/spatial.py: halo exchanges around the
+    convolutions, K5 on every rank at the whole batch) under deterministic
+    algorithms, against the plain Trainer here on the same batches.  (46)
+    PoseRegNet at full width (hidden 1024, PCA 30, f32, dropout, aug
+    com/rot/none) at B = ``batch`` for ``steps`` steps: K5 ``steps`` times on
+    every rank and == its plain version at B = ``batch``, the losses within
+    rtol 1e-4 and every parameter within 1e-4.  (47) ResNet-47 (float32
+    and float64) and ScaleNet (the comref net; ADAM and sgd_momentum) at
+    full width, B = ``res_batch``, ``res_steps`` steps: the losses within
+    rtol 1e-4, ResNet's BatchNorm running statistics within 1e-5, and the
+    parameters within 1e-4 in the legs ``_spatial_card_setups`` bounds
+    (read in the others; float32 ResNet-47 as it says).  Logs the largest deviations, the wall time and
+    the halo bytes a step and rank, reckoned from the layout.  Gloo carries
+    the CUDA tensors through host memory: the time proves the semantics,
+    not a speed."""
+    import os
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from deepprior_tpu_torch.parallel.spatial import SpatialContext, plan_for
+    from deepprior_tpu_torch.train.trainer import Trainer
+
+    record = {k["name"]: k for k in kernels}
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    sizes = (batch, steps, res_batch, res_steps)
+    t = time.perf_counter()
+    mp.start_processes(_spatial_card_rank, args=(world, out, sizes, dev.type), nprocs=world,
+                       start_method="spawn")
+    wall = time.perf_counter() - t
+    ranks = [torch.load(f"{out}/rank{r}.pt", weights_only=False) for r in range(world)]
+    for r, res in enumerate(ranks):
+        if not res["k5_equal"]:
+            raise AssertionError(f"sp rank {r}: K5 != plain at B={batch} ({res['k5_err']})")
+        record["warp_norm"]["max_abs_err"] = max(record["warp_norm"]["max_abs_err"],
+                                                 res["k5_err"])
+    setups, plain = _spatial_card_setups(*sizes), {}
+    for name, (data, prior, cfg, make, cam, *_) in setups.items():
+        with deterministic_algorithms():
+            single = Trainer(make(), cfg, cam, prior=prior, device=dev)
+            st, hist = single.fit(single.init_state(), data, log=lambda m: None)
+        plain[name] = (np.asarray(hist["train_cost"]), st)
+    def off(a, b, stats):
+        """The largest |a - b| over the statistics (or the parameters) of
+        two state dicts, and the tensor it is in."""
+        return max((float((a[k].cpu() - v.cpu()).abs().max()), k) for k, v in b.items()
+                   if ("running" in k) == stats)
+
+    paths = {}
+    for name, (data, prior, cfg, make, cam, bound, exact) in setups.items():
+        want, st = plain[name]
+        ours = st.model.state_dict()
+        n = len(want)
+        phase = 46 if name == "pose" else 47
+        dev_loss = dev_stat = 0.0
+        worst = (0.0, None, None)  # (parameter deviation, tensor, rank)
+        for r, res in enumerate(ranks):
+            got = res[name]
+            costs = np.asarray(got["costs"])
+            if got["k5"] != {"warp_norm": n, "warp_patch": 0}:
+                raise AssertionError(f"sp rank {r} {name}: {n} steps launched {got['k5']}")
+            # a leg held to an exact one: bound to one device up to its first
+            # update, and within rtol 1e-3 of the exact losses
+            np.testing.assert_allclose(costs[:1] if exact else costs, want[:1] if exact
+                                       else want, rtol=1e-4, err_msg=name)
+            if exact:
+                np.testing.assert_allclose(costs, plain[exact][0], rtol=1e-3, err_msg=name)
+            dev_loss = max(dev_loss, float(np.max(np.abs(costs - want) / np.abs(want))))
+            if any("running" in k for k in ours):
+                d, k = off(got["params"], ours, True)
+                if exact is None and d > 1e-5:
+                    raise AssertionError(f"sp rank {r} {name}: {k} off by {d} (> 1e-5)")
+                dev_stat = max(dev_stat, d)
+            d, k = off(got["params"], ours, False)
+            if bound is not None and d > bound:
+                raise AssertionError(f"sp rank {r} {name}: {k} off by {d} (> {bound})")
+            worst = max(worst, (d, k, r), key=lambda w: w[0])
+            paths[f"sp={world} {name} on one card, rank {r} ({phase})"] = got["k5"]["warp_norm"]
+        d, k, r = worst
+        reading = f"parameters within {d:.3e}"
+        if bound is None:  # a reading: the worst tensor's last gradient, plain and split
+            grads = {k_: p.grad.cpu() for k_, p in st.model.named_parameters()}
+            g, g_sp = grads[k], ranks[r][name]["grads"][k]
+            reading += (f" (read, not bound: {k}, its last gradient max |g| "
+                        f"{float(g.abs().max()):.3e} plain, the split one off by "
+                        f"{float((g_sp - g).abs().max()):.3e}; largest gradient "
+                        f"{max(float(v.abs().max()) for v in grads.values()):.3e})")
+        if exact is not None:  # both float32 runs against the exact one
+            ref, ex = plain[exact][0], plain[exact][1].model.state_dict()
+            split = ranks[0][name]
+            reading += (
+                f"; against {exact} one device's losses {ref.tolist()}: the split off by "
+                f"{(np.abs(np.asarray(split['costs']) - ref) / ref).tolist()} relative, one "
+                f"device by {(np.abs(want - ref) / ref).tolist()}; statistics: the split off "
+                f"by {off(split['params'], ex, True)}, one device by {off(ours, ex, True)}; "
+                f"parameters: the split off by {off(split['params'], ex, False)}, one device "
+                f"by {off(ours, ex, False)}")
+        # the halo a step and rank: the rows each exchange brings in, of
+        # square maps in the model's compute dtype, forward and back
+        model = make()
+        itemsize = torch.empty((), dtype=model.cfg.dtype).element_size()
+        exchanging = [layer for layout in plan_for(model, SpatialContext(None, 0, world)).layers
+                      for layer in layout if layer.own_in is not None]
+        channels = ([b.conv1.in_channels for b in model.blocks] if name.startswith("resnet")
+                    else [8] * len(exchanging))
+        halo = [2 * sum(layer.halo_rows(r) * cfg.batch_size * c * layer.h_in * itemsize
+                        for layer, c in zip(exchanging, channels)) for r in range(world)]
+        log(f"[{phase} sp] {tag} {world} processes, one {ranks[0]['backend']} group on {dev}: "
+            f"DistributedTrainer dp=1 x sp={world}, {name} full width, {cfg.optimizer}, "
+            f"B={cfg.batch_size}, {n} steps (deterministic): K5 {n}x on every rank; losses "
+            f"{want.tolist()} against one device: max relative deviation {dev_loss:.3e}, "
+            f"{reading}"
+            + (f", BatchNorm running statistics within {dev_stat:.3e}"
+               + (" (read, not bound)" if exact else "") if name.startswith("resnet") else "")
+            + f"; halo {halo} bytes a step per rank (forward + backward); "
+            f"{max(res[name]['s'] for res in ranks):.1f} s of training on the slowest rank")
+    record["warp_norm"]["launches_by_path"] = dict(
+        record["warp_norm"].get("launches_by_path", {}), **paths)
+    log(f"[46-47 sp] {tag} K5 == plain at B={batch} on every rank; {wall:.1f} s with the "
+        f"processes' start (gloo carries CUDA tensors through host memory: semantics, "
+        f"not speed)")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def jax_checkpoint_phase(dev, tag, log, kernels, batch=512, frames=256,
+                         out="eval/chip_smoke_jax"):
+    """Phase 48, the JAX package's checkpoint format on a machine without
+    jax: a full-width PoseRegNet's and a calibrated ResNet-47's
+    network_prior.ckpt written in that format (``write_jax_checkpoint``,
+    held byte for byte to the JAX package's save_checkpoint in
+    deepprior_tpu/train/checkpoint.py by tests/test_torch_jax_checkpoint.py) and in the port's, each through
+    load_serving_net into a FusedEstimator at B = ``batch`` NYU frames: K1
+    once per call, the joints bit-equal between the two formats; serve_http
+    --checkpoint <the JAX file> as a subprocess answering /predict; a JAX
+    format ScaleNet net_P0_COM.ckpt through load_refine_net_lazy into a
+    comref import of an MSRA15 subject of ``frames`` frames (K1 once per
+    chunk of 256)."""
+    import io
+    import shutil
+
+    import torch
+
+    from deepprior_tpu_torch.camera import MSRA15_CAMERA, NYU_CAMERA
+    from deepprior_tpu_torch.data import trees
+    from deepprior_tpu_torch.data.importers import MSRA15Importer
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.mains.common import load_serving_net
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ScaleNet, ScaleNetConfig
+    from deepprior_tpu_torch.ops import hopper_crop
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.train.checkpoint import save_checkpoint
+    from deepprior_tpu_torch.train.trainer import TrainConfig
+
+    record = {k["name"]: k for k in kernels}
+    paths = {}
+    shutil.rmtree(out, ignore_errors=True)
+    cam = NYU_CAMERA
+    rng = np.random.default_rng(48)
+    pairs = [make_depth_frame(cam, rng) for _ in range(16)]
+    depth = torch.from_numpy(np.stack([p[0] for p in pairs] * (batch // 16))).to(dev)
+    com = torch.from_numpy(np.stack([p[1] for p in pairs] * (batch // 16))).to(dev)
+    prior_np = {"pca_components": (rng.standard_normal((30, 42)) * 0.05).astype(np.float32),
+                "pca_mean": rng.uniform(-0.1, 0.1, 42).astype(np.float32)}
+    config = TrainConfig()._asdict()  # the JAX fingerprint: no "model" field
+    t0 = time.perf_counter()
+    pose = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30),
+                      generator=torch.Generator().manual_seed(48))
+    resnet, _ = calibrated_resnet(dev, cam, depth[:16], com[:16])
+    files = {}
+    for name, model in (("poseregnet", pose), ("resnet", resnet)):
+        jax_file, port_file = f"{out}/{name}_jax.ckpt", f"{out}/{name}_port.ckpt"
+        write_jax_checkpoint(jax_file, dict(flax_variables(model), **prior_np), config)
+        save_checkpoint(port_file, dict(params=model.state_dict(), **prior_np),
+                        config=dict(config, model=name))
+        joints = {}
+        for fmt, path in (("jax", jax_file), ("port", port_file)):
+            served, prior = load_serving_net(name, checkpoint=path, device=dev)
+            est = FusedEstimator(served, cam, prior=prior, device=dev)
+            hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+            joints[fmt] = est(depth, com)[0]
+            torch.cuda.synchronize()
+            if dict(hopper_crop.LAUNCHES) != {"normalized_crop": 1, "normalized_crop_linear": 0}:
+                raise AssertionError(f"{name} from the {fmt} format launched "
+                                     f"{hopper_crop.LAUNCHES}")
+            paths[f"JAX-format {name} network_prior.ckpt, estimator (48)" if fmt == "jax"
+                  else f"port-format {name} network_prior.ckpt, estimator (48)"] = 1
+        if not (torch.isfinite(joints["jax"]).all() and joints["jax"].shape == (batch, 14, 3)
+                and torch.equal(joints["jax"], joints["port"])):
+            raise AssertionError(f"{name}: the JAX-format checkpoint's joints differ from "
+                                 f"the port format's")
+        files[name] = jax_file
+    load_s = time.perf_counter() - t0
+
+    # serve_http --checkpoint <the JAX file>
+    proc, port, seen = http_server(["deepprior_tpu_torch.mains.serve_http", "--checkpoint",
+                                    files["poseregnet"], "--port", "0", "--device", str(dev),
+                                    "--max-wait-ms", "20"])
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, depth=pairs[0][0], com=pairs[0][1])
+        status, body = http_call(port, "POST", "/predict", buf.getvalue())
+    finally:
+        stop(proc)
+    served, prior = load_serving_net("poseregnet", checkpoint=files["poseregnet"], device=dev)
+    want = FusedEstimator(served, cam, prior=prior, device=dev)(depth[:1], com[:1])[0][0]
+    http_err = float(np.abs(np.asarray(body.get("joints"), np.float32)
+                            - want.cpu().numpy()).max()) if status == 200 else None
+    if status != 200 or http_err > 1e-3:
+        raise AssertionError(f"serve_http --checkpoint <JAX file>: {status} {body}")
+
+    # a JAX-format ScaleNet through load_refine_net_lazy into a comref import
+    root = f"{out}/msra15"
+    trees.write_msra15_tree(root, subjects=["P0"], frames=frames, seed=48)
+    refiner = ScaleNet(ScaleNetConfig(num_joints=1, n_dims=3),
+                       generator=torch.Generator().manual_seed(48))
+    ckpt = f"{out}/P0_COM/net_P0_COM.ckpt"
+    write_jax_checkpoint(ckpt, flax_variables(refiner), config)
+    imp = MSRA15Importer(root, use_cache=False, device=dev)
+    loaded = imp.load_refine_net_lazy(ckpt)
+    if not all(torch.equal(v.cpu(), loaded.model.state_dict()[k].cpu())
+               for k, v in refiner.state_dict().items()):
+        raise AssertionError("load_refine_net_lazy did not restore the JAX-format ScaleNet")
+    hopper_crop.LAUNCHES.update(dict.fromkeys(hopper_crop.LAUNCHES, 0))
+    seq = imp.loadSequence("P0", docom=True, device_crop=True)
+    torch.cuda.synchronize()
+    chunks = -(-frames // 256)
+    if dict(hopper_crop.LAUNCHES) != {"normalized_crop": chunks, "normalized_crop_linear": 0}:
+        raise AssertionError(f"the comref import of {chunks} chunks launched "
+                             f"{hopper_crop.LAUNCHES}")
+    if not all(np.isfinite(f.com).all() for f in seq.data):
+        raise AssertionError("non-finite refined CoMs")
+    paths["JAX-format ScaleNet net_P0_COM.ckpt, comref import (48)"] = chunks
+    record["normalized_crop"]["launches_by_path"] = dict(
+        record["normalized_crop"].get("launches_by_path", {}), **paths)
+    log(f"[48 JAX checkpoint] {tag} a full-width PoseRegNet's and a calibrated ResNet-47's "
+        f"network_prior.ckpt in the JAX package's format (b'DPTPU1', flax msgpack), read "
+        f"without jax or msgpack through load_serving_net: at B={batch} NYU K1 once per "
+        f"call, joints bit-equal to the same weights from the port's format "
+        f"({load_s:.1f} s for both families, both formats); serve_http --checkpoint <JAX "
+        f"file> answered /predict within {http_err} mm of the estimator; a JAX-format "
+        f"ScaleNet net_P0_COM.ckpt through load_refine_net_lazy: every tensor restored, "
+        f"the comref import of {len(seq.data)} frames launched K1 {chunks}x")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's checkpoint format, written without jax (phase 48)
+# ---------------------------------------------------------------------------
+def _nchw_rows_to_nhwc(kernel, c):
+    """A Dense kernel's (in, out) rows from the NCHW flatten order back to
+    flax's NHWC one (utils/convert.py's inverse)."""
+    rows = kernel.shape[0]
+    side = math.isqrt(rows // c)
+    return kernel.reshape(c, side, side, -1).transpose(1, 2, 0, 3).reshape(rows, -1)
+
+
+def flax_variables(model):
+    """A port PoseRegNet, ResNet or ScaleNet as the JAX package's flax
+    variables ({"params", "batch_stats"}, numpy leaves): the inverse of
+    utils/convert.py::state_dict_from_flax."""
+    from deepprior_tpu_torch.models import PoseRegNet, ResNet, ScaleNet
+    from deepprior_tpu_torch.models.scalenet import FEATURES, tower_sides
+
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+    def conv(pfx):
+        return {"kernel": np.ascontiguousarray(sd[f"{pfx}.weight"].transpose(2, 3, 1, 0)),
+                "bias": sd[f"{pfx}.bias"]}
+
+    def head(blocks):
+        """{Dense_i}: the first kernel's rows back to NHWC, block by block."""
+        out, i = {}, 0
+        while f"head.dense.{i}.weight" in sd:
+            kern = sd[f"head.dense.{i}.weight"].T
+            if i == 0:
+                parts, start = [], 0
+                for c, rows in blocks:
+                    parts.append(_nchw_rows_to_nhwc(kern[start:start + rows], c))
+                    start += rows
+                kern = np.concatenate(parts)
+            out[f"Dense_{i}"] = {"kernel": np.ascontiguousarray(kern),
+                                 "bias": sd[f"head.dense.{i}.bias"]}
+            i += 1
+        return out
+
+    rows = sd["head.dense.0.weight"].shape[1]
+    if isinstance(model, PoseRegNet):
+        n = len(model.convs)
+        params = {f"ConvPool_{i}": {"Conv_0": conv(f"convs.{i}.conv")} for i in range(n)}
+        params["MLPHead_0"] = head([(model.convs[-1].conv.out_channels, rows)])
+        for c in ("c0", "c1"):
+            if f"head.{c}" in sd:
+                params["MLPHead_0"][c] = sd[f"head.{c}"]
+        return {"params": params, "batch_stats": {}}
+    if isinstance(model, ScaleNet):
+        params = {f"_Tower_{t}": {f"ConvPool_{i}": {"Conv_0": conv(f"towers.{t}.layers.{i}.conv")}
+                                  for i in range(len(model.towers[t].layers))}
+                  for t in range(len(model.towers))}
+        params["MLPHead_0"] = head([(FEATURES, FEATURES * s * s) for s in tower_sides(
+            128, model.cfg.resize_factor)])
+        return {"params": params, "batch_stats": {}}
+    if not isinstance(model, ResNet):
+        raise TypeError(f"no flax layout for {type(model).__name__}")
+
+    def bn(pfx):
+        return ({"scale": sd[f"{pfx}.weight"], "bias": sd[f"{pfx}.bias"]},
+                {"mean": sd[f"{pfx}.running_mean"], "var": sd[f"{pfx}.running_var"]})
+
+    params, stats = {"Conv_0": conv("stem")}, {}
+    for i in range(len(model.blocks)):
+        bp, bs = {}, {}
+        for j in range(3):
+            bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"] = bn(f"blocks.{i}.bn{j}")
+            bp[f"Conv_{j}"] = conv(f"blocks.{i}.conv{j}")
+        if f"blocks.{i}.shortcut.weight" in sd:
+            bp["Conv_3"] = conv(f"blocks.{i}.shortcut")
+        params[f"_Bottleneck_{i}"], stats[f"_Bottleneck_{i}"] = bp, bs
+    params["BatchNorm_0"], stats["BatchNorm_0"] = bn("bn")
+    params.update(head([(sd["bn.weight"].shape[0], rows)]))
+    return {"params": params, "batch_stats": stats}
+
+
+def _msgpack(obj, out):
+    """Append msgpack's encoding of ``obj`` as flax.serialization.to_bytes
+    writes it (msgpack-python's packb, bin type on, strict types): dicts in
+    sorted key order (the order jax.device_get leaves them in), numpy
+    arrays and scalars as flax's ext types 1 and 3."""
+    import struct
+
+    def head(small, base, codes, n):
+        if small is not None and n <= small:
+            out.append(base | n)
+            return
+        for code, width in codes:
+            if n < 1 << (8 * width):
+                out.append(code)
+                out.extend(n.to_bytes(width, "big"))
+                return
+        raise ValueError(f"{n} items or bytes do not fit msgpack")
+
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif type(obj) is int:
+        if 0 <= obj < 0x80 or -32 <= obj < 0:
+            out.extend(obj.to_bytes(1, "big", signed=obj < 0))
+        elif obj >= 0:
+            for code, width in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+                if obj < 1 << (8 * width):
+                    out.append(code)
+                    out.extend(obj.to_bytes(width, "big"))
+                    break
+        else:
+            for code, width in ((0xD0, 1), (0xD1, 2), (0xD2, 4), (0xD3, 8)):
+                if obj >= -(1 << (8 * width - 1)):
+                    out.append(code)
+                    out.extend(obj.to_bytes(width, "big", signed=True))
+                    break
+    elif type(obj) is float:
+        out.append(0xCB)
+        out.extend(struct.pack(">d", obj))
+    elif type(obj) is str:
+        raw = obj.encode()
+        head(31, 0xA0, ((0xD9, 1), (0xDA, 2), (0xDB, 4)), len(raw))
+        out.extend(raw)
+    elif type(obj) is bytes:
+        head(None, 0, ((0xC4, 1), (0xC5, 2), (0xC6, 4)), len(obj))
+        out.extend(obj)
+    elif type(obj) in (list, tuple):
+        head(15, 0x90, ((0xDC, 2), (0xDD, 4)), len(obj))
+        for v in obj:
+            _msgpack(v, out)
+    elif type(obj) is dict:
+        head(15, 0x80, ((0xDE, 2), (0xDF, 4)), len(obj))
+        for k in sorted(obj):
+            _msgpack(k, out)
+            _msgpack(obj[k], out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        data = bytearray()
+        _msgpack((tuple(int(s) for s in arr.shape), arr.dtype.name, arr.tobytes("C")), data)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixed:
+            out.append(fixed[len(data)])
+        else:
+            head(None, 0, ((0xC7, 1), (0xC8, 2), (0xC9, 4)), len(data))
+        out.append(1 if isinstance(obj, np.ndarray) else 3)
+        out.extend(data)
+    else:
+        raise TypeError(f"no msgpack encoding for {type(obj).__name__}")
+    return out
+
+
+def jax_checkpoint_bytes(tree, config=None) -> bytes:
+    """The bytes the JAX package's save_checkpoint (deepprior_tpu/train/
+    checkpoint.py) writes for
+    ``tree`` (dicts of numpy arrays and Python scalars) and ``config`` (a
+    dict): b"DPTPU1\\x00", the fingerprint JSON's length and the JSON, then
+    flax's msgpack of the tree."""
+    fp = json.dumps(config, sort_keys=True, indent=1).encode()
+    return b"DPTPU1\x00" + len(fp).to_bytes(8, "little") + fp + bytes(_msgpack(tree, bytearray()))
+
+
+def write_jax_checkpoint(path, tree, config=None):
+    import os
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(jax_checkpoint_bytes(tree, config))
 
 
 def probe_phases(dev, tag, log):
@@ -3735,3 +4439,5 @@ def roofline_phases(dev, tag, log, model, prior, kernels, batch=512,
 
 if __name__ == "__main__":
     main()
+    if _EXPIRED.is_set():
+        raise SystemExit(3)

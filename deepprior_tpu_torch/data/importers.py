@@ -196,11 +196,12 @@ class DepthImporter:
     # ------------------------------------------------------------------
     def load_refine_net_lazy(self, net, dsize=(128, 128)):
         """Attach a CoM-refinement CNN (the reference's loadRefineNetLazy,
-        importers.py:175-184): ``net`` is a port checkpoint path holding a
-        ScaleNet(num_joints=1, n_dims=3) state dict under "params" (as
-        ``run_com_refine`` writes net_<prefix>.ckpt), loaded onto the
-        importer's device; or a refiner already made (used as it is); or
-        None (keeps the current one)."""
+        importers.py:175-184): ``net`` is a checkpoint path holding a
+        ScaleNet(num_joints=1, n_dims=3) under "params" (the
+        net_<prefix>.ckpt that ``run_com_refine`` writes, or that the JAX
+        package's com-refine main writes), loaded onto the importer's
+        device; or a refiner already made (used as it is); or None (keeps
+        the current one)."""
         if net is None or not isinstance(net, (str, os.PathLike)):
             if net is not None:
                 self.refine_net = net

@@ -24,12 +24,13 @@ Plots are files and no part of the device path: where matplotlib is
 missing, the main logs one line for each plot file it could not write and
 goes on.
 
-Under torchrun (``torchrun --nproc-per-node N -m <main> --dp D --tp T``)
-every rank runs the main: ``make_trainer`` builds a ``DistributedTrainer``
-over the ('dp', 'tp') mesh, each rank trains its rows of every batch on its
-card, and only rank 0 logs and writes results.json and network_prior.ckpt
-(whole tensors under tp); --sharded-snapshots makes the rolling snapshot a
-directory every rank writes its shards into.
+Under torchrun (``torchrun --nproc-per-node N -m <main> --dp D --sp S --tp
+T``) every rank runs the main: ``make_trainer`` builds a
+``DistributedTrainer`` over the ('dp', 'sp', 'tp') mesh, each rank trains
+its rows of every batch on its card (under sp, its block of rows of the
+crops' maps), and only rank 0 logs and writes results.json and
+network_prior.ckpt (whole tensors under tp); --sharded-snapshots makes the
+rolling snapshot a directory every rank writes its shards into.
 """
 
 from __future__ import annotations
@@ -67,8 +68,7 @@ def default_device() -> torch.device:
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
-    """The JAX mains' flags.  Those the port does not have yet are parsed
-    and raise NotImplementedError naming their ROADMAP entry."""
+    """The JAX mains' flags."""
     p = argparse.ArgumentParser(description=desc)
     p.add_argument("--data", default=None,
                    help="dataset base path (without it, or with --synthetic, "
@@ -133,7 +133,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks: the wide FC layers split over them")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial ranks (not ported: > 1 raises)")
+                   help="spatial ranks: the crop height splits over them, with "
+                        "halo exchanges around the convolutions; more than one "
+                        "needs torchrun")
     p.add_argument("--sharded-snapshots", action="store_true",
                    help="write the rolling snapshot as a sharded directory "
                         "(torch.distributed.checkpoint, async, every rank its "
@@ -151,14 +153,6 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "shipped file under --data, e.g. NYU "
                         "test/test_predictions.mat or ICVL LRF_Results_seq_1.txt)")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag the port does not have yet."""
-    if args.sp != 1:
-        from deepprior_tpu_torch.parallel.mesh import SP_TODO
-
-        raise NotImplementedError(SP_TODO)
 
 
 def main_device(args) -> torch.device:
@@ -179,45 +173,42 @@ def main_device(args) -> torch.device:
 
 def make_trainer(model, cfg, camera, prior=None, dp=None, tp=1, sp=1, device=None):
     """A ``Trainer`` on one rank, or a ``DistributedTrainer`` over the
-    ('dp', 'tp') mesh of the process group (counterpart of the JAX
-    ``make_trainer``).  Nothing falls back quietly: dp or tp above 1 without
-    a process group, or a group whose world is not dp x tp, raises and names
-    the launcher."""
+    ('dp', 'sp', 'tp') mesh of the process group (counterpart of the JAX
+    ``make_trainer``).  Nothing falls back quietly: dp, sp or tp above 1
+    without a process group, or a group whose world is not dp x sp x tp,
+    raises and names the launcher."""
     from deepprior_tpu_torch.train.trainer import Trainer
 
     if not check_world(dp, tp, sp):
         return Trainer(model, cfg, camera, prior=prior, device=device)
     from deepprior_tpu_torch.parallel import DistributedTrainer, make_mesh
 
-    return DistributedTrainer(model, cfg, camera, make_mesh(dp=dp, tp=tp or 1),
+    return DistributedTrainer(model, cfg, camera,
+                              make_mesh(dp=dp, tp=tp or 1, sp=sp or 1),
                               prior=prior, device=device)
 
 
 def check_world(dp=None, tp=1, sp=1) -> bool:
     """Whether the run is distributed (a process group exists); raises when
-    the flags and the process group disagree: --sp > 1, dp or tp above 1
-    without a group, or a group whose world is not dp x tp."""
+    the flags and the process group disagree: dp, sp or tp above 1 without
+    a group, or a group whose world is not dp x sp x tp."""
     import torch.distributed as dist
 
     from deepprior_tpu_torch.parallel.multihost import LAUNCHER
 
-    if sp not in (None, 1):
-        from deepprior_tpu_torch.parallel.mesh import SP_TODO
-
-        raise NotImplementedError(SP_TODO)
-    tp = tp or 1
+    tp, sp = tp or 1, sp or 1
     if not dist.is_initialized():
-        if (dp or 1) * tp > 1:
+        if (dp or 1) * sp * tp > 1:
             raise RuntimeError(
-                f"--dp {dp or 1} --tp {tp} needs one process per device under a "
-                f"process group; launch with {LAUNCHER}")
+                f"--dp {dp or 1} --sp {sp} --tp {tp} needs one process per device "
+                f"under a process group; launch with {LAUNCHER}")
         return False
     world = dist.get_world_size()
-    if world % tp or (dp is not None and dp * tp != world):
+    if world % (sp * tp) or (dp is not None and dp * sp * tp != world):
         raise RuntimeError(
-            f"the process group has {world} ranks, but --dp {dp} x --tp {tp} "
-            f"asks for {(dp or world // tp) * tp}; launch with {LAUNCHER} where "
-            "N = dp x tp")
+            f"the process group has {world} ranks, but --dp {dp} x --sp {sp} x --tp "
+            f"{tp} asks for {(dp or world // (sp * tp)) * sp * tp}; launch with "
+            f"{LAUNCHER} where N = dp x sp x tp")
     return True
 
 
@@ -474,7 +465,6 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     from deepprior_tpu_torch.parallel.multihost import is_writer
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData
 
-    check_ported(args)
     eval_cls = eval_cls or HandposeEvaluation
     device = main_device(args)
     check_world(args.dp, args.tp, args.sp)
@@ -613,7 +603,6 @@ def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
     from deepprior_tpu_torch.train.checkpoint import save_checkpoint
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData
 
-    check_ported(args)
     device = main_device(args)
     check_world(args.dp, args.tp, args.sp)
     log = rank_log(log)
@@ -727,16 +716,18 @@ def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
       embedding raises SystemExit;
     - else ``model_name``'s serving net, PoseRegNet type 0 or ResNet-47
       type 0 with a 30-D output (hidden 1024, float32): with
-      ``checkpoint`` (a network_prior.ckpt of ``run_posereg_embedding``) its
-      trained weights, BatchNorm statistics and PCA prior (a missing file
-      raises FileNotFoundError, a checkpoint of the other family
-      ValueError); without, weights from ``torch.Generator`` seed 0 and a
-      random (30, 42) PCA prior from numpy seed 0 (pipeline smoke mode).
+      ``checkpoint`` (a network_prior.ckpt of ``run_posereg_embedding``, or
+      one the JAX package's training main wrote) its trained weights,
+      BatchNorm statistics and PCA prior (a missing file raises
+      FileNotFoundError, a checkpoint of the other family ValueError: the
+      port's config names the family, a JAX checkpoint's flax tree shows
+      it); without, weights from ``torch.Generator`` seed 0 and a random
+      (30, 42) PCA prior from numpy seed 0 (pipeline smoke mode).
 
     Returns (model on ``device``, prior or None)."""
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
     from deepprior_tpu_torch.prior import PCAPrior
-    from deepprior_tpu_torch.train.checkpoint import checkpoint_config, load_checkpoint
+    from deepprior_tpu_torch.train.checkpoint import load_checkpoint, read_checkpoint
 
     device = torch.device(device) if device else default_device()
     if ref_pickle:
@@ -757,19 +748,18 @@ def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
     else:
         raise ValueError(f"unknown model {model_name!r}")
     if checkpoint:
-        stored = checkpoint_config(checkpoint)
+        stored = read_checkpoint(checkpoint)  # a JAX file is decoded once
         # checkpoints written before the family was recorded hold PoseRegNets
-        family = (stored.get("model", "poseregnet") if isinstance(stored, dict)
-                  else "poseregnet")
+        family = stored[2] or "poseregnet"
         if family != model_name:
-            raise ValueError(f"{checkpoint} holds a {family} (its config says so), not a "
-                             f"{model_name}: pass --model {family}")
+            raise ValueError(f"{checkpoint} holds a {family}, not a {model_name}: pass "
+                             f"--model {family}")
         tree = {
             "params": model.state_dict(),
             "pca_components": np.zeros((30, 42), np.float32),
             "pca_mean": np.zeros(42, np.float32),
         }
-        tree, _ = load_checkpoint(checkpoint, tree)
+        tree, _ = load_checkpoint(checkpoint, tree, stored=stored)
         model.load_state_dict(tree["params"])
         prior = PCAPrior(tree["pca_components"], tree["pca_mean"])
     else:

@@ -17,6 +17,9 @@ is even):
   augmentation on (K5 on the card), the data split over dp
   (``place_data(shard=True)``);
 - a depth-11 ResNet: BatchNorm's statistics over the global batch;
+- with 4k ranks, the ('dp', 'sp', 'tp') mesh of sp 2 and tp 2 (the crop
+  height split over two ranks, halo exchanges around the convolutions),
+  the PoseRegNet leg again on the whole data;
 - with 4k ranks, the ('dcn', 'dp', 'tp') mesh of 2 slices;
 - a sharded snapshot after epoch 0, resumed by a fresh trainer: the
   parameters bit-equal to an uninterrupted run's;
@@ -83,6 +86,17 @@ def dryrun(rank: int, world: int, device: str = "cpu") -> str:
     rcost = np.asarray(hist["train_cost"])
     assert np.isfinite(rcost).all(), "non-finite ResNet cost in the dry run"
 
+    # the spatial leg: the crop height split over 'sp' (parallel/spatial.py)
+    sp_msg = "sp skipped (needs a multiple of 4 ranks)"
+    if world % 4 == 0:
+        smesh = make_mesh(sp=2, tp=tp)
+        tr = trainer(pose(), cfg, smesh)
+        _, hist = tr.fit(tr.init_state(), tr.place_data(data), **quiet)
+        scost = np.asarray(hist["train_cost"])
+        assert np.isfinite(scost).all(), "non-finite cost in the sp dry run"
+        sp_msg = (f"sp mesh {dict(zip(smesh.mesh_dim_names, smesh.shape))} "
+                  f"cost {scost.mean():.4f}")
+
     dcn_msg = "dcn skipped (needs a multiple of 4 ranks)"
     if world % 4 == 0:
         dmesh = make_mesh(slices=2, tp=tp)
@@ -130,7 +144,7 @@ def dryrun(rank: int, world: int, device: str = "cpu") -> str:
     assert np.allclose(c_s, c_d, rtol=1e-3), f"streamed mesh trace diverged: {c_s} vs {c_d}"
     return (f"dryrun_multichip OK on {world} devices ({dev.type}, mesh "
             f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}), poseregnet cost "
-            f"{cost.mean():.4f}, resnet cost {rcost.mean():.4f}, sp not ported, {dcn_msg}, "
+            f"{cost.mean():.4f}, resnet cost {rcost.mean():.4f}, {sp_msg}, {dcn_msg}, "
             f"sharded-ckpt resume bit-identical, fit_streamed mesh trace ok ({c_d.mean():.4f})")
 
 

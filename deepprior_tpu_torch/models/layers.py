@@ -17,7 +17,10 @@ Scale-out (parallel/): a ``BatchNorm`` whose ``groups`` are set takes its
 training statistics over the global batch of those groups' ranks, and an
 ``MLPHead`` whose ``split`` is set runs its Dense layers Megatron-style
 over a tensor-parallel group and draws each dropout mask for the global
-batch, keeping this rank's rows and columns.
+batch, keeping this rank's rows and columns.  Under the 'sp' axis
+(parallel/spatial.py) ``ConvPool`` and ``conv2d`` take ``rows``: the
+function that turns this rank's block of input rows into the rows its
+output block reads, after which the convolution pads only the width.
 """
 
 from __future__ import annotations
@@ -141,11 +144,12 @@ class ConvPool(nn.Module):
         he_init_(self.conv.weight, self.conv.in_channels * kh * kw, generator)
         nn.init.zeros_(self.conv.bias)
 
-    def forward(self, x, pool: Optional[Tuple[int, int]] = None):
+    def forward(self, x, pool: Optional[Tuple[int, int]] = None, rows=None):
         """``pool`` overrides the layer's own pooling: ScaleNet's shared
-        towers run one set of weights under each scale's pooling."""
+        towers run one set of weights under each scale's pooling.  ``rows``
+        (the 'sp' axis): see ``conv2d``."""
         pool = self.pool if pool is None else tuple(pool)
-        x = conv2d(self.conv, x, self.dtype)
+        x = conv2d(self.conv, x, self.dtype, rows)
         if pool != (1, 1):
             x = F.max_pool2d(x, pool, pool)
         if self.activation is not None:
@@ -167,10 +171,13 @@ class BatchNorm(nn.Module):
     to bf16, as flax casts after the bias.
 
     ``groups`` (set by parallel/train_dist.py, empty by default): process
-    groups whose ranks hold the rest of the batch.  Training mode then
-    normalizes by the statistics of the global batch, from one
-    differentiable all-reduce of (sum x, sum x^2) per layer, in flax's fast
-    variance, and every rank's running statistics stay equal."""
+    groups whose ranks hold the rest of the batch (the data-parallel rows
+    and, under the 'sp' axis, the other blocks of rows of the map).
+    Training mode then normalizes by the statistics of the global batch,
+    from one differentiable all-reduce a layer of every rank's count, mean
+    and centred sum of squares, and every rank's running statistics stay
+    equal.  The count is the ranks' summed element count: uneven row
+    blocks hold different counts."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -195,21 +202,31 @@ class BatchNorm(nn.Module):
                 buf.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
 
     def _forward_global(self, x, acc, weight, bias):
-        """Training mode over the global batch of ``groups``' ranks."""
-        import torch.distributed as dist
-
-        from deepprior_tpu_torch.parallel.collectives import all_reduce_sum
+        """Training mode over the global batch of ``groups``' ranks: one
+        differentiable all-reduce of a buffer with a slot a rank, which holds
+        the rank's element count, mean, centred sum of squares and sum of
+        squares.  The variance that normalizes combines the ranks' centred
+        sums (Chan, Golub and LeVeque), as exact as one device's
+        ``F.batch_norm``: the fast form E[x^2] - E[x]^2 cancels over a
+        crop's flat background.  The running variance keeps flax's fast
+        form, as one device's does."""
+        from deepprior_tpu_torch.parallel.collectives import stack_over
 
         xf = x.to(acc)
         c = xf.shape[1]
-        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
-                                         torch.square(xf).sum(dim=(0, 2, 3))]), self.groups)
-        # every rank holds the same number of rows
-        ranks = math.prod(dist.get_world_size(g) for g in self.groups)
-        count = torch.full((), xf.numel() // c * ranks, dtype=acc, device=xf.device)
-        mean, mean_sq = (sums / count).split(c)
-        var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
-        self._update_running(mean.detach(), var.detach())
+        n = xf.numel() // c
+        mean_r = xf.mean(dim=(0, 2, 3))
+        local = torch.cat([
+            torch.full((1,), n, dtype=acc, device=xf.device), mean_r,
+            torch.square(xf - mean_r[:, None, None]).sum(dim=(0, 2, 3)),
+            torch.square(xf).sum(dim=(0, 2, 3))])
+        slots = stack_over(local, self.groups)
+        counts, means, m2, sq = slots[:, :1], *slots[:, 1:].split(c, dim=1)
+        total = counts.sum()
+        mean = (counts * means).sum(0) / total
+        var = (m2 + counts * torch.square(means - mean)).sum(0) / total
+        fast_var = torch.clamp(sq.sum(0) / total - torch.square(mean), min=0.0)
+        self._update_running(mean.detach(), fast_var.detach())
         inv = torch.rsqrt(var + BN_EPS)
         y = (xf - mean[:, None, None]) * (inv * weight)[:, None, None] + bias[:, None, None]
         return y.to(self.dtype)
@@ -258,11 +275,18 @@ def calibrate_batchnorm(model: nn.Module, x):
     return model
 
 
-def conv2d(conv: nn.Conv2d, x, dtype: torch.dtype):
+def conv2d(conv: nn.Conv2d, x, dtype: torch.dtype, rows=None):
     """``conv`` (its stride and padding) in the compute ``dtype``: the input,
-    weight and bias cast to it, the float32 parameters left as they are."""
+    weight and bias cast to it, the float32 parameters left as they are.
+
+    ``rows`` (the 'sp' axis, parallel/spatial.py): x holds this rank's block
+    of rows; ``rows(x)`` gives the rows its output block reads, the halo
+    and the edge zeros included, so the convolution pads only the width."""
+    padding = conv.padding
+    if rows is not None:
+        x, padding = rows(x), (0, conv.padding[1])
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    conv.stride, conv.padding)
+                    conv.stride, padding)
 
 
 class HeadSplit(NamedTuple):

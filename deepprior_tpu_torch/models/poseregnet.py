@@ -9,7 +9,9 @@ type 11: the same trunk with a 30-D linear bottleneck before the final
          linear decode.
 
 Input (B, 1, 128, 128); output (B, out_dim) float32.  Parameters are
-float32; compute runs in ``cfg.dtype``.
+float32; compute runs in ``cfg.dtype``.  Under the 'sp' axis
+(``spatial``, a parallel/spatial.py ``Plan``) the trunk computes this
+rank's block of rows of each map and gathers the last one before the head.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ class PoseRegNet(nn.Module):
             activation=cfg.activation,
             dtype=cfg.dtype,
         )
+        self.spatial = None  # the 'sp' axis' Plan (parallel/spatial.py)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -85,6 +88,10 @@ class PoseRegNet(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """x: (B, 1, H, W) normalized depth crop -> (B, out_dim) float32.
         In training mode ``generator`` draws the dropout masks."""
-        for conv in self.convs:
-            x = conv(x)
+        plan = self.spatial
+        rows = (None,) * len(self.convs) if plan is None else plan.rows[0]
+        for conv, r in zip(self.convs, rows):
+            x = conv(x, rows=r)
+        if plan is not None:
+            x = plan.gather[0](x)
         return self.head(x, generator=generator).to(torch.float32)

@@ -19,7 +19,13 @@ BN-ReLU-1x1(c), with the identity or a strided 1x1 projection shortcut
 taken after the first BN-ReLU.  'SAME' padding: 2 for the stem, 1 for the
 3x3 convs, 0 for the 1x1 convs (strided ones only ever see even sizes).
 BatchNorm is ``layers.BatchNorm``, flax's semantics.  Parameters and
-BatchNorm statistics are float32; compute runs in ``cfg.dtype``.
+BatchNorm statistics are float32; compute runs in ``cfg.dtype``.  Under
+the 'sp' axis (``spatial``, a parallel/spatial.py ``Plan``) the trunk
+computes this rank's block of rows of each map: the stem reads its rows
+(with the 2-row halo) from the whole input, each 3x3 convolution exchanges
+one row with each neighbour, the 1x1 convolutions (strided or not) and
+the pools read only the rank's own rows; the final map is gathered after
+the last BatchNorm + ReLU, before the flatten.
 """
 
 from __future__ import annotations
@@ -103,11 +109,12 @@ class Bottleneck(nn.Module):
             in_channels, features, 1, stride=stride)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
+        """``rows``: the 3x3 convolution's halo under the 'sp' axis."""
         dt = self.dtype
         pre = torch.relu(self.bn0(x))  # the "common BN, ReLU" of both paths
         h = conv2d(self.conv0, pre, dt)
-        h = conv2d(self.conv1, torch.relu(self.bn1(h)), dt)
+        h = conv2d(self.conv1, torch.relu(self.bn1(h)), dt, rows)
         h = conv2d(self.conv2, torch.relu(self.bn2(h)), dt)
         return (x if self.identity else conv2d(self.shortcut, pre, dt)) + h
 
@@ -129,6 +136,7 @@ class ResNet(nn.Module):
         self.head = MLPHead(c_in * trunk_out_hw(cfg) ** 2, cfg.out_dim,
                             hidden=cfg.hidden, dropout=cfg.dropout,
                             embedding=cfg.embedding, dtype=dt)
+        self.spatial = None  # the 'sp' axis' Plan (parallel/spatial.py)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -148,8 +156,13 @@ class ResNet(nn.Module):
         """x: (B, 1, 128, 128) normalized depth crop -> (B, out_dim) float32.
         In training mode the BatchNorm statistics update once per call and
         ``generator`` draws the dropout masks."""
-        x = F.max_pool2d(conv2d(self.stem, x, self.cfg.dtype), 2, 2)
-        for block in self.blocks:
-            x = block(x)
+        plan = self.spatial
+        stem, *rows = ((None,) * (1 + len(self.blocks)) if plan is None
+                       else plan.rows[0])
+        x = F.max_pool2d(conv2d(self.stem, x, self.cfg.dtype, stem), 2, 2)
+        for block, r in zip(self.blocks, rows):
+            x = block(x, r)
         x = torch.relu(self.bn(x))
+        if plan is not None:
+            x = plan.gather[0](x)
         return self.head(x, generator=generator).to(torch.float32)

@@ -13,7 +13,11 @@ Tower shapes for 128x128 input (all convs 'valid', kernels 5, 5, 3):
 ``shared_conv`` shares each layer's kernel and bias across the towers while
 each tower keeps its own pooling, the reference's copyLayer semantics
 (scalenet.py:179-180).  Parameters are float32; compute runs in
-``cfg.dtype``.
+``cfg.dtype``.  Under the 'sp' axis (``spatial``, a parallel/spatial.py
+``Plan`` with one layout a tower) each tower reads its rows of its centre
+crop of the whole input, computes this rank's block of rows of each map
+and gathers its last one; the three gathered maps are concatenated as
+without it.
 """
 
 from __future__ import annotations
@@ -89,10 +93,10 @@ class _Tower(nn.Module):
         self.pools = tuple(pools)
         self.layers = _conv_stack(dtype)
 
-    def forward(self, x):
-        for layer, p in zip(self.layers, self.pools):
-            x = layer(x, pool=(p, p))
-        return x.flatten(1)
+    def forward(self, x, rows=(None,) * len(_KERNELS), gather=None):
+        for layer, p, r in zip(self.layers, self.pools, rows):
+            x = layer(x, pool=(p, p), rows=r)
+        return (x if gather is None else gather(x)).flatten(1)
 
 
 class _SharedConvTowers(nn.Module):
@@ -103,11 +107,14 @@ class _SharedConvTowers(nn.Module):
         super().__init__()
         self.layers = _conv_stack(dtype)
 
-    def forward(self, xs):
+    def forward(self, xs, plan=None):
         feats = []
         for scale, x in enumerate(xs):
-            for layer, p in zip(self.layers, _POOLS[scale]):
-                x = layer(x, pool=(p, p))
+            rows = (None,) * len(_KERNELS) if plan is None else plan.rows[scale]
+            for layer, p, r in zip(self.layers, _POOLS[scale], rows):
+                x = layer(x, pool=(p, p), rows=r)
+            if plan is not None:
+                x = plan.gather[scale](x)
             feats.append(x.flatten(1))
         return feats
 
@@ -125,6 +132,7 @@ class ScaleNet(nn.Module):
                     for s in tower_sides(INPUT_HW, cfg.resize_factor))
         self.head = MLPHead(width, cfg.out_dim, hidden=cfg.hidden,
                             dropout=cfg.dropout, dtype=cfg.dtype)
+        self.spatial = None  # the 'sp' axis' Plan (parallel/spatial.py)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -142,9 +150,12 @@ class ScaleNet(nn.Module):
             xs = multiscale_center_crops(xs, self.cfg.resize_factor)
         if len(xs) != 3:
             raise ValueError(f"ScaleNet takes 3 scale inputs, got {len(xs)}")
+        plan = self.spatial
         if self.cfg.shared_conv:
-            feats = self.towers(xs)
+            feats = self.towers(xs, plan)
         else:
-            feats = [tower(x) for tower, x in zip(self.towers, xs)]
+            feats = [tower(x, *(() if plan is None
+                                else (plan.rows[t], plan.gather[t])))
+                     for t, (tower, x) in enumerate(zip(self.towers, xs))]
         out = self.head(torch.cat(feats, dim=1), generator=generator)
         return out.to(torch.float32)

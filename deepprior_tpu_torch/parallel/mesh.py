@@ -3,6 +3,10 @@ deepprior_tpu/parallel/mesh.py).
 
 Mesh axes:
   dp  — data parallel: the batch splits here; gradients are averaged over it
+  sp  — spatial: the crop height splits here (parallel/spatial.py); every
+        sp rank of one dp index holds the same rows, computes one block of
+        rows of the conv trunk's maps with halo exchanges between
+        neighbours, and runs the head whole; it sits between dp and tp
   tp  — tensor parallel: the wide FC layers split here (the conv trunks are
         small and replicate; the FC head is where the weights are: ResNet's
         16384x1024 FC1 is 97% of its parameter count)
@@ -12,13 +16,11 @@ Mesh axes:
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
 the process group, one device per rank, ranks laid out row-major as the
-JAX package lays out ``jax.devices()``.  The FC split follows the Megatron
+JAX package lays out ``jax.devices()``: consecutive ranks share a tp group,
+then an sp group.  The FC split follows the Megatron
 pattern: alternating column-parallel and row-parallel Linear layers, so two
 consecutive layers need one all-reduce forward and one backward
 (models/layers.py::MLPHead).
-
-The 'sp' axis (the crop height sharded, with a halo exchange around every
-conv and pool) is not ported: sp > 1 raises.
 """
 
 from __future__ import annotations
@@ -33,27 +35,23 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel
 
-SP_TODO = ("the 'sp' axis (the crop height sharded over ranks) needs a halo "
-           "exchange around every conv and pool; it is not ported yet "
-           "(ROADMAP.md Queue 1 item 19)")
-
-
 def mesh_dims(n: int, dp: Optional[int] = None, tp: int = 1, slices: int = 1,
               sp: int = 1) -> Tuple[Tuple[str, int], ...]:
     """The (name, size) axes of a mesh over ``n`` devices, with the JAX
-    package's size rules: dp defaults to what the others leave of a
-    slice; 'dp' and 'tp' are always present, 'dcn' only with slices > 1."""
-    if sp != 1:
-        raise NotImplementedError(SP_TODO)
-    assert n % slices == 0, f"{n} devices not divisible by slices={slices}"
+    package's size rules and messages: dp defaults to what sp and tp leave
+    of a slice; 'dp' and 'tp' are always present, 'sp' only with sp > 1,
+    'dcn' only with slices > 1.  A size that does not fit raises ValueError."""
+    if n % slices:
+        raise ValueError(f"{n} devices not divisible by slices={slices}")
     per_slice = n // slices
     if dp is None:
-        assert per_slice % tp == 0, \
-            f"{per_slice} devices/slice not divisible by tp={tp}"
-        dp = per_slice // tp
-    assert slices * dp * tp == n, f"slices*dp*tp={slices * dp * tp} != {n} devices"
-    dims = [("dcn", slices), ("dp", dp), ("tp", tp)]
-    return tuple((name, size) for name, size in dims if size > 1 or name != "dcn")
+        if per_slice % (tp * sp):
+            raise ValueError(f"{per_slice} devices/slice not divisible by sp*tp={sp * tp}")
+        dp = per_slice // (tp * sp)
+    if slices * dp * sp * tp != n:
+        raise ValueError(f"slices*dp*sp*tp={slices * dp * sp * tp} != {n} devices")
+    dims = [("dcn", slices), ("dp", dp), ("sp", sp), ("tp", tp)]
+    return tuple((name, size) for name, size in dims if size > 1 or name in ("dp", "tp"))
 
 
 def _device_type() -> str:
@@ -69,14 +67,12 @@ def make_mesh(
     slices: int = 1,
     sp: int = 1,
 ) -> DeviceMesh:
-    """A ('dp', 'tp') DeviceMesh — with slices > 1 ('dcn', 'dp', 'tp') —
-    over ``devices``, the ranks of the process group (default: all of them,
-    the first ``n_devices`` if given), on the CPU for a gloo group and on
-    CUDA otherwise.  Needs an initialized process group
-    (parallel/multihost.py::initialize); its world must hold every rank of
-    the mesh."""
-    if sp != 1:
-        raise NotImplementedError(SP_TODO)
+    """A ('dp', 'tp') DeviceMesh — with sp > 1 ('dp', 'sp', 'tp'), with
+    slices > 1 a 'dcn' axis first — over ``devices``, the ranks of the
+    process group (default: all of them, the first ``n_devices`` if given),
+    on the CPU for a gloo group and on CUDA otherwise.  Needs an initialized
+    process group (parallel/multihost.py::initialize); its world must hold
+    every rank of the mesh."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs a torch.distributed process group: launch with "
@@ -85,7 +81,7 @@ def make_mesh(
     ranks = list(range(dist.get_world_size())) if devices is None else list(devices)
     if n_devices is not None:
         ranks = ranks[:n_devices]
-    dims = mesh_dims(len(ranks), dp, tp, slices)
+    dims = mesh_dims(len(ranks), dp, tp, slices, sp)
     layout = torch.tensor(ranks, dtype=torch.int64).reshape([s for _, s in dims])
     return DeviceMesh(_device_type(), layout, mesh_dim_names=tuple(name for name, _ in dims))
 
@@ -107,7 +103,9 @@ def replicated(mesh: DeviceMesh) -> list:
 
 def batch_sharding(mesh: DeviceMesh) -> list:
     """The DTensor placements of a batch split along dim 0 over the batch
-    axes (dcn and dp), whole along tp."""
+    axes (dcn and dp), whole along sp and tp (every sp rank holds the whole
+    crops of its rows; parallel/spatial.py cuts its block of rows from
+    them)."""
     return [Shard(0) if name in batch_axes(mesh) else Replicate()
             for name in mesh.mesh_dim_names]
 
@@ -119,7 +117,8 @@ def data_groups(mesh: DeviceMesh) -> Tuple:
 
 
 def data_rank(mesh: DeviceMesh) -> Tuple[int, int]:
-    """(this rank's index along the batch axes, their size)."""
+    """(this rank's index along the batch axes, their size); the sp and tp
+    ranks of one data index share it."""
     index, size = 0, 1
     for a in batch_axes(mesh):
         n = axis_size(mesh, a)

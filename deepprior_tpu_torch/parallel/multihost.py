@@ -4,17 +4,18 @@
 Launch every rank with torchrun, which sets RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR and MASTER_PORT; ``initialize()`` reads them.  On a node of N
 cards: ``torchrun --nproc-per-node N -m deepprior_tpu_torch.mains.<main>
---dp D --tp T``; across hosts, torchrun's --nnodes and --rdzv-endpoint.
-Other launchers pass the coordinator's address, the world size and the
-rank, or a ``torch.distributed`` store.  Then ``global_mesh`` is the
-('dp', 'tp') mesh over every rank of every host.
+--dp D --sp S --tp T``; across hosts, torchrun's --nnodes and
+--rdzv-endpoint.  Other launchers pass the coordinator's address, the world
+size and the rank, or a ``torch.distributed`` store.  Then ``global_mesh``
+is the ('dp', 'tp') mesh over every rank of every host.
 
 On CUDA the group is NCCL and each rank takes the card LOCAL_RANK; on the
-CPU it is gloo.
+CPU, asked for with ``device="cpu"``, it is gloo.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -24,7 +25,7 @@ import torch.distributed as dist
 from deepprior_tpu_torch.parallel.mesh import data_rank, make_mesh
 
 LAUNCHER = ("torchrun --nproc-per-node N -m deepprior_tpu_torch.mains.<main> "
-            "--dp D --tp T (one process per device)")
+            "--dp D --sp S --tp T (one process per device)")
 
 
 def initialize(
@@ -34,24 +35,32 @@ def initialize(
     device: Optional[str] = None,
     store=None,
     backend: Optional[str] = None,
+    timeout: Optional[float] = None,
 ) -> None:
     """``torch.distributed.init_process_group`` for this rank.
 
     Without arguments it reads torchrun's environment.  With
     ``coordinator_address`` ('host:port') or ``store`` (e.g. a
     ``FileStore``), ``num_processes`` and ``process_id`` name the world and
-    this rank.  ``device`` 'cuda' (the default when a card is present)
-    selects the card LOCAL_RANK before anything touches CUDA and an NCCL
-    group; 'cpu' a gloo group; ``backend`` overrides (e.g.
-    'cpu:gloo,cuda:gloo').  Idempotent: a process whose group is
-    initialized returns at once."""
+    this rank.  ``device`` 'cuda' (the default) selects the card LOCAL_RANK
+    before anything touches CUDA and an NCCL group; 'cpu' a gloo group;
+    ``backend`` overrides (e.g. 'cpu:gloo,cuda:gloo').  ``timeout`` (seconds)
+    bounds each collective's wait, which then raises instead of hanging
+    (torch's default otherwise).  Without ``device`` on a machine with no
+    card it raises: the CPU is only ever asked for.
+    Idempotent: a process whose group is initialized returns at once."""
     if dist.is_initialized():
         return
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device (torch.cuda.is_available() is False); pass "
+                'device="cpu" for a gloo group on the CPU')
+        device = "cuda"
     if device == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     backend = backend or ("nccl" if device == "cuda" else "gloo")
+    backend_kw = {} if timeout is None else dict(timeout=datetime.timedelta(seconds=timeout))
     if store is not None or coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("num_processes and process_id are needed with a "
@@ -60,14 +69,14 @@ def initialize(
             init_method=coordinator_address if "://" in coordinator_address
             else f"tcp://{coordinator_address}")
         dist.init_process_group(backend, rank=int(process_id),
-                                world_size=int(num_processes), **kw)
+                                world_size=int(num_processes), **kw, **backend_kw)
         return
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         raise RuntimeError(
             "no process group: RANK and WORLD_SIZE are not set. Launch with "
             f"{LAUNCHER}, or pass the coordinator address, num_processes "
             "and process_id")
-    dist.init_process_group(backend, init_method="env://")
+    dist.init_process_group(backend, init_method="env://", **backend_kw)
 
 
 def global_mesh(tp: int = 1, slices: int = 1):

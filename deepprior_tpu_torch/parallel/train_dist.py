@@ -1,5 +1,6 @@
-"""The distributed trainer: data-parallel batches and tensor-parallel FC
-layers over a DeviceMesh (counterpart of deepprior_tpu/parallel/train_dist.py).
+"""The distributed trainer: data-parallel batches, the crop height split
+over 'sp' and tensor-parallel FC layers over a DeviceMesh (counterpart of
+deepprior_tpu/parallel/train_dist.py).
 
 Every rank runs ``Trainer``'s loop on its rows of each global batch, and the
 run computes what one device computes on the whole batch:
@@ -19,7 +20,14 @@ run computes what one device computes on the whole batch:
   every rank;
 - tp: the Dense layers ``param_shardings`` picks hold this rank's block,
   Megatron-style (models/layers.py::MLPHead.split); the optimizer's moments
-  are made from those blocks, so they share their placement.
+  are made from those blocks, so they share their placement;
+- sp: every sp rank of one data index runs K5 on the same rows at full
+  height and its trunk computes one block of rows of each map
+  (parallel/spatial.py; the first conv reads its rows and halo from the
+  whole warped crop); the trunk's gradients (convolutions, BatchNorm) are
+  then partial sums over sp, the head's whole and equal on every sp rank,
+  so in the one bucketed all-reduce over dp x sp the head's are scaled by
+  1 / sp first; BatchNorm's statistics run over dp x sp.
 
 Evaluation and prediction split each batch the same way and gather the rows
 back, so every rank reports the single-device numbers.  At world size 1 the
@@ -43,6 +51,7 @@ from deepprior_tpu_torch.parallel.collectives import (
 from deepprior_tpu_torch.parallel.mesh import (
     axis_size, data_groups, data_rank, param_shardings, replicated, shard_model,
     unshard_model)
+from deepprior_tpu_torch.parallel.spatial import SpatialContext, attach
 from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.train.optimizer import make_optimizer
 from deepprior_tpu_torch.train.trainer import (
@@ -106,18 +115,24 @@ class DistributedTrainer(Trainer):
         self.tp = axis_size(mesh, "tp")
         self.tp_group = mesh.get_group("tp") if self.tp > 1 else None
         self.tp_rank = mesh.get_local_rank("tp") if self.tp > 1 else 0
+        sp = axis_size(mesh, "sp")
+        self.spatial = (SpatialContext(mesh.get_group("sp"), mesh.get_local_rank("sp"), sp)
+                        if sp > 1 else None)
         self.layout = {}  # parameter name -> the dim it is split along
 
     # ------------------------------------------------------------------
     def _shard(self):
         """Split the model as the mesh says: the tp plan, the dropout rows,
-        BatchNorm's groups.  Nothing to split on a world of one."""
+        the sp plan, BatchNorm's groups.  Nothing to split on a world of one."""
         model = self.model
         if self.tp > 1 or self.n_data > 1:
             self.layout = shard_model(model, param_shardings(model, self.mesh),
                                       self.tp_group, self.tp_rank, self.tp,
                                       self.row0, self.cfg.batch_size)
         groups = self.data_groups if self.n_data > 1 else ()
+        if self.spatial is not None:
+            attach(model, self.spatial)
+            groups = groups + (self.spatial.group,)
         for mod in model.modules():
             if isinstance(mod, BatchNorm):
                 mod.groups = groups
@@ -160,28 +175,55 @@ class DistributedTrainer(Trainer):
             aug = tuple(self._rows(p) for p in drawn)
         return super()._train_step_core(state, batch, aug, drop_generator, lr)
 
+    def _head_ids(self, model):
+        """The head's parameters: whole on every sp rank."""
+        return {id(p) for p in model.head.parameters()}
+
     def _penalty(self, model):
         """The L2 sum over the whole weights: the split ones' partial sums
-        summed over tp (the gradient stays each rank's block's own)."""
+        summed over tp (the gradient stays each rank's block's own).  Under
+        sp the trunk's gradients are summed over the sp ranks, so only sp
+        rank 0 differentiates the trunk's term; every rank's value is the
+        same whole sum."""
         split = [p for n, p in model.named_parameters()
                  if n in self.layout and n.endswith("weight")]
-        if not split:
+        if not split and self.spatial is None:
             return _l2_penalty(model)
         ids = {id(p) for p in split}
-        whole = sum(torch.sum(torch.square(m.weight)) for m in model.modules()
+        const_trunk = self.spatial is not None and self.spatial.rank > 0
+        head = self._head_ids(model)
+
+        def sq(w):
+            return torch.sum(torch.square(
+                w.detach() if const_trunk and id(w) not in head else w))
+
+        whole = sum(sq(m.weight) for m in model.modules()
                     if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
                     and id(m.weight) not in ids)
+        if not split:
+            return whole
         part = sum(torch.sum(torch.square(p)) for p in split)
         return whole + reduce_from_group(part, self.tp_group)
 
     def _reduce_grads(self, model):
         """Average the gradients over the data axes: one all-reduce of one
-        flat buffer, then the division by their size."""
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        for g in self.data_groups:
+        flat buffer (over the data axes and sp), then the division by the
+        data size.  Under sp the head's gradients, equal on every sp rank,
+        are scaled by 1 / sp before the sum; the trunk's are partial sums."""
+        params = [p for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        groups = self.data_groups
+        if self.spatial is not None:
+            head, o = self._head_ids(model), 0
+            for p in params:
+                if id(p) in head:
+                    flat[o:o + p.numel()].mul_(1.0 / self.spatial.size)
+                o += p.numel()
+            groups = groups + (self.spatial.group,)
+        for g in groups:
             dist.all_reduce(flat, group=g)
         flat.div_(self.n_data)
+        grads = [p.grad for p in params]
         o = 0
         for g in grads:
             g.copy_(flat[o:o + g.numel()].view_as(g))

@@ -38,6 +38,7 @@ from deepprior_tpu_torch.ops.crop import RESIZE_METHODS, clamp_depth, normalized
 from deepprior_tpu_torch.ops.hopper_crop import normalized_crop_op
 from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.train.trainer import float32_compute
+from deepprior_tpu_torch.utils.profiling import graph_capture
 
 _CROP_METHODS = ("auto", "pallas", "hopper", "gather", "onehot")
 
@@ -282,7 +283,7 @@ def capture_graph(fn, device):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with graph_capture(graph):
             outputs = fn()
     return graph, outputs
 

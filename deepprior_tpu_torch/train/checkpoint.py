@@ -17,6 +17,17 @@ package matches a pytree's.  The payload is the flat {path tuple: leaf}
 dict with numpy leaves as tensors, read back with ``weights_only=True``.
 The fingerprint and the tree are written to a temporary file that replaces
 the target in one ``os.replace``, so they commit together.
+
+The readers (``checkpoint_keys``, ``checkpoint_config``,
+``read_checkpoint``, ``load_checkpoint``) also take the JAX package's
+serving checkpoints (deepprior_tpu/train/checkpoint.py: ``b"DPTPU1\x00"``,
+a network_prior.ckpt or a net_<prefix>.ckpt of its training mains), read
+by train/jax_checkpoint.py without jax: the flax "params" and
+"batch_stats" become the port model's state dict under "params"
+(utils/convert.py::state_dict_from_flax), the other leaves stay as they
+are, and the tree goes through the same matching and shape recovery.  A
+JAX training snapshot raises ValueError: its optimizer state is optax's,
+not the port's.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+
+from deepprior_tpu_torch.train.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
 
 MAGIC = b"DPTTC1\x00"
 
@@ -127,34 +140,70 @@ def _read_header(f, path):
     return fp, set(keys)
 
 
+def _read_jax(path) -> Tuple[str, Dict[Tuple[str, ...], Any], str]:
+    """(fingerprint, flat tree, family) of a JAX package checkpoint, its flax
+    variables as the port's state dict under "params"."""
+    from deepprior_tpu_torch.utils.convert import state_dict_from_flax
+
+    fp, tree = read_jax_checkpoint(path)
+    if "opt_state" in tree or "params" not in tree:
+        raise ValueError(
+            f"{path} is a JAX package training snapshot (or no model checkpoint); only "
+            "the JAX package's serving checkpoints are read (network_prior.ckpt, "
+            "net_<prefix>.ckpt): its optax state is not the port's optimizer state")
+    family, sd = state_dict_from_flax({"params": tree.pop("params"),
+                                       "batch_stats": tree.pop("batch_stats", None) or {}})
+    tree["params"] = sd
+    flat = {k: torch.from_numpy(np.array(v)) if isinstance(v, (np.ndarray, np.generic)) else v
+            for k, v in _flatten(tree).items()}
+    return fp, flat, family
+
+
 def checkpoint_keys(path: str) -> set:
     """Top-level key names of a stored checkpoint tree, read from the
-    header alone: the payload (the parameters) is not loaded."""
+    header alone (the payload, the parameters, is not loaded; a JAX package
+    checkpoint is read whole)."""
+    if is_jax_checkpoint(path):
+        return {k[0] for k in _read_jax(path)[1] if k}
     with open(path, "rb") as f:
         return _read_header(f, path)[1]
 
 
 def checkpoint_config(path: str) -> Any:
     """The stored config fingerprint, parsed (None when the checkpoint was
-    saved without a config), read from the header alone."""
+    saved without a config), read from the port format's header alone."""
+    if is_jax_checkpoint(path):
+        return json.loads(read_jax_checkpoint(path)[0])
     with open(path, "rb") as f:
         return json.loads(_read_header(f, path)[0])
 
 
+def read_checkpoint(path: str) -> Tuple[str, Dict[Tuple[str, ...], Any], Any]:
+    """(fingerprint, flat tree, model family) of a checkpoint of either
+    format, read whole once.  A JAX package checkpoint's family is read off
+    its flax tree, the port's from its config's "model" field (None when
+    the config does not say)."""
+    if is_jax_checkpoint(path):
+        return _read_jax(path)
+    with open(path, "rb") as f:
+        fp, _ = _read_header(f, path)
+        flat = torch.load(io.BytesIO(f.read()), map_location="cpu", weights_only=True)
+    config = json.loads(fp)
+    return fp, flat, config.get("model") if isinstance(config, dict) else None
+
+
 def load_checkpoint(
-    path: str, target: Any, config: Any = None, strict: bool = False
+    path: str, target: Any, config: Any = None, strict: bool = False, stored=None
 ) -> Tuple[Any, bool]:
-    """Restore a tree into ``target``'s structure.
+    """Restore a tree into ``target``'s structure (``stored``: the
+    ``read_checkpoint(path)`` the caller already holds, else it is read).
 
     A config mismatch prints a unified diff (netbase.py:440-450 semantics)
     and raises with ``strict``.  If the stored paths or shapes do not match
     the target's, leaves are grafted by path suffix, then prefix, and shape
     (the reference's shape-based recovery, netbase.py:451-476); with
     ``strict`` that raises instead.  Returns (tree, exact_match)."""
-    with open(path, "rb") as f:
-        stored_fp, _ = _read_header(f, path)
-        flat_raw = torch.load(io.BytesIO(f.read()), map_location="cpu",
-                              weights_only=True)
+    stored_fp, flat_raw, _ = stored or read_checkpoint(path)
 
     exact = True
     if config is not None:

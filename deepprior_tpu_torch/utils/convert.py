@@ -1,9 +1,12 @@
-"""Weight conversion from the JAX package's flax variable trees."""
+"""Weight conversion from the JAX package's flax variable trees.
+
+``state_dict_from_flax`` is the one entry: it reads the model family off
+the tree and returns the port's state dict for it."""
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -159,14 +162,34 @@ def resnet_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Te
     return sd
 
 
+def flax_family(params: Dict[str, Any]) -> str:
+    """'poseregnet', 'resnet' or 'scalenet', read off a flax
+    ``variables["params"]`` tree's top-level module names."""
+    if "_Bottleneck_0" in params:
+        return "resnet"
+    if "_Tower_0" in params or "_SharedConvTowers_0" in params:
+        return "scalenet"
+    if "ConvPool_0" in params:
+        return "poseregnet"
+    raise ValueError(f"no model family has the flax modules {sorted(params)}")
+
+
+def state_dict_from_flax(variables: Dict[str, Any]) -> Tuple[str, Dict[str, torch.Tensor]]:
+    """flax variables ({"params"} and, for a ResNet, {"batch_stats"}; numpy
+    leaves) -> (family, the port model's state dict), the family from
+    ``flax_family``."""
+    family = flax_family(variables["params"])
+    if family == "resnet":
+        return family, resnet_state_dict_from_flax(variables)
+    if family == "scalenet":
+        return family, scalenet_state_dict_from_flax(variables["params"])
+    return family, poseregnet_state_dict_from_flax(variables["params"])
+
+
 def train_state_from_flax(trainer, params: Dict[str, Any], batch_stats=None):
     """A port ``TrainState`` that starts from a flax model's parameters (e.g.
     the JAX ``TrainState.params``, and for a ResNet its ``batch_stats``),
     with the fresh optimizer state the JAX ``init_state`` gives: zero
-    moments, count 1.  The family is read off the tree: ``ConvPool_0`` is a
-    PoseRegNet, ``_Bottleneck_0`` a ResNet."""
-    if "_Bottleneck_0" in params:
-        sd = resnet_state_dict_from_flax({"params": params, "batch_stats": batch_stats})
-    else:
-        sd = poseregnet_state_dict_from_flax(params)
+    moments, count 1.  The family is read off the tree (``flax_family``)."""
+    _, sd = state_dict_from_flax({"params": params, "batch_stats": batch_stats})
     return trainer.init_state(state_dict=sd)

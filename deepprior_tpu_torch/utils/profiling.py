@@ -11,8 +11,10 @@ asking for the CPU; only then do the timers read the host clock.
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import subprocess
+import threading
 import time
 from typing import Callable, Dict
 
@@ -64,6 +66,36 @@ def device_trace(log_dir: str = "torch-trace"):
         yield prof
     stamp = time.strftime("%Y%m%d-%H%M%S")
     prof.export_chrome_trace(os.path.join(log_dir, f"trace-{stamp}-{os.getpid()}.json"))
+
+
+_GC_HELD = {"captures": 0, "was_enabled": True}
+_GC_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def graph_capture(graph):
+    """``torch.cuda.graph(graph)`` with Python's cyclic garbage
+    collector run first and held off until the capture ends.  A CUDA graph
+    left in a reference cycle (an estimator and its replay closures) is
+    destroyed whenever the collector runs, and destroying one while another
+    is being captured invalidates that capture
+    (cudaErrorStreamCaptureInvalidated); torch no longer collects before a
+    capture by default.  Captures in several threads share one hold: the
+    collector comes back when the last of them ends."""
+    with _GC_LOCK:
+        if _GC_HELD["captures"] == 0:
+            gc.collect()
+            _GC_HELD["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _GC_HELD["captures"] += 1
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        with _GC_LOCK:
+            _GC_HELD["captures"] -= 1
+            if _GC_HELD["captures"] == 0 and _GC_HELD["was_enabled"]:
+                gc.enable()
 
 
 def _first_tensor(tree):
@@ -146,7 +178,7 @@ def device_loop_latency(
                 step(carry0, *args)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with graph_capture(graph):
             c = carry0
             for _ in range(iters):
                 c = step(c, *args)

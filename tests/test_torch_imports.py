@@ -19,7 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "flax"
+             if m == "jax" or m.startswith("jax.") or m == "flax" or m == "msgpack"
              or m == "deepprior_tpu" or m.startswith("deepprior_tpu."))
 print(len(names), bad)
 print(" ".join(names))
@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
                 "parallel", "parallel.mesh", "parallel.collectives", "parallel.multihost",
                 "parallel.train_dist", "parallel.serve", "train.checkpoint_sharded",
                 "mains.dryrun", "prof.sweeps", "eval.plots", "utils.helpers", "utils.text",
-                "utils.pointcloud", "ops._build"):
+                "utils.pointcloud", "ops._build", "parallel.spatial",
+                "train.jax_checkpoint", "prof.prof_graph_gc"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 

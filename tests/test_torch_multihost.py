@@ -145,3 +145,38 @@ def test_torchrun_main_writes_and_resumes_a_sharded_snapshot(launched):
                                out, "--epochs", "3", "--resume")])[0]
     assert f"resuming from {snap} at epoch 1" in resumed, resumed
     assert "epoch 2:" in resumed and "epoch 0:" not in resumed
+
+
+def test_initialize_without_a_card_raises(monkeypatch):
+    """initialize() with no device takes the card; on a machine without one
+    it raises naming device="cpu" instead of making a gloo group on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from deepprior_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        multihost.initialize(num_processes=1, process_id=0,
+                             store=dist.HashStore())
+
+
+def test_initialize_passes_its_timeout(monkeypatch):
+    """initialize(timeout=s) bounds the group's collectives by s seconds;
+    without it torch's default stands."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from deepprior_tpu_torch.parallel import multihost
+
+    seen = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **kw: seen.append(kw))
+    store = dist.HashStore()
+    multihost.initialize(num_processes=1, process_id=0, store=store, device="cpu",
+                         timeout=90)
+    multihost.initialize(num_processes=1, process_id=0, store=store, device="cpu")
+    assert seen[0]["timeout"] == datetime.timedelta(seconds=90)
+    assert "timeout" not in seen[1]

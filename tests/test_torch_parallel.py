@@ -3,7 +3,8 @@ ranks spawned in the test, held against the port on one device and against
 the JAX package's 8-virtual-device mesh (tests/conftest.py).
 
 Two groups are spawned once for the module and every case reads their
-results: 2 ranks (dp = 2) and 4 ranks (dp x tp = 2 x 2).  The inputs (a
+results: 2 ranks (dp = 2) and 4 ranks (dp x tp = 2 x 2); the 'sp' axis has
+its own module (tests/test_torch_spatial.py).  The inputs (a
 synthetic NYU set, a PCA prior, flax-initialized weights) are made here and
 handed to the ranks.  Tolerances, each with the deviation measured on this
 CPU when it was set:
@@ -402,16 +403,19 @@ def test_dp2_matches_jax_distributed_trainer(inputs, groups, request):
 
 
 def test_make_mesh_shapes(dp2tp2):
-    """The JAX size rules (tests/test_parallel.py:25-36) on 8 devices, and
-    the DeviceMeshes of a 4-rank group; sp > 1 raises naming the ROADMAP."""
+    """The JAX size rules (tests/test_parallel.py:25-36) on 8 devices, the
+    'sp' axis between dp and tp, and the DeviceMeshes of a 4-rank group."""
     assert dict(tmesh.mesh_dims(8, dp=4, tp=2)) == {"dp": 4, "tp": 2}
     assert dict(tmesh.mesh_dims(8, tp=2)) == {"dp": 4, "tp": 2}
     assert dict(tmesh.mesh_dims(4, tp=1)) == {"dp": 4, "tp": 1}
     assert tmesh.mesh_dims(8, slices=2, dp=2, tp=2) == (("dcn", 2), ("dp", 2), ("tp", 2))
-    with pytest.raises(AssertionError):
+    with pytest.raises(ValueError, match="slices\\*dp\\*sp\\*tp=6 != 8 devices"):
         tmesh.mesh_dims(8, dp=3, tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 19"):
-        tmesh.mesh_dims(8, sp=2, tp=2)
+    assert tmesh.mesh_dims(8, sp=2, tp=2) == (("dp", 2), ("sp", 2), ("tp", 2))
+    assert tmesh.mesh_dims(16, slices=2, sp=2, tp=2) == (
+        ("dcn", 2), ("dp", 2), ("sp", 2), ("tp", 2))
+    with pytest.raises(ValueError, match="not divisible by sp\\*tp=4"):
+        tmesh.mesh_dims(6, sp=2, tp=2)
     assert dp2tp2["placements"] == (True, True, ["S(0)", "R"])
     assert dp2tp2["shapes"] == {"dp2tp2": {"dp": 2, "tp": 2}, "tp2": {"dp": 2, "tp": 2},
                                 "n4": {"dp": 4, "tp": 1},
@@ -546,13 +550,13 @@ def test_sharded_data_pads_with_wraparound(dp2, inputs):
 
 def test_world_must_match_dp_tp(dp2):
     """No quiet fall back: a group of 2 ranks asked for dp 3 raises naming
-    the launcher; so does dp 2 without a group."""
+    the launcher; so do dp 2 and sp 2 without a group."""
     from deepprior_tpu_torch.mains.common import make_trainer
 
     assert "torchrun" in dp2[0]["refused"] and "2 ranks" in dp2[0]["refused"]
     with pytest.raises(RuntimeError, match="torchrun"):
         make_trainer(_pose(), CFG, NYU_CAMERA, dp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="--sp 2 .*torchrun"):
         make_trainer(_pose(), CFG, NYU_CAMERA, sp=2, device="cpu")
     assert isinstance(make_trainer(_pose(), CFG, NYU_CAMERA, device="cpu"), Trainer)
 

@@ -98,3 +98,51 @@ def test_card_helpers_raise_without_a_card():
         profiling.require_cuda("a probe")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profiling.card_label()
+
+
+def test_graph_capture_holds_the_collector_off(monkeypatch):
+    """graph_capture collects first and keeps the cyclic collector off for
+    the capture (torch.cuda.graph stubbed: the capture itself needs a card),
+    until the last of nested captures ends, also when one raises; a
+    collector the caller had turned off stays off."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph):
+        seen.append((graph, gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    collected = []
+    real_collect = gc.collect
+    monkeypatch.setattr(gc, "collect", lambda *a: collected.append(1) or real_collect(*a))
+    assert gc.isenabled()
+    with profiling.graph_capture("outer"):
+        with profiling.graph_capture("inner"):
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    assert seen == [("outer", False), ("inner", False)] and collected == [1]
+    with pytest.raises(ValueError):
+        with profiling.graph_capture("raises"):
+            raise ValueError
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with profiling.graph_capture("off"):
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_graph_gc_probe_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from deepprior_tpu_torch.prof import prof_graph_gc
+
+    with pytest.raises(RuntimeError, match="no CPU fallback"):
+        prof_graph_gc.main(["--trials", "1"])

@@ -321,23 +321,19 @@ def test_main_trains_resnet_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--accept"], ["--sp", "2"]])
 def test_main_unported_flags_raise(tmp_path, flag):
-    """--sp raises naming its ROADMAP item; --dp 2 without a process group
-    raises naming the launcher (--sharded-snapshots is ported:
-    tests/test_torch_checkpoint_sharded.py); --accept is ported
+    """--dp 2 and --sp 2 without a process group raise naming the launcher
+    (--sharded-snapshots is ported: tests/test_torch_checkpoint_sharded.py;
+    --sp under torchrun: tests/test_torch_spatial.py); --accept is ported
     (tests/test_torch_accept.py) and a missed threshold raises SystemExit."""
-    if flag[0] == "--dp":
+    if flag[0] in ("--dp", "--sp"):
         with pytest.raises(RuntimeError, match="torchrun"):
             main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path),
                                              "--device", "cpu"] + flag)
         return
-    if flag[0] == "--accept":
-        with pytest.raises(SystemExit, match="acceptance FAILED"):
-            main_nyu_posereg_embedding.main(
-                ["--synthetic", "--out", str(tmp_path), "--device", "cpu", "--epochs", "1",
-                 "--nmax", "32", "--batch-size", "16", "--accept-mm", "0.0001"] + flag)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main_nyu_posereg_embedding.main(["--synthetic", "--out", str(tmp_path)] + flag)
+    with pytest.raises(SystemExit, match="acceptance FAILED"):
+        main_nyu_posereg_embedding.main(
+            ["--synthetic", "--out", str(tmp_path), "--device", "cpu", "--epochs", "1",
+             "--nmax", "32", "--batch-size", "16", "--accept-mm", "0.0001"] + flag)
 
 
 def _tf32_state():
