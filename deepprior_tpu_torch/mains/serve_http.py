@@ -7,6 +7,10 @@ batch).
 
 API:
   GET  /healthz          -> {"ok": true, "stats": {...}, "occupancy": f}
+                           stats: the server's frames, batches, errors, and
+                           queue_wait_s (requests' summed wait from submit
+                           to their batch's staging) and stage_s (batches'
+                           summed host staging), in seconds
   POST /predict          body: npz with
                            depth (H, W) float32 raw mm   [required]
                            com   (3,)  float32 image uvd [required]

@@ -24,6 +24,7 @@ from deepprior_tpu_torch.ops.crop import (
     clamp_depth,
     com_to_bounds,
 )
+from deepprior_tpu_torch.utils.profiling import annotate
 
 
 def _grid(h, w, device):
@@ -235,16 +236,20 @@ def label_components(mask, region=None):
     connect only within equal region ids (``detect`` labels every depth
     slice in one pass).  Returns int32 (..., H, W): each foreground pixel
     holds the smallest linear index of its 4-connected component,
-    background holds H*W."""
+    background holds H*W.  The passes it took (one host sync each) are
+    added to the innermost open span as ``passes``."""
     mask = torch.as_tensor(mask, dtype=torch.bool)
     h, w = mask.shape[-2:]
     big = h * w
     iota = torch.arange(big, dtype=torch.int32, device=mask.device).reshape(h, w)
     lab = torch.where(mask, iota, big)
+    passes = 0
     while True:
+        passes += 1
         lab2 = torch.where(mask, _seg_min_scan(lab, mask, -1, region), big)
         lab3 = torch.where(mask, _seg_min_scan(lab2, mask, -2, region), big)
         if torch.equal(lab3, lab):
+            annotate(passes=passes)
             return lab3
         lab = lab3
 

@@ -24,21 +24,35 @@ per replica where its replicas capture.
 
 A lone request pays up to ``max_wait_ms`` extra latency; under load the
 batch fills before the deadline.
+
+``stats`` counts frames, batches and errors, and sums two times in
+seconds: ``queue_wait_s``, each request's wait from ``submit`` to the start
+of its batch's staging, and ``stage_s``, the batches' staging.  While
+spans record (utils/profiling.py) the collector thread records
+``server.collect`` and, for each batch (its number the ``id``),
+``server.batch`` (``frames``, ``padded``) around ``server.stage`` (the
+stack into the pinned or plain host buffers), ``server.launch`` (the copies
+to the device and the replay, or the eager call), ``server.fetch`` (the
+joints' copy to the host, which waits for the device) and
+``server.resolve``; and a ``server.request`` per request, from ``submit``
+to its Future resolving (``batch``).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
 from deepprior_tpu_torch.realtime.fused import FusedEstimator
+from deepprior_tpu_torch.utils.profiling import enabled, record, span, timed
 
 
 @dataclass
@@ -48,6 +62,9 @@ class _Request:
     cube: Optional[np.ndarray]  # (3,) mm or None -> estimator default
     mirror: bool
     future: Future
+    # time.perf_counter_ns() as submit makes it
+    submitted_ns: int = field(default_factory=time.perf_counter_ns)
+    number: int = 0  # the server's request number
 
 
 class MicroBatchServer:
@@ -123,8 +140,12 @@ class MicroBatchServer:
         # {clear _running, enqueue sentinel}, so no Future is left
         # unresolved by a submit racing close
         self._submit_lock = threading.Lock()
+        self._requests = itertools.count()
+        self._batches = itertools.count()
+        self._batch = None  # the number of the batch the worker runs
         # realized occupancy = frames / (batches * max_batch)
-        self.stats = {"frames": 0, "batches": 0, "errors": 0}
+        self.stats = {"frames": 0, "batches": 0, "errors": 0,
+                      "queue_wait_s": 0.0, "stage_s": 0.0}
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -172,6 +193,7 @@ class MicroBatchServer:
                     f"frame shape {d.shape} does not match this server's "
                     f"{pin}"
                 )
+            req.number = next(self._requests)
             self._q.put(req)
         return fut
 
@@ -222,7 +244,8 @@ class MicroBatchServer:
         if self._cuda_index is not None:
             torch.cuda.set_device(self._cuda_index)
         while True:
-            items, stop = self._collect()
+            with span("server.collect"):
+                items, stop = self._collect()
             # one batch per frame shape: in the cameraless fallback a
             # failed batch clears the tentative pin while same-shape
             # requests may still be queued
@@ -281,66 +304,85 @@ class MicroBatchServer:
     def _run_batch(self, items):
         n = len(items)
         pad = self.max_batch - n
-        # tail-pad by repeating the last request (netbase.py:290-296);
-        # padded rows are computed and discarded
+        batch = self._batch = next(self._batches)
+        with span("server.batch", id=batch, frames=n, padded=pad), \
+                torch.inference_mode(self.graph):
+            staged = self._stage(items[0].depth.shape) if self.graph else None
+            with timed("server.stage", id=batch) as staging:
+                inputs = self._stack(items, pad, staged)
+            self.stats["stage_s"] += staging.seconds
+            self.stats["queue_wait_s"] += 1e-9 * sum(staging.start_ns - r.submitted_ns
+                                                     for r in items)
+            with span("server.launch", id=batch):
+                joints = self._launch(inputs, staged)
+            with span("server.fetch", id=batch):
+                # one copy to the host resolves the whole batch
+                joints = torch.as_tensor(joints).cpu().numpy()
+            with span("server.resolve", id=batch):
+                self._resolve(items, joints)
+
+    def _stack(self, items, pad, staged):
+        """The batch on the host: its frames and CoMs stacked (into the
+        pinned buffers where the batch goes to the device from them), tail-
+        padded by repeating the last request (netbase.py:290-296; padded rows
+        are computed and discarded), and per-request cube and mirror, or
+        None when every request takes the estimator's."""
         depths = [r.depth for r in items] + [items[-1].depth] * pad
         coms = [r.com for r in items] + [items[-1].com] * pad
-        if self._fixed:
-            if self._pin_fixed:
-                # the previous batch's copies have landed: its joints' copy
-                # to the host waited for them
-                depth_in, com_in = self._pinned(items[0].depth.shape)
-                np.stack(depths, out=depth_in.numpy())
-                np.stack(coms, out=com_in.numpy())
-            else:
-                depth_in, com_in = np.stack(depths), np.stack(coms)
-            joints, _, _ = self.est(depth_in, com_in)
-            self._resolve(items, torch.as_tensor(joints).cpu().numpy())
-            return
-        custom = any(r.cube is not None or r.mirror for r in items)
-        if custom:
-            default_cube = self.est.cube.cpu().numpy()
-            cube = torch.from_numpy(np.stack(
-                [default_cube if r.cube is None else r.cube for r in items]
-                + [default_cube] * pad
-            ))
-            mirror = torch.from_numpy(
-                np.asarray([r.mirror for r in items] + [False] * pad, bool))
-        if self.graph:
-            with torch.inference_mode():
-                cap, depth_pin, com_pin = self._stage(items[0].depth.shape)
-                # the previous batch's copies from the pinned buffers have
-                # landed: its joints' copy to the host waited for them
-                np.stack(depths, out=depth_pin.numpy())
-                np.stack(coms, out=com_pin.numpy())
-                cap.depth.copy_(depth_pin, non_blocking=True)
-                cap.com.copy_(com_pin, non_blocking=True)
-                if custom:
-                    cap.cube.copy_(cube)
-                    cap.mirror.copy_(mirror)
-                else:
-                    cap.cube.copy_(self.est.cube.expand(self.max_batch, 3))
-                    cap.mirror.zero_()
-                cap.graph.replay()
-                # one copy to the host resolves the whole batch
-                self._resolve(items, cap.outputs[0].cpu().numpy())
-            return
-        dev = self.est.device
-        depth_t = torch.from_numpy(np.stack(depths)).to(dev)
-        com_t = torch.from_numpy(np.stack(coms)).to(dev)
-        if custom:
-            joints, _, _ = self.est(depth_t, com_t, cube=cube.to(dev),
-                                    mirror=mirror.to(dev))
+        if self._fixed and not self._pin_fixed:
+            return np.stack(depths), np.stack(coms), None, None
+        if self._fixed or self.graph:
+            # the previous batch's copies from the pinned buffers have
+            # landed: its joints' copy to the host waited for them
+            depth_in, com_in = (staged[1:] if self.graph
+                                else self._pinned(items[0].depth.shape))
+            np.stack(depths, out=depth_in.numpy())
+            np.stack(coms, out=com_in.numpy())
         else:
-            joints, _, _ = self.est(depth_t, com_t)
-        # one copy to the host resolves the whole batch
-        self._resolve(items, joints.cpu().numpy())
+            depth_in, com_in = torch.from_numpy(np.stack(depths)), torch.from_numpy(np.stack(coms))
+        if self._fixed or not any(r.cube is not None or r.mirror for r in items):
+            return depth_in, com_in, None, None
+        default_cube = self.est.cube.cpu().numpy()
+        cube = torch.from_numpy(np.stack(
+            [default_cube if r.cube is None else r.cube for r in items]
+            + [default_cube] * pad))
+        mirror = torch.from_numpy(
+            np.asarray([r.mirror for r in items] + [False] * pad, bool))
+        return depth_in, com_in, cube, mirror
+
+    def _launch(self, inputs, staged):
+        """The pipeline on a stacked batch: the copies to the device and the
+        graph's replay, or the eager call; returns the joints, on the device."""
+        depth_in, com_in, cube, mirror = inputs
+        if self._fixed:
+            return self.est(depth_in, com_in)[0]
+        if self.graph:
+            cap = staged[0]
+            cap.depth.copy_(depth_in, non_blocking=True)
+            cap.com.copy_(com_in, non_blocking=True)
+            if cube is not None:
+                cap.cube.copy_(cube)
+                cap.mirror.copy_(mirror)
+            else:
+                cap.cube.copy_(self.est.cube.expand(self.max_batch, 3))
+                cap.mirror.zero_()
+            cap.graph.replay()
+            return cap.outputs[0]
+        dev = self.est.device
+        if cube is not None:
+            return self.est(depth_in.to(dev), com_in.to(dev), cube=cube.to(dev),
+                            mirror=mirror.to(dev))[0]
+        return self.est(depth_in.to(dev), com_in.to(dev))[0]
 
     def _resolve(self, items, joints_np):
         self.stats["frames"] += len(items)
         self.stats["batches"] += 1
+        traced = enabled()
         for i, r in enumerate(items):
             r.future.set_result(joints_np[i])
+            if traced:
+                record("server.request", r.submitted_ns, time.perf_counter_ns(), id=r.number,
+                       batch=self._batch)
 
     # ------------------------------------------------------------------
     def occupancy(self) -> float:

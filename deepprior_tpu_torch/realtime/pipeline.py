@@ -8,6 +8,16 @@ on the estimator's device (ops/com.py), or on the host through the numpy
 (IDLE/INIT/RUN), tracking vs detection, the INIT hand-size calibration and
 the producer/consumer split (threads over a lock-protected slot, like the
 reference's sync dict).
+
+While spans record (utils/profiling.py) ``detect`` and ``estimate_pose``
+record ``pipeline.detect`` and ``pipeline.pose``, each with the frame's
+number as its ``id``; inside ``pipeline.detect``, device detection records
+``detect.scan`` (``ops.com.detect`` through its CoM's copy to the host,
+with the label scan's ``passes``; not when tracking) and
+``detect.refine`` (the CoM refiner through its copy to the host).
+``times['detect']`` and ``times['pose']`` are the durations of
+``pipeline.detect`` and ``pipeline.pose``, timed whether or not spans
+record.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from deepprior_tpu_torch.ops.com import detect as device_detect
 from deepprior_tpu_torch.ops.com import refine_com_iterative
 from deepprior_tpu_torch.ops.crop import clamp_depth
 from deepprior_tpu_torch.realtime.fused import FusedEstimator
+from deepprior_tpu_torch.utils.profiling import span, timed
 
 STATE_IDLE = 0
 STATE_INIT = 1
@@ -79,6 +90,8 @@ class RealtimeHandposePipeline:
         self._lock = threading.Lock()
         self._slot: Optional[Dict[str, Any]] = None
         self._fid = 0
+        # the number of the newest frame handed to detect, the spans' id
+        self._frame = 0
 
         # instrumentation (reference per-stage ms + running fps,
         # realtimehandposepipeline.py:160-166, 199-214, 447-462)
@@ -98,13 +111,15 @@ class RealtimeHandposePipeline:
             com = refine_com_iterative(
                 d, torch.as_tensor(self.lastcom, device=dev)[None], cb,
                 cam.fx, cam.fy, num_iter=3, min_depth=dmin, max_depth=dmax)[0]
+            com = com.cpu().numpy()
         else:
-            com = device_detect(fr, cb, cam.fx, cam.fy)[0]
-        com = com.cpu().numpy()
+            with span("detect.scan", id=self._frame):
+                com = device_detect(fr, cb, cam.fx, cam.fy)[0].cpu().numpy()
         if self.com_refiner is not None and not np.allclose(com, 0.0):
-            d, _, _ = clamp_depth(fr)
-            com = self.com_refiner(d, torch.as_tensor(com, device=dev)[None],
-                                   cb)[0].cpu().numpy()
+            with span("detect.refine", id=self._frame):
+                d, _, _ = clamp_depth(fr)
+                com = self.com_refiner(d, torch.as_tensor(com, device=dev)[None],
+                                       cb)[0].cpu().numpy()
         return com
 
     def detect(self, frame: np.ndarray) -> Tuple[np.ndarray, tuple]:
@@ -114,7 +129,13 @@ class RealtimeHandposePipeline:
         CoM when tracking is on, otherwise full detection; the INIT state
         calibrates the cube from the median hand size over
         ``num_init_frames`` frames."""
-        t0 = time.perf_counter()
+        self._frame += 1
+        with timed("pipeline.detect", id=self._frame) as took:
+            com, cube = self._detect(frame)
+        self.times["detect"] = took.seconds
+        return com, cube
+
+    def _detect(self, frame: np.ndarray) -> Tuple[np.ndarray, tuple]:
         cube = tuple(self.config["cube"])
         if self.use_device_detect:
             com = self._detect_on_device(frame, cube)
@@ -138,7 +159,6 @@ class RealtimeHandposePipeline:
                 self.config["cube"] = med
                 self.hand_sizes = []
                 self.state = STATE_RUN
-        self.times["detect"] = time.perf_counter() - t0
         return com, cube
 
     # ------------------------------------------------------------------
@@ -151,17 +171,17 @@ class RealtimeHandposePipeline:
         :353-363).  The live config cube is passed per call, so the INIT
         calibration and +/- resizing reach the crop and the
         denormalization (:330-336)."""
-        t0 = time.perf_counter()
-        joints, _, _ = self.estimator(
-            frame[None],
-            np.asarray(com, np.float32)[None],
-            cube=np.asarray(self.config["cube"], np.float32),
-            mirror=np.asarray([self.hand == HAND_RIGHT]),
-            invx=bool(self.config.get("invX", False)),
-            invy=bool(self.config.get("invY", False)),
-        )
-        joints = joints[0].cpu().numpy()
-        self.times["pose"] = time.perf_counter() - t0
+        with timed("pipeline.pose", id=self._frame) as took:
+            joints, _, _ = self.estimator(
+                frame[None],
+                np.asarray(com, np.float32)[None],
+                cube=np.asarray(self.config["cube"], np.float32),
+                mirror=np.asarray([self.hand == HAND_RIGHT]),
+                invx=bool(self.config.get("invX", False)),
+                invy=bool(self.config.get("invY", False)),
+            )
+            joints = joints[0].cpu().numpy()
+        self.times["pose"] = took.seconds
         return joints
 
     # ------------------------------------------------------------------

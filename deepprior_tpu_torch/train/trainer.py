@@ -36,6 +36,13 @@ port's checkpoint format (train/checkpoint.py), or with
 ``sharded_snapshots`` a directory that every rank writes its shards into
 (train/checkpoint_sharded.py, async); loads take either.
 
+``train_step`` is one step on a batch of rows, the call ``fit`` and
+``fit_streamed`` make.  While spans record (utils/profiling.py) a step
+records ``train.step`` around ``train.augment`` (augmentation and the PCA
+targets), ``train.forward`` (the model and the loss), ``train.backward``
+(backward and ``_reduce_grads``) and ``train.optimizer`` (the update),
+each with the state's step number as its ``id``.
+
 parallel/train_dist.py::DistributedTrainer runs this loop on many ranks
 through the hooks ``_take``, ``_penalty``, ``_reduce_grads``,
 ``_epoch_costs``, ``_eval_rows``, ``_forward_rows``, ``_stream_indices``,
@@ -61,6 +68,7 @@ from deepprior_tpu_torch.train.checkpoint import (
 from deepprior_tpu_torch.train.optimizer import lr_of_ep, make_optimizer
 from deepprior_tpu_torch.train.prefetch import (
     DevicePrefetcher, aligned_epoch_indices, index_chunks)
+from deepprior_tpu_torch.utils.profiling import span
 
 
 class TrainConfig(NamedTuple):
@@ -283,8 +291,9 @@ class Trainer:
         update once per step, as the JAX step's new batch_stats do.
         Returns (state, loss as a 0-d tensor on the device)."""
         cfg = self.cfg
-        with self._precision():
-            with torch.no_grad():
+        step = state.step
+        with span("train.step", id=step), self._precision():
+            with span("train.augment", id=step), torch.no_grad():
                 crops, gt3d, cube = batch["crops"], batch["gt3d_crop"], batch["cube"]
                 if cfg.aug_modes:
                     params = aug if isinstance(aug, (tuple, list)) else None
@@ -302,19 +311,29 @@ class Trainer:
                 y = self._targets(labels_norm)
 
             model, opt = state.model, state.optimizer
-            model.train()
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.zero_grad(set_to_none=True)
-            out = model(crops[:, None], generator=drop_generator)
-            loss = _loss_from_targets(out, y)
-            if cfg.weightreg_factor > 0.0 and not cfg.model_has_dropout:
-                loss = loss + cfg.weightreg_factor * self._penalty(model)
-            loss.backward()
-            self._reduce_grads(model)
-            opt.step()
+            with span("train.forward", id=step):
+                model.train()
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.zero_grad(set_to_none=True)
+                out = model(crops[:, None], generator=drop_generator)
+                loss = _loss_from_targets(out, y)
+                if cfg.weightreg_factor > 0.0 and not cfg.model_has_dropout:
+                    loss = loss + cfg.weightreg_factor * self._penalty(model)
+            with span("train.backward", id=step):
+                loss.backward()
+                self._reduce_grads(model)
+            with span("train.optimizer", id=step):
+                opt.step()
         state.step += 1
         return state, loss.detach()
+
+    def train_step(self, state: TrainState, batch, aug, drop_generator, lr: float):
+        """One training step on ``batch`` (the step's rows, as ``_take``
+        gives them): the public entry to ``_train_step_core``, which ``fit``
+        and ``fit_streamed`` call.  Returns (state, loss as a 0-d tensor on
+        the device)."""
+        return self._train_step_core(state, batch, aug, drop_generator, lr)
 
     # the hooks of the distributed trainer; on one device, the identity
     def _take(self, data, idx):
@@ -679,7 +698,7 @@ class Trainer:
             sub_obs = None
             losses = []
             for s in range(steps):
-                state, loss = self._train_step_core(
+                state, loss = self.train_step(
                     state, self._take(data, idxs[s]), aug_gen, drop_gen, lr)
                 losses.append(loss)
                 if seg and ((s + 1) % seg == 0 or s + 1 == steps):
@@ -748,7 +767,7 @@ class Trainer:
                     aug_gen, drop_gen = self._epoch_generators(epoch)
                     losses, sub_obs = [], None
                 for s in range(chunk["crops"].shape[0]):
-                    state, loss = self._train_step_core(
+                    state, loss = self.train_step(
                         state, {k: v[s] for k, v in chunk.items()}, aug_gen, drop_gen, lr)
                     losses.append(loss)
                 done += chunk["crops"].shape[0]

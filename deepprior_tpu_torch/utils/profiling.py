@@ -1,71 +1,213 @@
-"""Profiling and timing hooks (counterpart of deepprior_tpu/utils/profiling.py).
+"""Profiling and timing hooks: the port's span recorder, and device timers
+(the counterparts of deepprior_tpu/utils/profiling.py's).
 
-The reference exposes print-based timing only: ms/frame in computeOutput
-(netbase.py:308-310), per-stage ms in the realtime pipeline, epochs/sec in
-the trainer.  ``StageTimer`` keeps that surface.  The device timers follow
-the card's own clock: CUDA events around the work, and a CUDA graph for
-the device floor of a carried loop.  Passing CPU tensors is the caller
-asking for the CPU; only then do the timers read the host clock.
+Spans.  ``span(name, id=None, **attrs)`` records one span of the host's
+time at a layer boundary (the server, the realtime pipeline and its
+detection, the train step): its name, start and end on
+``time.perf_counter_ns()``, thread, parent (the innermost span open in the
+same thread), ``id`` (the request, batch, frame or step number, shared by
+the spans of one unit of work) and ``attrs``.  ``annotate(**counts)`` adds
+counts to the innermost open span of the calling thread, recorded with it.
+Spans are recorded while a ``torch.profiler`` session records in this
+process, or inside ``recording()``; otherwise ``span`` returns one shared
+no-op object and reads no clock.  ``timed`` is a span that always reads
+the clock, for timings the program keeps whether or not it records.  The
+newest ``MAX_SPANS`` spans stay in memory (``spans()``, ``clear()``);
+``to_wall_ns`` puts a span's times on ``time.time_ns()``, the clock of the
+profiler's events.  No span opens inside a CUDA graph's capture.
+
+The device timers follow the card's own clock: CUDA events around the
+work, and a CUDA graph for the device floor of a carried loop.  Passing
+CPU tensors is the caller asking for the CPU; only then do the timers read
+the host clock.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
-import os
+import itertools
 import subprocess
 import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+MAX_SPANS = 200_000  # the newest spans kept in memory
+_OFFSET_REFRESH_NS = 1_000_000_000  # how old the wall-clock offset may grow while recording
 
 
-class StageTimer:
-    """Named stage timings with running averages (the fps/ms surface)."""
+class Span(NamedTuple):
+    """One recorded span; times on ``time.perf_counter_ns()``."""
 
-    def __init__(self, window: int = 100):
-        self.window = window
-        self._hist: Dict[str, list] = {}
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int  # threading.get_ident() of the thread that closed it
+    seq: int  # its number among the process's spans
+    parent: Optional[int]  # the seq of the span it opened in, or None
+    id: object  # the request, batch, frame or step number, or None
+    attrs: dict
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
+    @property
+    def seconds(self) -> float:
+        return 1e-9 * (self.end_ns - self.start_ns)
+
+
+class _Recorder:
+    """The process's spans and switches."""
+
+    def __init__(self):
+        self.spans = collections.deque(maxlen=MAX_SPANS)
+        self.seq = itertools.count()
+        self.local = threading.local()  # .stack: the thread's open spans
+        self.lock = threading.Lock()
+        self.depth = 0  # recording() blocks open
+        self.offset_ns = time.time_ns() - time.perf_counter_ns()
+        self.offset_at = None  # perf_counter_ns when offset_ns was sampled
+
+    def stack(self) -> list:
         try:
-            yield
-        finally:
-            h = self._hist.setdefault(name, [])
-            h.append(time.perf_counter() - t0)
-            del h[: -self.window]
+            return self.local.stack
+        except AttributeError:
+            self.local.stack = []
+            return self.local.stack
 
-    def ms(self, name: str) -> float:
-        h = self._hist.get(name, [])
-        return 1000.0 * sum(h) / len(h) if h else 0.0
+    def sample_offset(self, now_ns: int, force: bool = False):
+        """Sample ``time.time_ns() - time.perf_counter_ns()`` when recording
+        starts, and again once it is a second old."""
+        if force or self.offset_at is None or now_ns - self.offset_at > _OFFSET_REFRESH_NS:
+            self.offset_ns = time.time_ns() - time.perf_counter_ns()
+            self.offset_at = now_ns
 
-    def fps(self, name: str) -> float:
-        ms = self.ms(name)
-        return 1000.0 / ms if ms > 0 else 0.0
 
-    def report(self) -> str:
-        return " ".join(f"{k}={self.ms(k):.2f}ms" for k in sorted(self._hist))
+_REC = _Recorder()
+
+
+def enabled() -> bool:
+    """True while spans are recorded: inside ``recording()``, or while a
+    ``torch.profiler`` session records in this process (the flag torch sets
+    at the profiler's start and clears at its stop)."""
+    return bool(_REC.depth or _autograd_profiler._is_profiler_enabled)
+
+
+class _NoSpan:
+    """What ``span`` returns while nothing records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoSpan()
+
+
+class _OpenSpan:
+    """A span being timed; recorded as it closes if it opened while on."""
+
+    __slots__ = ("name", "id", "attrs", "start_ns", "end_ns", "seq", "parent", "live")
+
+    def __init__(self, name, id, attrs):
+        self.name, self.id, self.attrs = name, id, attrs
+        self.end_ns = None
+
+    def __enter__(self):
+        self.live = enabled()
+        self.start_ns = now = time.perf_counter_ns()
+        if self.live:
+            stack = _REC.stack()
+            self.parent = stack[-1].seq if stack else None
+            self.seq = next(_REC.seq)
+            stack.append(self)
+            _REC.sample_offset(now)
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.perf_counter_ns()
+        if self.live:
+            _REC.stack().pop()
+            _REC.spans.append(Span(self.name, self.start_ns, self.end_ns, threading.get_ident(),
+                                   self.seq, self.parent, self.id, self.attrs))
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return 1e-9 * (self.end_ns - self.start_ns)
+
+
+def span(name: str, id=None, **attrs):
+    """A context manager that records the span ``name`` while ``enabled()``;
+    otherwise the shared no-op object, which reads no clock.  (The test of
+    ``enabled()`` is inlined: this is the call the hot paths make.)"""
+    if not (_REC.depth or _autograd_profiler._is_profiler_enabled):
+        return _NOOP
+    return _OpenSpan(name, id, attrs)
+
+
+def timed(name: str, id=None, **attrs) -> _OpenSpan:
+    """``span`` that always reads the clock: after the block, ``start_ns``,
+    ``end_ns`` and ``seconds`` hold its times, recorded as the span ``name``
+    while ``enabled()``."""
+    return _OpenSpan(name, id, attrs)
+
+
+def annotate(**counts):
+    """Add ``counts`` to the innermost open span of the calling thread
+    (recorded with it as it closes); nothing while nothing records."""
+    if not enabled():
+        return
+    stack = _REC.stack()
+    if stack:
+        attrs = stack[-1].attrs
+        for k, v in counts.items():
+            attrs[k] = attrs.get(k, 0) + v
+
+
+def record(name: str, start_ns: int, end_ns: int, id=None, **attrs):
+    """Record a span whose times the caller read on ``time.perf_counter_ns()``
+    (one that began in another thread: it has no parent), while
+    ``enabled()``."""
+    if not enabled():
+        return
+    _REC.sample_offset(end_ns)
+    _REC.spans.append(Span(name, start_ns, end_ns, threading.get_ident(), next(_REC.seq),
+                           None, id, attrs))
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "torch-trace"):
-    """torch.profiler over a region (the CPU, and the card when there is
-    one); on exit writes a chrome trace into ``log_dir`` (view it in
-    chrome://tracing or Perfetto).  Yields the profiler, whose
-    ``key_averages()`` sums the region by kernel."""
-    from torch.profiler import ProfilerActivity, profile
+def recording():
+    """Record spans inside the block, from every thread of the process."""
+    with _REC.lock:
+        _REC.depth += 1
+    _REC.sample_offset(time.perf_counter_ns(), force=True)
+    try:
+        yield
+    finally:
+        with _REC.lock:
+            _REC.depth -= 1
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    stamp = time.strftime("%Y%m%d-%H%M%S")
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace-{stamp}-{os.getpid()}.json"))
+
+def spans() -> list:
+    """A snapshot of the recorded spans, oldest first by their end."""
+    return list(_REC.spans)
+
+
+def clear():
+    """Forget every recorded span."""
+    _REC.spans.clear()
+
+
+def to_wall_ns(perf_ns: int) -> int:
+    """``time.perf_counter_ns()`` ``perf_ns`` on ``time.time_ns()``, the clock
+    of ``torch.profiler``'s events."""
+    return perf_ns + _REC.offset_ns
 
 
 _GC_HELD = {"captures": 0, "was_enabled": True}
