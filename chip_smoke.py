@@ -5,7 +5,7 @@
 Builds the CUDA kernels from deepprior_tpu_torch/csrc/ (crop.cu: the
 nearest crop K1 and the cv2-linear crop K2; warp.cu: the augmentation
 warps K4 and K5; probes.cu: the band-read probes K6a-c and the general
-warp K7) and holds each bit for bit against its plain PyTorch version
+warp K7; label.cu: the slice scan's connected-component labels K8) and holds each bit for bit against its plain PyTorch version
 (the crops K1/K2 and the fused warp K5 compute their geometry in the
 kernel: crops and M, and K5's patches and the per-sample fields it writes
 for the labels, are held to the plain geometry and warp).  Then it drives
@@ -103,6 +103,14 @@ PoseRegNet's and ResNet-47's network_prior.ckpt written in it
 call, joints bit-equal to the port's format, serve_http --checkpoint on
 the JAX file, and a JAX-format ScaleNet through load_refine_net_lazy into
 a comref import.
+Phase 49 (run after phase 16) holds K8 to the plain label scan on the card
+bit for bit (ops/hopper_label.py::hard_masks with int32, int64 and uint8
+regions, 64 rendered NYU and 32 ICVL frames with the slice index as region
+at B = 1 and 8), counts one launch a labeling call, replays a CUDA graph of
+label_components against the eager call, holds detect through K8 to detect
+through the plain scan (equal) and to the CPU (phase 14's bound), and times
+K8 alone from a CUDA graph beside its byte bound, the plain scan and
+detect at B = 1 through each.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -344,7 +352,7 @@ def main(argv=None):
     from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_depth_frame
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
-    from deepprior_tpu_torch.ops import hopper_crop, hopper_probes, hopper_warp
+    from deepprior_tpu_torch.ops import hopper_crop, hopper_label, hopper_probes, hopper_warp
     from deepprior_tpu_torch.ops._build import BUILD_LOG
     from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
     from deepprior_tpu_torch.prior import PCAPrior
@@ -371,12 +379,12 @@ def main(argv=None):
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    builds = (hopper_crop.build, hopper_warp.build, hopper_probes.build)
+    builds = (hopper_crop.build, hopper_warp.build, hopper_probes.build, hopper_label.build)
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, in parallel
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
     build_s = time.perf_counter() - t0
-    for src in ("crop.cu", "warp.cu", "probes.cu"):
+    for src in ("crop.cu", "warp.cu", "probes.cu", "label.cu"):
         ptxas = [ln.strip() for ln in BUILD_LOG.get(src, "").splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"[2 build] {src} built and loaded ({build_s:.3f} s for all) "
@@ -683,6 +691,8 @@ def main(argv=None):
         kernels += training_phases(dev, tag, log, profile=args.profile, trained=trained)
     with stage("12-16"):
         kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
+    with stage("49"):
+        kernels.append(label_phase(dev, tag, log))
     with stage("21-26"):
         serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
@@ -1482,6 +1492,175 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64, n_cpu=16):
             "replaces": "deepprior_tpu/ops/pallas_crop.py:417",
             "launches": k2_launches, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "kernel_only_ms": k2_ms}
+
+
+def label_phase(dev, tag, log, nyu_frames=64, icvl_frames=32, batch=8, cpu_frames=8):
+    """Phase 49, run after phase 16: the label kernel K8 (csrc/label.cu) on
+    the card.  Its labels equal the plain scan's (``ops.com.label_scan``, on
+    the card) bit for bit on ``hopper_label.hard_masks`` (their regions also
+    as int64 and uint8) and on ``nyu_frames`` rendered NYU and
+    ``icvl_frames`` ICVL frames with detect's slice index as region, at B =
+    1 and B = ``batch``; one launch is counted a labeling call; a CUDA graph
+    of ``label_components`` replays the eager labels; ``detect`` through K8
+    equals ``detect`` through the plain scan on the card and the CPU's on
+    the first ``cpu_frames`` NYU frames within phase 14's bound.  Then K8
+    alone from a CUDA graph at 640x480 B = 1 and B = ``batch`` beside its
+    byte bound and the plain scan, and ``detect`` at B = 1 through each, in
+    turns.  Returns K8's JSON record."""
+    import torch
+
+    from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.ops import com as tcom
+    from deepprior_tpu_torch.ops import hopper_label
+    from deepprior_tpu_torch.ops.crop import _div, clamp_depth
+    from deepprior_tpu_torch.utils import profiling
+    from deepprior_tpu_torch.utils.flops import roofline_ms
+
+    rng = np.random.default_rng(49)
+    cam = NYU_CAMERA
+    cube = (250.0, 250.0, 250.0)
+    launches = hopper_label.LAUNCHES
+
+    def frames(c, n):
+        raw = np.stack([make_depth_frame(c, rng)[0] for _ in range(n)])
+        return torch.from_numpy(raw).to(dev)
+
+    def slices(raw, num_slices):
+        """detect's foreground and slice index (ops/com.py::detect)."""
+        dc, dmin, dmax = clamp_depth(raw)
+        dz = torch.clamp(_div(dmax - dmin, float(num_slices)), min=1e-6)
+        q = torch.floor((dc - dmin[:, None, None]) / dz[:, None, None])
+        return dc > 0.0, q.clamp(0, num_slices - 1).to(torch.int32)
+
+    def scan(mask, region):
+        """The plain scan's labels and the passes it took."""
+        with profiling.recording(), profiling.span("label_scan"):
+            lab = tcom.label_scan(mask, region)
+        return lab, profiling.spans()[-1].attrs["passes"]
+
+    cases, passes = [], {}
+
+    def check(label, mask, region=None):
+        before = launches["label"]
+        got = tcom.label_components(mask, region)
+        if launches["label"] != before + 1:
+            raise AssertionError(f"K8 {label}: {launches['label'] - before} launches "
+                                 f"counted for one call")
+        want, n_passes = scan(mask, region)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K8 {label}: labels != the plain scan's on "
+                                 f"{int((got != want).sum())} of {got.numel()} pixels")
+        cases.append(label)
+        passes.setdefault(label.split(" #")[0], []).append(n_passes)
+
+    def with_plain_scan(fn):
+        """fn() with detect labelling through the plain scan."""
+        kernel = tcom.label_components
+        tcom.label_components = tcom.label_scan
+        try:
+            return fn()
+        finally:
+            tcom.label_components = kernel
+
+    for name, mask, region in hopper_label.hard_masks():
+        m = torch.from_numpy(mask).to(dev)
+        if region is None:
+            check(name, m)
+            continue
+        for dtype in (torch.int32, torch.int64, torch.uint8):
+            check(f"{name}, {dtype} regions", m, torch.from_numpy(region).to(dev, dtype))
+    n_hard = len(cases)
+    nyu, icvl = frames(cam, nyu_frames), frames(ICVL_CAMERA, icvl_frames)
+    split = {}
+    for label, raw, num_slices in (("NYU 640x480", nyu, 20), ("ICVL 320x240", icvl, 10)):
+        mask, q = split[label] = slices(raw, num_slices)
+        for i in range(len(raw)):
+            check(f"{label} {num_slices} slices B=1 #{i}", mask[i:i + 1], q[i:i + 1])
+        for i in range(0, len(raw), batch):
+            check(f"{label} {num_slices} slices B={batch} #{i}", mask[i:i + batch],
+                  q[i:i + batch])
+    log(f"[49 K8 vs plain] {len(cases)} cases bit-exact (torch.equal): {n_hard} hard masks "
+        f"and their region dtypes, {nyu_frames} NYU and {icvl_frames} ICVL frames at B=1 "
+        f"and B={batch}; one launch counted a call; plain scan passes "
+        + "; ".join(f"{k}: mean {np.mean(v):.2f}, max {max(v)}" for k, v in passes.items()
+                    if "B=" in k))
+
+    # the labeling captures into a CUDA graph: nothing on it reads back
+    mask, q = split["NYU 640x480"]
+    for bsz in (1, batch):
+        m, r = mask[:bsz], q[:bsz]
+        replayed = graph_outputs(lambda: (tcom.label_components(m, r),))[0]
+        eager = tcom.label_components(m, r)
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, eager):
+            raise AssertionError(f"K8 B={bsz}: the CUDA-graph replay differs from eager")
+    # detect through K8 against detect through the plain scan (the card) and
+    # the CPU's (the reductions' order differs: phase 14's bound)
+    for label, raw, c in (("NYU", nyu, cam), ("ICVL", icvl, ICVL_CAMERA)):
+        for i in range(0, len(raw), batch):
+            chunk = raw[i:i + batch]
+            got = tcom.detect(chunk, cube, c.fx, c.fy)
+            want = with_plain_scan(lambda: tcom.detect(chunk, cube, c.fx, c.fy))
+            if not torch.equal(got, want):
+                raise AssertionError(f"detect {label} #{i}: K8 route != plain scan route by "
+                                     f"{(got - want).abs().max().item()}")
+    on_card = tcom.detect(nyu[:cpu_frames], cube, cam.fx, cam.fy).cpu()
+    on_cpu = tcom.detect(nyu[:cpu_frames].cpu(), cube, cam.fx, cam.fy)
+    det_err = (on_card - on_cpu).abs().max().item()
+    if det_err > 0.5:
+        raise AssertionError(f"detect on the card differs from the CPU's by {det_err}")
+    launches["label"] = 0
+    tcom.detect(nyu[:1], cube, cam.fx, cam.fy)
+    per_detect = launches["label"]
+    if per_detect != 1:
+        raise AssertionError(f"detect at B=1 counted {per_detect} label launches")
+    log(f"[49 K8 graph, detect] a CUDA graph of label_components replays the eager labels "
+        f"at B=1 and B={batch}; detect through K8 == detect through the plain scan on "
+        f"{nyu_frames} NYU and {icvl_frames} ICVL frames (B={batch}); card vs CPU on "
+        f"{cpu_frames} NYU frames max |d| {det_err} px/mm (bound 0.5); {per_detect} "
+        f"launch per detect call")
+
+    # ----------------------------------------------------------- timing
+    kernel_ms = {}
+    for bsz in (1, batch):
+        args = hopper_label.label_args(mask[:bsz], q[:bsz])
+        kernel_ms[bsz] = graph_ms(lambda: hopper_label.launch_label(args), iters=50)
+    m1, q1 = mask[:1], q[:1]
+    plain_ms = time_ms(lambda: tcom.label_scan(m1, q1), iters=10)
+
+    def host_ms(fn, iters):
+        runs = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(runs))
+
+    d1 = nyu[:1]
+    plain_det_ms, det_ms = alternate(
+        lambda: with_plain_scan(lambda: tcom.detect(d1, cube, cam.fx, cam.fy)),
+        lambda: tcom.detect(d1, cube, cam.fx, cam.fy), 15, host_ms)
+    # one read of the mask (1 B) and the region (4 B), one write of the labels (4 B)
+    n_bytes = {b: mask[:b].numel() * (1 + 4 + 4) for b in kernel_ms}
+    bound, bound_by = roofline_ms(n_bytes[1])
+    for bsz, ms in kernel_ms.items():
+        b_ms = roofline_ms(n_bytes[bsz])[0]
+        log(f"[49 timing] {tag} K8 640x480 B={bsz}: {ms:.4f} ms alone (CUDA graph of 50); "
+            f"{n_bytes[bsz]} B, bound {b_ms:.6f} ms by bytes, share {b_ms / ms:.4f}")
+    log(f"[49 timing] {tag} plain scan 640x480 B=1 {plain_ms:.4f} ms (CUDA events, its host "
+        f"syncs included); detect B=1 through K8 {det_ms:.4f} ms vs through the plain scan "
+        f"{plain_det_ms:.4f} ms (median, host clock, in turns)")
+    return {"name": "label", "route": "cuda", "source": "deepprior_tpu_torch/csrc/label.cu",
+            "replaces": "none: deepprior_tpu/ops/com.py:244 label_components is a "
+                        "lax.while_loop of segmented scans, plain XLA",
+            "launches": len(cases), "max_abs_err": 0.0, "kernel_only_ms": kernel_ms[1],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library": "none: PyTorch has no connected-components call",
+            "launches_per_call": per_detect, "detect_ms": det_ms,
+            "detect_plain_ms": plain_det_ms}
 
 
 def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max_batch=64):

@@ -9,6 +9,13 @@ control flow translates as follows: ``fori_loop`` is a Python loop,
 ``.at[].add`` ``scatter_add_`` and ``.at[].max`` ``scatter_reduce_('amax')``.
 ``argmin``/``argmax`` take the first index on a tie, as JAX does.
 
+``label_components`` has two routes with one contract.  On a CPU tensor it
+is the plain ``label_scan``, the JAX package's ``while_loop`` of segmented
+min-scans, with one host sync per pass.  On a CUDA tensor it is the
+hand-written union-find kernel K8 (csrc/label.cu, ops/hopper_label.py):
+three launches and no host sync, so the slice scan of ``detect`` reads
+nothing back to the host until its CoM.
+
 Sums of pixel coordinates over many pixels can pass 2^24 and then depend
 on the reduction order in float32, as the JAX package's do; every division
 is IEEE division of two tensors (ops/crop.py's module doc).
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from deepprior_tpu_torch.ops import hopper_label
 from deepprior_tpu_torch.ops.crop import (
     _div,
     _exact_floor_div,
@@ -229,15 +237,31 @@ def _seg_min_scan(lab, mask, axis, region=None):
 
 
 def label_components(mask, region=None):
-    """Connected-component labels by alternating row/column segmented
-    min-scans, until a pass changes nothing.
+    """Connected-component labels.
 
     mask: (..., H, W) bool.  region: optional integer (..., H, W); pixels
     connect only within equal region ids (``detect`` labels every depth
     slice in one pass).  Returns int32 (..., H, W): each foreground pixel
     holds the smallest linear index of its 4-connected component,
-    background holds H*W.  The passes it took (one host sync each) are
-    added to the innermost open span as ``passes``."""
+    background holds H*W.
+
+    On a CUDA tensor the union-find kernel K8 (``hopper_label.label_kernel``)
+    labels in one pass with no host sync, added to the innermost open span
+    as ``passes`` = 1; it launches or raises.  On any other device the
+    plain ``label_scan``, which adds the passes it took."""
+    mask = torch.as_tensor(mask, dtype=torch.bool)
+    if mask.is_cuda:
+        lab = hopper_label.label_kernel(mask, region)
+        annotate(passes=1)
+        return lab
+    return label_scan(mask, region)
+
+
+def label_scan(mask, region=None):
+    """``label_components`` by alternating row/column segmented min-scans,
+    until a pass changes nothing: the plain version, on any device.  The
+    passes it took (one host sync each) are added to the innermost open
+    span as ``passes``."""
     mask = torch.as_tensor(mask, dtype=torch.bool)
     h, w = mask.shape[-2:]
     big = h * w

@@ -13,7 +13,9 @@ While spans record (utils/profiling.py) ``detect`` and ``estimate_pose``
 record ``pipeline.detect`` and ``pipeline.pose``, each with the frame's
 number as its ``id``; inside ``pipeline.detect``, device detection records
 ``detect.scan`` (``ops.com.detect`` through its CoM's copy to the host,
-with the label scan's ``passes``; not when tracking) and
+with the labeling's ``passes``: 1 on a card, where the union-find kernel
+K8 labels with no host sync, else the plain scan's count, one host sync
+each; not when tracking) and
 ``detect.refine`` (the CoM refiner through its copy to the host).
 ``times['detect']`` and ``times['pose']`` are the durations of
 ``pipeline.detect`` and ``pipeline.pose``, timed whether or not spans

@@ -17,7 +17,8 @@ CPU: what can be checked without the card.
       tensors (mode masks, the cube's stride, dtypes, the outputs);
   (c) ``fuse_norm=None``: K5 on the kernel path of every device, its
       plain version on the CPU, where no launcher is reached;
-  (d) ``build()`` binds the C signatures of csrc/warp.cu as written there.
+  (d) ``build()`` binds the C signatures of csrc/warp.cu as written there,
+      and ``hopper_label.build()`` those of csrc/label.cu (K8).
 The kernel itself runs only on a CUDA card: chip_smoke.py phase 7 holds it
 to augment_geometry + warp_norm_plain bit for bit.
 """
@@ -194,12 +195,13 @@ def test_fuse_norm_none_dispatch(monkeypatch):
 
 _CTYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
            "const int64_t*": ctypes.c_void_p, "bool*": ctypes.c_void_p,
-           "void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+           "void*": ctypes.c_void_p, "const void*": ctypes.c_void_p,
+           "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-def _c_signature(name):
-    """The ctypes of the C function ``name``'s parameters in csrc/warp.cu."""
-    with open(os.path.join(_build.CSRC, "warp.cu")) as f:
+def _c_signature(name, source="warp.cu"):
+    """The ctypes of the C function ``name``'s parameters in csrc/<source>."""
+    with open(os.path.join(_build.CSRC, source)) as f:
         src = f.read()
     params = re.search(rf"\bint {name}\(([^)]*)\)", src).group(1)
     return [_CTYPES[re.sub(r"\s*\w+$", "", p.strip()).replace(" *", "*")]
@@ -248,6 +250,26 @@ def test_warp_build_binds_the_c_signatures(monkeypatch):
             hw.build()
     finally:
         hw.build.cache_clear()
+
+
+def test_label_build_binds_the_c_signature(monkeypatch):
+    """K8's ``dp_label``: every pointer and the stream as c_void_p, the
+    region's width and the sizes as c_int, in the order csrc/label.cu
+    declares them."""
+    from deepprior_tpu_torch.ops import hopper_label
+
+    monkeypatch.setattr(_build, "load_library", lambda source: _StubLib())
+    hopper_label.build.cache_clear()
+    try:
+        lib = hopper_label.build()
+        want = _c_signature("dp_label", "label.cu")
+        assert list(lib.dp_label.argtypes) == want
+        assert want == [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p] \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        assert lib.dp_label.restype is ctypes.c_int
+        assert lib.dp_error_string.restype is ctypes.c_char_p
+    finally:
+        hopper_label.build.cache_clear()
 
 
 def test_build_key_covers_the_shared_headers(tmp_path):

@@ -2,7 +2,10 @@
 JAX package (deepprior_tpu/ops/com.py) and the numpy host twin, on the
 same seeded synthetic frames.
 
-label_components is exact.  CoMs agree with JAX within rtol 1e-4, atol
+label_components is exact, on random masks and on ``hopper_label.
+hard_masks`` (the shapes that take the scan the most passes, which
+chip_smoke.py also holds the CUDA kernel K8 to); the route is the plain
+scan for a CPU tensor and K8 for a CUDA one.  CoMs agree with JAX within rtol 1e-4, atol
 1e-2 (px or mm): the masked sums of pixel coordinates can pass 2^24 and
 the float32 sums then depend on the reduction order, which differs
 between XLA and PyTorch.  Against the host twin (float64 means of scipy's
@@ -21,6 +24,7 @@ from deepprior_tpu.ops import com as jcom
 from deepprior_tpu.ops import crop as jcrop
 
 from deepprior_tpu_torch.ops import com as tcom
+from deepprior_tpu_torch.ops import hopper_label
 
 CUBE = np.full(3, 250.0, np.float32)
 TOL = dict(rtol=1e-4, atol=1e-2)
@@ -66,6 +70,80 @@ def test_label_components_exact():
         want = np.asarray(jcom.label_components(stack[i], region[i]))
         np.testing.assert_array_equal(got[i], want)
     assert got.dtype == np.int32
+
+
+HARD_MASKS = {name: (mask, region) for name, mask, region in hopper_label.hard_masks()}
+
+
+@pytest.mark.parametrize("name", list(HARD_MASKS))
+def test_label_components_hard_masks_exact(name):
+    """The plain route against the JAX package, exact, frame by frame."""
+    mask, region = HARD_MASKS[name]
+    got = tcom.label_components(_t(mask), None if region is None else _t(region)).numpy()
+    assert got.dtype == np.int32 and got.shape == mask.shape
+    frames = mask.reshape(-1, *mask.shape[-2:])
+    regions = [None] * len(frames) if region is None else region.reshape(frames.shape)
+    for i, (m, r) in enumerate(zip(frames, regions)):
+        want = np.asarray(jcom.label_components(m) if r is None else jcom.label_components(m, r))
+        np.testing.assert_array_equal(got.reshape(frames.shape)[i], want)
+
+
+def test_label_components_routes_by_device(monkeypatch):
+    """A CPU tensor takes the plain scan and never the kernel; a CUDA
+    tensor (faked: shapes and devices without a card) takes K8 once, with
+    ``passes`` = 1, and never the scan."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from deepprior_tpu_torch.utils import profiling
+
+    launched, scanned = [], []
+    scan = tcom.label_scan
+
+    def fake_launch(args):
+        launched.append(args)
+        return args.out
+
+    monkeypatch.setattr(hopper_label, "launch_label", fake_launch)
+    monkeypatch.setattr(tcom, "label_scan", lambda *a: scanned.append(1) or scan(*a))
+    mask, region = HARD_MASKS["batch of 3 with a region"]
+    with profiling.recording(), profiling.span("outer"):
+        cpu = tcom.label_components(_t(mask), _t(region))
+    assert scanned == [1] and launched == []
+    assert profiling.spans()[-1].attrs["passes"] > 1
+    np.testing.assert_array_equal(cpu.numpy(), tcom.label_scan(_t(mask), _t(region)).numpy())
+    scanned.clear()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        dev_mask = torch.empty(mask.shape, dtype=torch.bool, device="cuda")
+        dev_region = torch.empty(mask.shape, dtype=torch.int16, device="cuda")
+        with profiling.recording(), profiling.span("outer"):
+            lab = tcom.label_components(dev_mask, dev_region)
+        assert lab.device.type == "cuda" and lab.dtype == torch.int32
+        assert lab.shape == mask.shape
+    assert scanned == [] and len(launched) == 1
+    (args,) = launched
+    assert args.mask.shape == args.region.shape == args.out.shape == (3, *mask.shape[-2:])
+    assert args.region.dtype == torch.int32 and args.out.dtype == torch.int32
+    assert profiling.spans()[-1].attrs["passes"] == 1
+
+
+def test_label_args_refuse_what_the_kernel_does_not_take():
+    """The launch's arguments: regions of the mask's shape, integer ids of
+    at most 4 bytes widened to int32, int64 as is; the launcher refuses
+    CPU tensors (the CPU route is the plain scan)."""
+    mask = torch.ones((2, 5, 6), dtype=torch.bool)
+    args = hopper_label.label_args(mask, torch.zeros((2, 5, 6), dtype=torch.uint8))
+    assert args.region.dtype == torch.int32 and args.shape == mask.shape
+    assert hopper_label.label_args(mask, torch.zeros((2, 5, 6), dtype=torch.int64)).region.dtype \
+        == torch.int64
+    assert hopper_label.label_args(mask[0]).mask.shape == (1, 5, 6)
+    with pytest.raises(ValueError, match="shape"):
+        hopper_label.label_args(mask, torch.zeros((5, 6), dtype=torch.int32))
+    with pytest.raises(TypeError, match="integers"):
+        hopper_label.label_args(mask, torch.zeros((2, 5, 6)))
+    with pytest.raises(ValueError, match="H, W"):
+        hopper_label.label_args(torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_label.launch_label(hopper_label.label_args(mask))
 
 
 @pytest.mark.parametrize("axis", [-1, -2])
