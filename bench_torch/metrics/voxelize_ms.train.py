@@ -1,0 +1,9 @@
+"""Device time a train step of V2V-PoseNet's voxelization: the operations
+launched inside the program's ``train.voxelize`` spans in the profiled
+window, over those spans."""
+
+from bench_torch.metrics import _span_device
+
+
+def read(rec):
+    return _span_device.mean_ms(rec, "train.voxelize")

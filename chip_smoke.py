@@ -111,6 +111,12 @@ label_components against the eager call, holds detect through K8 to detect
 through the plain scan (equal) and to the CPU (phase 14's bound), and times
 K8 alone from a CUDA graph beside its byte bound, the plain scan and
 detect at B = 1 through each.
+Phase 50 (run after phase 49) holds V2V-PoseNet's train step (RMSProp, B =
+8, the published 88^3 grid, He weights) to tests/plain_v2v.py on the card
+over three steps, read as the cell v2v_nyu.train_b8 reads them and held to
+its limits, and times the step (host clock and device busy), its memory
+peak, and voxelize and heatmap_targets alone from CUDA graphs beside their
+byte bounds.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -693,6 +699,8 @@ def main(argv=None):
         kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
     with stage("49"):
         kernels.append(label_phase(dev, tag, log))
+    with stage("50"):
+        v2v_phase(dev, tag, log)
     with stage("21-26"):
         serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
@@ -1113,7 +1121,7 @@ def training_phases(dev, tag, log, profile=False, trained=None):
                                                 0.0, NV_VAL), 50)
         crops, labels = aug()[:2]
         tr, st = trainers[True]
-        y = tr._targets(labels)
+        y = tr.family.targets(labels)
         model, opt = st.model, st.optimizer
         model.train()
 
@@ -1661,6 +1669,158 @@ def label_phase(dev, tag, log, nyu_frames=64, icvl_frames=32, batch=8, cpu_frame
             "library": "none: PyTorch has no connected-components call",
             "launches_per_call": per_detect, "detect_ms": det_ms,
             "detect_plain_ms": plain_det_ms}
+
+
+def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=88):
+    """Phase 50, run after phase 49: V2V-PoseNet's train step (models/v2v.py,
+    ops/voxel.py) on the card at B = ``batch`` and the published 88^3 grid,
+    with random He weights, on ``frames`` synthetic NYU crops (no
+    augmentation, so the reference gets the same inputs).  ``steps`` steps
+    of the port's Trainer (RMSProp) against ``tests/plain_v2v.py`` on the
+    card from the same weights and rows: each step's loss, the first
+    step's gradients and the parameters' change over the steps, read as the
+    cell ``v2v_nyu.train_b8`` reads them and held to its limits
+    (bench_torch/workloads/v2v_nyu.train_b8.json).  Then the step's time
+    (host clock around ``timed_steps`` synchronised steps), its device time
+    (torch.profiler, the union of the device's operations), its memory
+    peak, and ``voxelize`` and ``heatmap_targets`` alone from CUDA graphs
+    beside their byte bounds.  ``grid`` (with the published margin of 4
+    voxels a side) is for a rehearsal on the CPU.  Returns the phase's
+    figures."""
+    import importlib.util
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_sequence
+    from deepprior_tpu_torch.models import V2VConfig, V2VPoseNet
+    from deepprior_tpu_torch.ops import voxel
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+    from deepprior_tpu_torch.utils.flops import roofline_ms
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "plain_v2v", os.path.join(here, "tests", "plain_v2v.py"))
+    plain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(plain)
+    with open(os.path.join(here, "bench_torch", "workloads", "v2v_nyu.train_b8.json")) as fh:
+        limits = json.load(fh)["limits"]
+
+    cam = NYU_CAMERA
+    pin = (cam.fx, cam.fy, cam.ux, cam.uy, cam.flip_y)
+    seq = make_sequence(cam, frames, num_joints=14, cube=(300.0, 300.0, 300.0), seed=50)
+    data = TrainData.from_sequence(seq).to(dev)
+    gen = torch.Generator().manual_seed(50)
+    vcfg = V2VConfig(grid=grid, cube_voxels=grid + 8)
+    net = V2VPoseNet(vcfg)
+    with torch.no_grad():  # He-normal kernels, as the benchmark draws them
+        for p in net.parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, float(np.sqrt(2.0 / (p.numel() // p.shape[0]))), generator=gen)
+    start = {k: v.detach().clone().to(dev) for k, v in net.state_dict().items()}
+    trainer = Trainer(net.to(dev), TrainConfig(batch_size=batch, optimizer="rmsprop",
+                                               aug_modes=None, seed=50), cam, device=dev)
+    state = trainer.init_state(state_dict=start)
+    lr = 2.5e-5  # lr_of_ep(0) of V2V's 2.5e-4
+    rows = [torch.arange(s * batch, (s + 1) * batch, device=dev) % data.n for s in range(steps)]
+    losses, grad1 = [], None
+    for s in range(steps):
+        state, loss = trainer.train_step(state, data.take(rows[s]), None, None, lr)
+        losses.append(float(loss))
+        if grad1 is None:
+            grad1 = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+    delta = {k: p.detach() - start[k] for k, p in state.model.named_parameters()}
+
+    params = {k: start[k].clone().requires_grad_(True) for k in delta}
+    w = dict(start, **params)
+    opt = plain.RMSProp(params)
+    ref_losses, ref_g1 = [], None
+    for s in range(steps):
+        b = data.take(rows[s])
+        x = plain.voxelize(b["crops"], b["com"], b["cube"], b["m"], pin, grid, grid + 8)
+        y = plain.heatmap_targets(b["gt3d_crop"] / (b["cube"][:, 2] / 2.0)[:, None, None],
+                                  grid, grid + 8)
+        with plain.plain_float32():
+            value = plain.loss(plain.net(w, x[:, None], train=True), y)
+            grads = dict(zip(params, torch.autograd.grad(value, list(params.values()))))
+        if ref_g1 is None:
+            ref_g1 = {k: g.detach().clone() for k, g in grads.items()}
+        opt.step(grads, lr)
+        ref_losses.append(float(value.detach()))
+    ref_delta = {k: params[k].detach() - start[k] for k in params}
+
+    def gaps(prog, ref, names):
+        rn = {k: float(ref[k].double().norm()) for k in names}
+        med = float(np.median(list(rn.values())))
+        return {k: abs(float(prog[k].double().norm()) - rn[k]) / max(rn[k], med) for k in names}
+
+    g_norms = {k: float(v.double().norm()) for k, v in ref_g1.items()}
+    med = float(np.median(list(g_norms.values())))
+    moving = [k for k, v in g_norms.items() if v >= 1e-3 * med]
+    readings = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+                "grad_norm_gap": max(gaps(grad1, ref_g1, list(ref_g1)).values()),
+                "step_norm_gap": max(gaps(delta, ref_delta, moving).values())}
+    log(f"[50 v2v] {tag} B={batch} {grid}^3, {steps} steps against tests/plain_v2v.py: losses "
+        f"{[f'{v:.6g}' for v in losses]} (reference {[f'{v:.6g}' for v in ref_losses]}); "
+        + ", ".join(f"{k} {v:.3g} (limit {limits[k]:g})" for k, v in readings.items()))
+    for k, v in readings.items():
+        if not v <= limits[k]:
+            raise AssertionError(f"phase 50: {k} {v:.3g} above the cell's limit {limits[k]:g}")
+
+    b = data.take(rows[0])
+
+    def one_step():
+        nonlocal state
+        state, _ = trainer.train_step(state, b, None, None, lr)
+
+    one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if is_device_op(e))
+    busy, end = 0, None
+    for s0, s1 in spans:
+        if end is None or s0 > end:
+            busy, end = busy + (s1 - s0), s1
+        elif s1 > end:
+            busy, end = busy + (s1 - end), s1
+    device_ms = busy / 3 / 1e3  # the profiler's times are in us
+    with torch.device("meta"):  # the step's model flops: forward and weight gradients
+        meta = V2VPoseNet(vcfg)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            meta(torch.empty((batch, 1, grid, grid, grid))).sum().backward()
+    flops = counter.get_total_flops()
+    labels = b["gt3d_crop"] / (b["cube"][:, 2] / 2.0)[:, None, None]
+    vox_ms = graph_ms(lambda: voxel.voxelize(b["crops"], b["com"], b["cube"], b["m"], cam,
+                                             grid, grid + 8), iters=50)
+    heat_ms = graph_ms(lambda: voxel.heatmap_targets(labels, grid, grid + 8), iters=50)
+    vox_bytes = b["crops"].numel() * 4 + batch * (grid ** 3 + 1) * 4
+    heat_bytes = batch * 14 * (grid // 2) ** 3 * 4
+    vox_bound = roofline_ms(vox_bytes, device=dev)[0]
+    heat_bound = roofline_ms(heat_bytes, device=dev)[0]
+    log(f"[50 v2v] {tag} train step B={batch}: {step_ms:.3f} ms (host clock, {timed_steps} "
+        f"synchronised steps), device busy {device_ms:.3f} ms a step "
+        f"({100 * device_ms / step_ms:.1f}%), {flops / step_ms / 1e9:.2f} TFLOP/s of "
+        f"{flops / 1e12:.4g} TFLOP a step; "
+        f"memory peak {peak / 1e9:.3f} GB; voxelize alone {vox_ms:.4f} ms "
+        f"({100 * vox_bound / vox_ms:.1f}% of its {vox_bound:.4f} ms byte bound), "
+        f"heatmap_targets {heat_ms:.4f} ms ({100 * heat_bound / heat_ms:.1f}% of "
+        f"{heat_bound:.4f} ms)")
+    return {"readings": readings, "step_ms": step_ms, "device_ms": device_ms,
+            "peak_bytes": peak, "voxelize_ms": vox_ms, "heatmap_ms": heat_ms}
 
 
 def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max_batch=64):

@@ -4,7 +4,10 @@
 main_nyu_posereg_embedding.py:38-205): import (or synthesize) -> PCA prior
 from sampled poses -> PoseRegNet (or, with --model resnet, ResNet-47)
 30-D embedding training with augmentation -> network_prior.ckpt -> decode
--> metrics -> results.json.  ``run_com_refine`` is the CoM-refinement
+-> metrics -> results.json.  With --model v2v it trains V2V-PoseNet
+(models/v2v.py) on occupancy grids of the same crops, with V2V's recipe
+(RMSProp, --lr 2.5e-4 and --batch-size 8 unless given), no PCA prior, and
+decodes its heatmaps to mm.  ``run_com_refine`` is the CoM-refinement
 recipe (reference main_nyu_com_refine.py): ScaleNet over docom crops ->
 net_<prefix>.ckpt, which an importer's ``load_refine_net_lazy`` reads.
 Both train resident (``Trainer.fit``) or, with --streamed, from host
@@ -54,6 +57,11 @@ ICVL_BASELINE = {"label": "Tang et al.", "relpath": "LRF_Results_seq_1.txt", "ki
 PRIOR_POSES = 1_000_000
 PRIOR_POSES_SYNTHETIC = 50_000
 
+# --lr and --batch-size when not given: the flagship recipe's, and V2V's
+# (the paper's RMSProp at 2.5e-4, batch 8)
+RECIPE_DEFAULTS = {"lr": 0.001, "batch_size": 128}
+V2V_DEFAULTS = {"lr": 2.5e-4, "batch_size": 8}
+
 
 def default_device() -> torch.device:
     """The entry points' default device: the CUDA card.  Raises
@@ -79,8 +87,10 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="the importers' .npz cache (default <out>/cache; the "
                         "JAX package's caches load here and back)")
     p.add_argument("--epochs", type=int, default=100)
-    p.add_argument("--batch-size", type=int, default=128)
-    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default 128; 8 with --model v2v")
+    p.add_argument("--lr", type=float, default=None,
+                   help="default 0.001; 2.5e-4 with --model v2v")
     p.add_argument("--seed", type=int, default=23455)
     p.add_argument("--nmax", type=float, default=float("inf"),
                    help="cap on frames")
@@ -103,9 +113,11 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="bfloat16 compute (float32 parameters, optimizer "
                         "state, losses and metrics)")
     p.add_argument("--model", default="poseregnet",
-                   choices=["poseregnet", "resnet"],
-                   help="regressor family: PoseRegNet, or ResNet-47 (the "
-                        "reference's best results and realtime demo)")
+                   choices=["poseregnet", "resnet", "v2v"],
+                   help="regressor family: PoseRegNet, ResNet-47 (the "
+                        "reference's best results and realtime demo), or "
+                        "V2V-PoseNet (3D heatmaps from voxelized crops; "
+                        "training only, RMSProp)")
     p.add_argument("--resnet-type", type=int, default=2,
                    help="reference ResNet head type 0-4 (resnet.py:119-195); "
                         "2 = dropout head (default), 1 = plain head (pair "
@@ -437,9 +449,23 @@ def _model_dtype(args):
     return torch.bfloat16 if args.bf16 else torch.float32
 
 
+def recipe_value(args, key: str, defaults=RECIPE_DEFAULTS):
+    """--lr or --batch-size as given, else ``defaults``'s."""
+    given = getattr(args, key)
+    return defaults[key] if given is None else given
+
+
+def _refuse_one_device_family(family: str, where: str):
+    """Raise ValueError where a serving path is handed the v2v family, which
+    trains on one device only."""
+    if family == "v2v":
+        raise ValueError(f"{where} does not take v2v: V2V-PoseNet trains on one device "
+                         f"only; serving it is not supported")
+
+
 def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_joints,
                           eval_cls=None, n_pca: int = 30, baseline_spec=None,
-                          accept_mm: float = 10.0, log=print):
+                          accept_mm: float = 10.0, log=print, v2v=None):
     """The flagship recipe.
 
     baseline_spec ({"label", "relpath", "kind": "mat" or "txt"}) and
@@ -447,7 +473,10 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
 
     ``--model resnet`` trains ResNet-47 of head type ``--resnet-type``
     (default 2, the dropout head); weight decay applies iff the net has no
-    dropout or --weightreg > 0 asks for it.  The PCA prior samples
+    dropout or --weightreg > 0 asks for it.  ``--model v2v`` trains
+    V2V-PoseNet (its published grid, or ``v2v``'s ``V2VConfig`` fields)
+    with RMSProp and no PCA prior into <out>/<train_seq>_V2V; its test
+    joints are its heatmaps decoded to mm.  The PCA prior samples
     ``PRIOR_POSES`` poses from imported data, ``PRIOR_POSES_SYNTHETIC``
     from synthetic.  Returns (state, {seq name: evaluation}, training
     history) and writes
@@ -459,7 +488,8 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     --accept its acceptance record; a miss then raises SystemExit after the
     file is written) and the plots."""
     from deepprior_tpu_torch.eval.metrics import HandposeEvaluation
-    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
+    from deepprior_tpu_torch.models import (PoseRegNet, PoseRegNetConfig, ResNet,
+                                            ResNetConfig, V2VConfig, V2VPoseNet)
     from deepprior_tpu_torch.prior import fit_pose_prior
     from deepprior_tpu_torch.train.checkpoint import save_checkpoint
     from deepprior_tpu_torch.parallel.multihost import is_writer
@@ -469,7 +499,8 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     device = main_device(args)
     check_world(args.dp, args.tp, args.sp)
     log = rank_log(log)
-    prefix = args.eval_prefix or f"{train_seq}_EMB_PCA{n_pca}"
+    voxel = args.model == "v2v"
+    prefix = args.eval_prefix or (f"{train_seq}_V2V" if voxel else f"{train_seq}_EMB_PCA{n_pca}")
     outdir = os.path.join(args.out, prefix)
     os.makedirs(outdir, exist_ok=True)
 
@@ -482,26 +513,34 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     data = TrainData.from_sequence(train)
     val = TrainData.from_sequence(tests[0]) if tests else None
 
-    stamp(f"{data.n} train frames; fitting pose prior...")
-    prior = fit_pose_prior(
-        camera, np.random.default_rng(args.seed), data.gt3d_crop, data.com, data.cube,
-        n_components=n_pca,
-        num_poses=PRIOR_POSES_SYNTHETIC if args.synthetic else PRIOR_POSES,
-        aug_modes=tuple(args.aug_modes),
-    )
-    stamp("prior ready; training...")
+    prior = None
+    if not voxel:
+        stamp(f"{data.n} train frames; fitting pose prior...")
+        prior = fit_pose_prior(
+            camera, np.random.default_rng(args.seed), data.gt3d_crop, data.com, data.cube,
+            n_components=n_pca,
+            num_poses=PRIOR_POSES_SYNTHETIC if args.synthetic else PRIOR_POSES,
+            aug_modes=tuple(args.aug_modes),
+        )
+        stamp("prior ready; training...")
 
     dtype = _model_dtype(args)
     has_dropout = True
-    if args.model == "resnet":
+    if voxel:
+        has_dropout = False
+        model = V2VPoseNet(V2VConfig(num_joints=num_joints, dtype=dtype, **(v2v or {})))
+    elif args.model == "resnet":
         has_dropout = args.resnet_type in (2, 3, 4)
         model = ResNet(ResNetConfig(num_joints=1, n_dims=n_pca, dropout=has_dropout,
                                     dtype=dtype))
     else:
         model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=n_pca, dtype=dtype))
     wr = args.weightreg
+    recipe = V2V_DEFAULTS if voxel else RECIPE_DEFAULTS
     cfg = TrainConfig(
-        batch_size=args.batch_size, learning_rate=args.lr,
+        batch_size=recipe_value(args, "batch_size", recipe),
+        learning_rate=recipe_value(args, "lr", recipe),
+        optimizer="rmsprop" if voxel else "adam",
         n_epochs=args.epochs, aug_modes=tuple(args.aug_modes), seed=args.seed,
         weightreg_factor=wr, model_has_dropout=has_dropout and wr <= 0.0,
         validation_frequency=args.validation_frequency,
@@ -514,35 +553,25 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     if is_writer():
         _plot_training_curves(hist, outdir, prefix, log)
 
-    # save the final net (a ResNet's BatchNorm statistics with it) + prior
-    # (the reference appends the PCA decode layer and saves
-    # network_prior.pkl, main:148-158); the fingerprint names the family
+    # save the final net (BatchNorm statistics with it) + prior (the
+    # reference appends the PCA decode layer and saves network_prior.pkl,
+    # main:148-158); the fingerprint names the family
     family = {"model": args.model}
     if args.model == "resnet":
         family["resnet_type"] = args.resnet_type
     params = serving_state_dict(trainer, state)
     if is_writer():
-        save_checkpoint(
-            os.path.join(outdir, "network_prior.ckpt"),
-            {
-                "params": params,
-                "pca_components": prior.components,
-                "pca_mean": prior.mean,
-            },
-            config=dict(cfg._asdict(), **family),
-        )
+        tree = {"params": params}
+        if prior is not None:
+            tree.update(pca_components=prior.components, pca_mean=prior.mean)
+        save_checkpoint(os.path.join(outdir, "network_prior.ckpt"), tree,
+                        config=dict(cfg._asdict(), **family))
 
     # test: decode to mm and the metric suite (main:161-205)
     metrics, results = {}, {}
     all_gt3d, all_joints = [], []
     for seq in tests:
-        tdata = TrainData.from_sequence(seq)
-        emb = torch.from_numpy(trainer.predict(state, tdata.crops))
-        decoded = prior.to("cpu").inverse_transform(emb).numpy().reshape(
-            emb.shape[0], -1, 3)
-        cube_z = np.asarray(tdata.cube)[:, 2][:, None, None]
-        com3d = camera.img_to_3d_np(np.asarray(tdata.com))
-        joints = decoded * (cube_z / 2.0) + com3d[:, None, :]
+        joints = trainer.predict_joints(state, TrainData.from_sequence(seq))
         gt3d = np.stack([f.gt3Dorig for f in seq.data])
         all_gt3d.append(gt3d)
         all_joints.append(joints)
@@ -621,7 +650,8 @@ def run_com_refine(args, importer_cls, camera, train_seq, test_seqs, num_joints,
     model = ScaleNet(ScaleNetConfig(num_joints=1, n_dims=3, dtype=_model_dtype(args)))
     wr = args.weightreg
     cfg = TrainConfig(
-        batch_size=min(args.batch_size, 64), learning_rate=args.lr,
+        batch_size=min(recipe_value(args, "batch_size"), 64),
+        learning_rate=recipe_value(args, "lr"),
         n_epochs=args.epochs, aug_modes=tuple(args.aug_modes), seed=args.seed,
         weightreg_factor=wr, model_has_dropout=wr <= 0.0, use_early_stopping=False,
         validation_frequency=args.validation_frequency,
@@ -724,11 +754,15 @@ def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
       it); without, weights from ``torch.Generator`` seed 0 and a random
       (30, 42) PCA prior from numpy seed 0 (pipeline smoke mode).
 
+    The v2v family (V2V-PoseNet, by name or as a checkpoint's family) is
+    refused with ValueError: it trains on one device only.
+
     Returns (model on ``device``, prior or None)."""
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
     from deepprior_tpu_torch.prior import PCAPrior
     from deepprior_tpu_torch.train.checkpoint import load_checkpoint, read_checkpoint
 
+    _refuse_one_device_family(model_name, "load_serving_net")
     device = torch.device(device) if device else default_device()
     if ref_pickle:
         from deepprior_tpu_torch.utils.refweights import model_from_reference_pickle
@@ -751,6 +785,7 @@ def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
         stored = read_checkpoint(checkpoint)  # a JAX file is decoded once
         # checkpoints written before the family was recorded hold PoseRegNets
         family = stored[2] or "poseregnet"
+        _refuse_one_device_family(family, f"load_serving_net ({checkpoint})")
         if family != model_name:
             raise ValueError(f"{checkpoint} holds a {family}, not a {model_name}: pass "
                              f"--model {family}")

@@ -16,13 +16,15 @@ from deepprior_tpu_torch.eval.datasets import NYUHandposeEvaluation
 from deepprior_tpu_torch.mains.common import NYU_BASELINE, base_parser, run_posereg_embedding
 
 
-def main(argv=None):
+def main(argv=None, v2v=None):
+    """``v2v``: ``V2VConfig`` fields for --model v2v (default the published
+    grid)."""
     args = base_parser(__doc__).parse_args(argv)
     return run_posereg_embedding(
         args, NYUImporter, NYU_CAMERA, train_seq="train", test_seqs=["test_1", "test_2"],
         num_joints=14, eval_cls=NYUHandposeEvaluation,
         # --accept: against Tompson et al.'s predictions, BASELINE.md's < 10 mm
-        baseline_spec=NYU_BASELINE, accept_mm=10.0,
+        baseline_spec=NYU_BASELINE, accept_mm=10.0, v2v=v2v,
     )
 
 

@@ -9,7 +9,8 @@ library's semantics (src/net/):
 - He/Xavier initialization, drawn from an explicit ``torch.Generator``
 - dropout p_drop = 0.3 (inverted dropout with masks from an explicit
   ``torch.Generator``; identity in eval mode)
-- BatchNorm with flax's semantics (``BatchNorm``), for ResNet
+- BatchNorm with flax's semantics (``BatchNorm``), for ResNet's 2D and
+  V2V-PoseNet's 3D maps
 
 Parameters stay float32; ``dtype`` is the compute type (bf16 on the card).
 
@@ -157,9 +158,15 @@ class ConvPool(nn.Module):
         return x
 
 
+def _channel_dims(x) -> tuple:
+    """The dims of (B, C, ...) maps that per-channel statistics reduce."""
+    return (0,) + tuple(range(2, x.dim()))
+
+
 class BatchNorm(nn.Module):
-    """Per-channel batch normalization of (B, C, H, W) maps with flax
-    ``nn.BatchNorm``'s semantics (not ``nn.BatchNorm2d``'s).
+    """Per-channel batch normalization of (B, C, ...) maps, 2D (B, C, H, W)
+    or 3D (B, C, D, H, W), with flax ``nn.BatchNorm``'s semantics (not
+    ``nn.BatchNorm2d``'s).
 
     Training mode normalizes by the batch statistics and updates the
     buffers as ``running = 0.9 * running + 0.1 * batch`` with the *biased*
@@ -172,7 +179,8 @@ class BatchNorm(nn.Module):
 
     ``groups`` (set by parallel/train_dist.py, empty by default): process
     groups whose ranks hold the rest of the batch (the data-parallel rows
-    and, under the 'sp' axis, the other blocks of rows of the map).
+    and, under the 'sp' axis, the other blocks of rows of the map), for 2D
+    maps (V2V-PoseNet is not sharded).
     Training mode then normalizes by the statistics of the global batch,
     from one differentiable all-reduce a layer of every rank's count, mean
     and centred sum of squares, and every rank's running statistics stay
@@ -239,8 +247,9 @@ class BatchNorm(nn.Module):
         if self.training:
             with torch.no_grad():
                 xf = x.detach().to(acc)
-                batch_mean = xf.mean(dim=(0, 2, 3))
-                batch_var = torch.addcmul(torch.square(xf).mean(dim=(0, 2, 3)),
+                dims = _channel_dims(xf)
+                batch_mean = xf.mean(dim=dims)
+                batch_var = torch.addcmul(torch.square(xf).mean(dim=dims),
                                           batch_mean, batch_mean, value=-1.0).clamp_(min=0.0)
                 self._update_running(batch_mean, batch_var)
             mean = var = None

@@ -91,7 +91,9 @@ class ShardedTrainData:
 
 class DistributedTrainer(Trainer):
     """``Trainer`` over ``mesh`` (parallel/mesh.py::make_mesh), one rank per
-    device: ``device`` defaults to the model's."""
+    device: ``device`` defaults to the model's.  A model of a family that
+    trains on one device only (``one_device_only``: V2V-PoseNet) is refused
+    with ValueError."""
 
     def __init__(
         self,
@@ -102,6 +104,9 @@ class DistributedTrainer(Trainer):
         prior: Optional[PCAPrior] = None,
         device=None,
     ):
+        if getattr(model, "one_device_only", False):
+            raise ValueError(f"DistributedTrainer does not take a {type(model).__name__}: its "
+                             f"family trains on one device only; sharding it is not supported")
         super().__init__(model, cfg, camera, prior=prior, device=device)
         self.mesh = mesh
         self.data_groups = data_groups(mesh)

@@ -87,6 +87,10 @@ class FusedEstimator:
     from the JAX estimator: it sends 'linear' to its XLA one-hot crop,
     while the kernel path here runs the cv2-linear kernel K2; both compute
     the same crop to float32 round-off.
+
+    A model of a family that trains on one device only (``one_device_only``:
+    V2V-PoseNet) is refused with ValueError: the estimator, and the
+    pipeline and server built on it, serve the crop regressors.
     """
 
     def __init__(
@@ -106,6 +110,9 @@ class FusedEstimator:
     ):
         if resize is not None and resize not in RESIZE_METHODS:
             raise ValueError(f"unknown resize method {resize!r}")
+        if getattr(model, "one_device_only", False):
+            raise ValueError(f"FusedEstimator does not take a {type(model).__name__}: its "
+                             f"family trains on one device only; serving it is not supported")
         if crop_method not in _CROP_METHODS:
             raise ValueError(f"unknown crop method {crop_method!r}")
         if device is None:

@@ -16,6 +16,14 @@ Loss semantics match poseregnettrainer.py:92-101:
 plus optional L2 weight decay iff the model has no dropout
 (poseregnettrainer.py:106-107).
 
+The model family's choices come from ``family``: the model itself where
+it brings them (models/v2v.py::V2VPoseNet: an occupancy grid in, 3D
+heatmaps out), else ``CropRegression`` (PoseRegNet, ResNet, ScaleNet: the
+crops in as one-channel maps, the PCA embedding or the normalized joints
+out).  A family's ``inputs`` may count into ``stats`` (V2V-PoseNet's
+``voxels_set`` and ``voxels_seen``): 0-d tensors on the device, added to
+once a step with no host sync; read them after the steps.
+
 Random draws: the epoch order from ``np.random.default_rng(cfg.seed)``
 (one permutation an epoch), and one ``torch.Generator`` on the device for
 the augmentation and one for the dropout masks, both seeded anew at each
@@ -38,10 +46,12 @@ port's checkpoint format (train/checkpoint.py), or with
 
 ``train_step`` is one step on a batch of rows, the call ``fit`` and
 ``fit_streamed`` make.  While spans record (utils/profiling.py) a step
-records ``train.step`` around ``train.augment`` (augmentation and the PCA
-targets), ``train.forward`` (the model and the loss), ``train.backward``
-(backward and ``_reduce_grads``) and ``train.optimizer`` (the update),
-each with the state's step number as its ``id``.
+records ``train.step`` around ``train.augment`` (augmentation, the
+family's inputs and targets; V2V-PoseNet's record ``train.voxelize`` and
+``train.targets`` inside it), ``train.forward`` (the model and the loss),
+``train.backward`` (backward and ``_reduce_grads``) and
+``train.optimizer`` (the update), each with the state's step number as
+its ``id``.
 
 parallel/train_dist.py::DistributedTrainer runs this loop on many ranks
 through the hooks ``_take``, ``_penalty``, ``_reduce_grads``,
@@ -176,14 +186,54 @@ def _loss_from_targets(out, y):
     return torch.mean(per_sample)
 
 
+class CropRegression:
+    """The crop regressors' family (PoseRegNet, ResNet, ScaleNet): the crops
+    in as one-channel maps; out, the PCA embedding of the cube-normalized
+    joints when a prior is attached (poseregnettrainer.py:252-259), else the
+    joints; ``_loss_from_targets``."""
+
+    def __init__(self, prior: Optional[PCAPrior]):
+        self.prior = prior
+
+    def inputs(self, batch, camera, step=None, stats=None):
+        return batch["crops"][:, None]
+
+    def targets(self, labels_norm, step=None):
+        if self.prior is not None:
+            return self.prior.transform(labels_norm.reshape(labels_norm.shape[0], -1))
+        return labels_norm
+
+    def loss(self, out, y):
+        return _loss_from_targets(out, y)
+
+    def joints(self, out, batch):
+        """The joints (B, J, 3) in mm about the CoM."""
+        d3 = self.prior.inverse_transform(out) if self.prior is not None else out
+        return d3.reshape(out.shape[0], -1, 3) * (batch["cube"][:, 2] / 2.0)[:, None, None]
+
+    def rows(self, out, y, batch):
+        """(cost, normalized error, joint distances in mm) of each sample
+        (poseregnettrainer.py:122-126)."""
+        if y.dim() == 2:
+            cost_ps = torch.sum(torch.square(out - y), dim=1)
+            err_ps = torch.sqrt(cost_ps)
+        else:
+            sq = torch.sum(torch.square(out.reshape(y.shape) - y), dim=2)
+            cost_ps = torch.mean(sq, dim=1)
+            err_ps = torch.mean(torch.sqrt(sq), dim=1)
+        dist = torch.sqrt(torch.sum(
+            torch.square(self.joints(out, batch) - batch["gt3d_crop"]), dim=2))
+        return cost_ps, err_ps, dist
+
+
 def _l2_penalty(model: nn.Module):
-    """Sum of squares of the conv and dense weights, never biases,
-    activation slopes or BatchNorm parameters (convpoollayer.py:288,
-    hiddenlayer.py:159, batchnormlayer.py:146), as the JAX package's
-    "kernel" leaves."""
+    """Sum of squares of the conv (2D, 3D, transposed 3D) and dense weights,
+    never biases, activation slopes or BatchNorm parameters
+    (convpoollayer.py:288, hiddenlayer.py:159, batchnormlayer.py:146), as
+    the JAX package's "kernel" leaves."""
     total = 0.0
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
             total = total + torch.sum(torch.square(mod.weight))
     return total
 
@@ -250,6 +300,10 @@ class Trainer:
         self._precision = (float32_compute if cfg_dtype == torch.float32
                            else contextlib.nullcontext)
         self.history: Dict[str, list] = {"train_cost": [], "val_error_mm": []}
+        # the family's inputs, targets, loss and decode: the model's own, if
+        # it brings them
+        self.family = model if hasattr(model, "targets") else CropRegression(self.prior)
+        self.stats: Dict[str, torch.Tensor] = {}
         # the rolling snapshot's format: one file (train/checkpoint.py) or,
         # True, a sharded directory (train/checkpoint_sharded.py)
         self.sharded_snapshots = False
@@ -272,13 +326,6 @@ class Trainer:
         return TrainState(self.model, opt, 0)
 
     # ------------------------------------------------------------------
-    def _targets(self, labels_norm):
-        """labels_norm (B, J, 3), cube-normalized -> PCA embeddings when a
-        prior is attached (poseregnettrainer.py:252-259)."""
-        if self.prior is not None:
-            return self.prior.transform(labels_norm.reshape(labels_norm.shape[0], -1))
-        return labels_norm
-
     def _train_step_core(self, state: TrainState, batch, aug, drop_generator,
                          lr: float):
         """The training step: augment -> targets -> forward/backward ->
@@ -295,11 +342,12 @@ class Trainer:
         with span("train.step", id=step), self._precision():
             with span("train.augment", id=step), torch.no_grad():
                 crops, gt3d, cube = batch["crops"], batch["gt3d_crop"], batch["cube"]
+                com, m = batch["com"], batch["m"]
                 if cfg.aug_modes:
                     params = aug if isinstance(aug, (tuple, list)) else None
-                    crops, labels_norm, _, cube, _ = augment_batch(
+                    crops, labels_norm, com, cube, m = augment_batch(
                         None if params is not None else aug,
-                        crops, gt3d, batch["com"], cube, batch["m"], self.camera,
+                        crops, gt3d, com, cube, m, self.camera,
                         aug_modes=tuple(cfg.aug_modes),
                         sigma_com=cfg.sigma_com, sigma_sc=cfg.sigma_sc,
                         rot_range=cfg.rot_range, norm_zero_one=cfg.norm_zero_one,
@@ -308,7 +356,9 @@ class Trainer:
                     )
                 else:
                     labels_norm = gt3d / (cube[:, 2] / 2.0)[:, None, None]
-                y = self._targets(labels_norm)
+                x = self.family.inputs({"crops": crops, "com": com, "cube": cube, "m": m},
+                                       self.camera, step, self.stats)
+                y = self.family.targets(labels_norm, step)
 
             model, opt = state.model, state.optimizer
             with span("train.forward", id=step):
@@ -316,8 +366,8 @@ class Trainer:
                 for group in opt.param_groups:
                     group["lr"] = lr
                 opt.zero_grad(set_to_none=True)
-                out = model(crops[:, None], generator=drop_generator)
-                loss = _loss_from_targets(out, y)
+                out = model(x, generator=drop_generator)
+                loss = self.family.loss(out, y)
                 if cfg.weightreg_factor > 0.0 and not cfg.model_has_dropout:
                     loss = loss + cfg.weightreg_factor * self._penalty(model)
             with span("train.backward", id=step):
@@ -392,22 +442,8 @@ class Trainer:
         def per_sample(batch):
             """(cost, normalized error, joint distances) of each sample."""
             gt3d, half = batch["gt3d_crop"], batch["cube"][:, 2] / 2.0
-            y = self._targets(gt3d / half[:, None, None])
-            out = model(batch["crops"][:, None])
-            if y.dim() == 2:
-                cost_ps = torch.sum(torch.square(out - y), dim=1)
-                err_ps = torch.sqrt(cost_ps)
-            else:
-                sq = torch.sum(torch.square(out.reshape(y.shape) - y), dim=2)
-                cost_ps = torch.mean(sq, dim=1)
-                err_ps = torch.mean(torch.sqrt(sq), dim=1)
-            if self.prior is not None:
-                d3 = self.prior.inverse_transform(out).reshape(gt3d.shape)
-            else:
-                d3 = out.reshape(gt3d.shape)
-            dist = torch.sqrt(torch.sum(
-                torch.square(d3 * half[:, None, None] - gt3d), dim=2))
-            return cost_ps, err_ps, dist
+            y = self.family.targets(gt3d / half[:, None, None])
+            return self.family.rows(model(self.family.inputs(batch, self.camera)), y, batch)
 
         with self._precision(), torch.no_grad():
             for s in range(n_steps):
@@ -447,6 +483,26 @@ class Trainer:
                 out = self._forward_rows(model, chunk[:, None])
                 outs.append(out[: b - pad] if pad else out)
         return torch.cat(outs).cpu().numpy()
+
+    def predict_joints(self, state: TrainState, data: TrainData,
+                       batch_size: Optional[int] = None):
+        """The joints (N, J, 3) in mm of ``data``'s rows in eval mode: the
+        family's decode of the model's output about each row's CoM, plus the
+        CoM; the tail batch padded by repetition.  Returns a numpy array."""
+        model = state.model
+        model.eval()
+        data = data.to(self.device)
+        b = batch_size or self.cfg.batch_size
+        n = data.n
+        idx = torch.from_numpy(np.minimum(np.arange(-(-n // b) * b), n - 1)).to(self.device)
+        outs = []
+        with self._precision(), torch.no_grad():
+            for s in range(0, n, b):
+                batch = data.take(idx[s:s + b])
+                out = self._forward_rows(model, self.family.inputs(batch, self.camera))
+                com3d = self.camera.img_to_3d(batch["com"])
+                outs.append(self.family.joints(out, batch) + com3d[:, None, :])
+        return torch.cat(outs)[:n].cpu().numpy()
 
     def predict_with_intermediates(self, state: TrainState, crops):
         """One forward pass in eval mode that also returns each named
