@@ -117,6 +117,13 @@ over three steps, read as the cell v2v_nyu.train_b8 reads them and held to
 its limits, and times the step (host clock and device busy), its memory
 peak, and voxelize and heatmap_targets alone from CUDA graphs beside their
 byte bounds.
+Phase 51 (run after phase 50) counts one launch of K9, the stem's weight
+gradient over the occupied voxels, in each of phase 50's steps, holds K9
+to the plain gather on the card (voxelized grids at B = 8 and 88^3, a
+random 5% grid, empty and full grids; float32 and bfloat16) within float32
+round-off, exactly on a full grid of ones, and times it alone from CUDA
+graphs beside its bound, cuDNN's dense weight gradient and the plain
+gather.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -358,7 +365,8 @@ def main(argv=None):
     from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_depth_frame
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
-    from deepprior_tpu_torch.ops import hopper_crop, hopper_label, hopper_probes, hopper_warp
+    from deepprior_tpu_torch.ops import (hopper_crop, hopper_label, hopper_probes, hopper_stem,
+                                         hopper_warp)
     from deepprior_tpu_torch.ops._build import BUILD_LOG
     from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
     from deepprior_tpu_torch.prior import PCAPrior
@@ -385,12 +393,13 @@ def main(argv=None):
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    builds = (hopper_crop.build, hopper_warp.build, hopper_probes.build, hopper_label.build)
+    builds = (hopper_crop.build, hopper_warp.build, hopper_probes.build, hopper_label.build,
+              hopper_stem.build)
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, in parallel
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
     build_s = time.perf_counter() - t0
-    for src in ("crop.cu", "warp.cu", "probes.cu", "label.cu"):
+    for src in ("crop.cu", "warp.cu", "probes.cu", "label.cu", "stem_wgrad.cu"):
         ptxas = [ln.strip() for ln in BUILD_LOG.get(src, "").splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"[2 build] {src} built and loaded ({build_s:.3f} s for all) "
@@ -699,8 +708,9 @@ def main(argv=None):
         kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
     with stage("49"):
         kernels.append(label_phase(dev, tag, log))
-    with stage("50"):
-        v2v_phase(dev, tag, log)
+    with stage("50-51"):
+        v2v = v2v_phase(dev, tag, log)
+        kernels.append(stem_phase(dev, tag, log, v2v["train_steps"]))
     with stage("21-26"):
         serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
@@ -1682,11 +1692,13 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
     cell ``v2v_nyu.train_b8`` reads them and held to its limits
     (bench_torch/workloads/v2v_nyu.train_b8.json).  Then the step's time
     (host clock around ``timed_steps`` synchronised steps), its device time
-    (torch.profiler, the union of the device's operations), its memory
+    (torch.profiler, the union of the device's operations; K9's share and
+    that of cuDNN's ``wgrad2d_grouped_direct_kernel``), its memory
     peak, and ``voxelize`` and ``heatmap_targets`` alone from CUDA graphs
     beside their byte bounds.  ``grid`` (with the published margin of 4
     voxels a side) is for a rehearsal on the CPU.  Returns the phase's
-    figures."""
+    figures, with ``train_steps``, the port's steps it ran (phase 51 holds
+    K9's launch count to it)."""
     import importlib.util
 
     import torch
@@ -1696,7 +1708,7 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
     from deepprior_tpu_torch.camera import NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_sequence
     from deepprior_tpu_torch.models import V2VConfig, V2VPoseNet
-    from deepprior_tpu_torch.ops import voxel
+    from deepprior_tpu_torch.ops import hopper_stem, voxel
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
     from deepprior_tpu_torch.utils.flops import roofline_ms
 
@@ -1725,6 +1737,7 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
     state = trainer.init_state(state_dict=start)
     lr = 2.5e-5  # lr_of_ep(0) of V2V's 2.5e-4
     rows = [torch.arange(s * batch, (s + 1) * batch, device=dev) % data.n for s in range(steps)]
+    hopper_stem.LAUNCHES["stem_wgrad"] = 0
     losses, grad1 = [], None
     for s in range(steps):
         state, loss = trainer.train_step(state, data.take(rows[s]), None, None, lr)
@@ -1797,11 +1810,23 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
         elif s1 > end:
             busy, end = busy + (s1 - end), s1
     device_ms = busy / 3 / 1e3  # the profiler's times are in us
-    with torch.device("meta"):  # the step's model flops: forward and weight gradients
-        meta = V2VPoseNet(vcfg)
-        counter = FlopCounterMode(display=False)
-        with counter:
-            meta(torch.empty((batch, 1, grid, grid, grid))).sum().backward()
+    # a step's device ms in K9's two kernels and in cuDNN's dense weight
+    # gradient that it took the stem's share of
+    by_name = Counter()
+    for e in prof.events():
+        if is_device_op(e):
+            name = "K9" if "stem_wgrad" in e.name else (
+                "wgrad2d_grouped_direct_kernel" if "wgrad2d_grouped_direct" in e.name else None)
+            if name:
+                by_name[name] += (e.time_range.end - e.time_range.start) / 3 / 1e3
+    # the step's dense model flops, forward and weight gradients, from the
+    # reference on the meta device (the port's stem gathers its weight
+    # gradient over the set voxels, which a meta tensor does not have)
+    meta_w = {k: torch.empty(v.shape, device="meta", requires_grad=v.dim() >= 1
+                             and k in delta) for k, v in start.items()}
+    counter = FlopCounterMode(display=False)
+    with counter:
+        plain.net(meta_w, torch.empty((batch, 1, grid, grid, grid), device="meta")).sum().backward()
     flops = counter.get_total_flops()
     labels = b["gt3d_crop"] / (b["cube"][:, 2] / 2.0)[:, None, None]
     vox_ms = graph_ms(lambda: voxel.voxelize(b["crops"], b["com"], b["cube"], b["m"], cam,
@@ -1814,13 +1839,161 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
     log(f"[50 v2v] {tag} train step B={batch}: {step_ms:.3f} ms (host clock, {timed_steps} "
         f"synchronised steps), device busy {device_ms:.3f} ms a step "
         f"({100 * device_ms / step_ms:.1f}%), {flops / step_ms / 1e9:.2f} TFLOP/s of "
-        f"{flops / 1e12:.4g} TFLOP a step; "
+        f"{flops / 1e12:.4g} TFLOP a step (K9 {by_name['K9']:.4f} ms a step, "
+        f"wgrad2d_grouped_direct_kernel {by_name['wgrad2d_grouped_direct_kernel']:.3f} ms); "
         f"memory peak {peak / 1e9:.3f} GB; voxelize alone {vox_ms:.4f} ms "
         f"({100 * vox_bound / vox_ms:.1f}% of its {vox_bound:.4f} ms byte bound), "
         f"heatmap_targets {heat_ms:.4f} ms ({100 * heat_bound / heat_ms:.1f}% of "
         f"{heat_bound:.4f} ms)")
     return {"readings": readings, "step_ms": step_ms, "device_ms": device_ms,
-            "peak_bytes": peak, "voxelize_ms": vox_ms, "heatmap_ms": heat_ms}
+            "peak_bytes": peak, "voxelize_ms": vox_ms, "heatmap_ms": heat_ms,
+            "train_steps": steps + 1 + timed_steps + 3, "k9_ms_a_step": by_name["K9"]}
+
+
+def stem_phase(dev, tag, log, train_steps, batch=8, frames=24, grid=88, dense_iters=3):
+    """Phase 51, run after phase 50: the stem's weight-gradient kernel K9
+    (csrc/stem_wgrad.cu) on the card.  Phase 50's ``train_steps`` steps
+    each launched it once (``hopper_stem.LAUNCHES``).  On ``frames``
+    synthetic NYU crops voxelized at B = ``batch`` and the published grid,
+    on a random 5% grid of values in [0.5, 1.5), on an empty grid and on a
+    full one of such values, against a random dy, K9 equals the plain
+    gather (``hopper_stem.stem_wgrad_plain``, on the card) within float32
+    round-off of a sum taken in another order: |K9 - plain| <= 1e-5 of
+    sum |x dy| for each weight (the random signs of dy keep the round-off
+    near 2^-24 of that sum), 0 where that sum is 0; bfloat16 the same plus
+    one bfloat16 ulp of the result (both round their float32 sums).  A full
+    grid of ones against dy = 1 gives each weight the exact count of its
+    (voxel, tap) pairs inside the grid (under 2^24, so float32 holds every
+    partial sum): a brick skipped or taken twice shows.  Two launches and a
+    CUDA graph's replay are equal bit for bit.  Then K9 alone from CUDA
+    graphs on the voxelized grids, the empty and the full one beside its
+    bound (x read once, the dy values within the set voxels' 7^3 windows
+    and dW written once; 2 x 16 operations a (set voxel, tap) pair inside
+    the grid), cuDNN's ``torch.nn.grad.conv3d_weight`` (its yardstick;
+    ``dense_iters`` calls a graph, it takes about 140 ms) and the plain
+    gather.  Returns K9's JSON record."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_sequence
+    from deepprior_tpu_torch.ops import hopper_stem, voxel
+    from deepprior_tpu_torch.train.trainer import TrainData
+    from deepprior_tpu_torch.utils.flops import roofline_ms
+
+    launches = hopper_stem.LAUNCHES
+    per_step = launches["stem_wgrad"]
+    if per_step != train_steps:
+        raise AssertionError(f"phase 50's {train_steps} train steps launched K9 {per_step} times")
+    cam = NYU_CAMERA
+    seq = make_sequence(cam, frames, num_joints=14, cube=(300.0, 300.0, 300.0), seed=51)
+    data = TrainData.from_sequence(seq).to(dev)
+    shape = (batch, 1, grid, grid, grid)
+    grids = []
+    for i in range(0, frames, batch):
+        b = data.take(torch.arange(i, i + batch, device=dev))
+        grids.append(voxel.voxelize(b["crops"], b["com"], b["cube"], b["m"], cam, grid,
+                                    grid + 8)[:, None].contiguous())
+    gen = torch.Generator(dev).manual_seed(51)
+    dy = torch.randn((batch, hopper_stem.CHANNELS, grid, grid, grid), generator=gen, device=dev)
+    values = torch.rand(shape, generator=gen, device=dev) + 0.5
+    sparse = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.05, values, 0.0)
+    cases = [(f"voxelized #{i}", g) for i, g in enumerate(grids)] + [
+        ("random 5%", sparse), ("empty", torch.zeros(shape, device=dev)), ("full", values)]
+    occupancy = [float((g != 0).float().mean()) for g in grids]
+
+    def kernel(x, d):
+        return hopper_stem.launch_stem_wgrad(hopper_stem.stem_wgrad_args(x, d))
+
+    worst = {}
+    for label, x in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and not label.startswith("voxelized"):
+                continue
+            xc, dc = x.to(dtype), dy.to(dtype)
+            before = launches["stem_wgrad"]
+            got = kernel(xc, dc).float()
+            if launches["stem_wgrad"] != before + 1:
+                raise AssertionError(f"K9 {label}: {launches['stem_wgrad'] - before} launches "
+                                     f"counted for one call")
+            want = hopper_stem.stem_wgrad_plain(xc, dc).float()
+            scale = hopper_stem.stem_wgrad_plain(xc.float().abs(), dc.float().abs())
+            tol = 1e-5 * scale
+            if dtype == torch.bfloat16:
+                tol = tol + want.abs() * 2.0 ** -8
+            err = (got - want).abs()
+            if not torch.all(err <= tol):
+                raise AssertionError(f"K9 {label} {dtype}: {int((err > tol).sum())} of 5488 "
+                                     f"weights off the plain gather, worst "
+                                     f"{float((err / scale.clamp_min(1e-30)).max()):.3g} of "
+                                     f"sum |x dy|")
+            worst[f"{label} {dtype}"] = float((err / scale.clamp_min(1e-30)).max())
+    # a full grid of ones against dy = 1: exact counts
+    ones = torch.ones(shape, device=dev)
+    got = kernel(ones, torch.ones_like(dy))
+    inside = torch.tensor([grid - abs(k - hopper_stem.PAD) for k in range(hopper_stem.SIDE)],
+                          dtype=torch.float64)
+    count = batch * inside[:, None, None] * inside[None, :, None] * inside[None, None, :]
+    if not torch.equal(got.cpu().double(), count.expand(hopper_stem.CHANNELS, 1, -1, -1, -1)):
+        raise AssertionError("K9 on a full grid of ones against dy = 1 misses the exact counts")
+    x0 = grids[0]
+    first, second = kernel(x0, dy), kernel(x0, dy)
+    replayed = graph_outputs(lambda: (kernel(x0, dy),))[0]
+    torch.cuda.synchronize()
+    if not (torch.equal(first, second) and torch.equal(first, replayed)):
+        raise AssertionError("K9: two launches or a CUDA graph's replay differ")
+    checked = launches["stem_wgrad"] - per_step
+    log(f"[51 K9 vs plain] {len(worst)} cases within float32 round-off of the plain gather "
+        f"(worst |K9 - plain| / sum |x dy| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"); the full grid of ones exact; two launches and a graph replay equal; "
+          f"{per_step} launches in phase 50's {train_steps} train steps; voxelized occupancy "
+          f"{', '.join(f'{100 * o:.4f}%' for o in occupancy)}")
+
+    # ----------------------------------------------------------- timing
+    def cost(x):
+        """(bytes, float32 operations) the weight gradient needs on x."""
+        set_ = (x != 0).float()
+        near = F.max_pool3d(set_, hopper_stem.SIDE, 1, hopper_stem.PAD)  # within a window
+        n_bytes = x.numel() * 4 + int(near.sum()) * hopper_stem.CHANNELS * 4 \
+            + hopper_stem.CHANNELS * hopper_stem.SIDE ** 3 * 4
+        q = torch.arange(grid, device=dev)
+        taps = (torch.clamp(q + hopper_stem.PAD, max=hopper_stem.SIDE - 1)
+                - torch.clamp(q + hopper_stem.PAD - grid + 1, min=0) + 1).float()
+        pairs = (set_[:, 0] * taps[:, None, None] * taps[None, :, None]
+                 * taps[None, None, :]).sum()
+        return n_bytes, 2 * hopper_stem.CHANNELS * float(pairs)
+
+    timed = {"voxelized": grids[0], "empty": cases[-2][1], "full": values}
+    kernel_ms, bounds = {}, {}
+    for label, x in timed.items():
+        args = hopper_stem.stem_wgrad_args(x, dy)
+        kernel_ms[label] = graph_ms(lambda: hopper_stem.launch_stem_wgrad(args),
+                                    iters=dense_iters if label == "full" else 50)
+        n_bytes, ops = cost(x)
+        bounds[label] = (n_bytes, ops, *roofline_ms(n_bytes, ops, device=dev))
+    library_ms = {label: graph_ms(lambda: torch.nn.grad.conv3d_weight(
+        timed[label], hopper_stem.WEIGHT_SHAPE, dy, padding=hopper_stem.PAD), iters=dense_iters)
+        for label in ("voxelized", "full")}
+    plain_ms = time_ms(lambda: hopper_stem.stem_wgrad_plain(grids[0], dy), iters=3, warmup=1)
+    for label, ms in kernel_ms.items():
+        n_bytes, ops, b_ms, by = bounds[label]
+        log(f"[51 timing] {tag} K9 B={batch} {grid}^3 {label}: {ms:.4f} ms alone (CUDA graph); "
+            f"{n_bytes} B, {ops:.4g} operations, bound {b_ms:.6f} ms by {by}, share "
+            f"{b_ms / ms:.4f}")
+    log(f"[51 timing] {tag} cuDNN conv3d_weight (library) voxelized {library_ms['voxelized']:.3f} "
+        f"ms, full {library_ms['full']:.3f} ms (CUDA graphs of {dense_iters}); K9 full "
+        f"{kernel_ms['full']:.3f} ms beside it; plain gather {plain_ms:.3f} ms (CUDA events, its "
+        f"host syncs included)")
+    return {"name": "stem_wgrad", "route": "cuda", "source": "deepprior_tpu_torch/csrc/stem_wgrad.cu",
+            "replaces": "none: the JAX package has no V2V-PoseNet; cuDNN's dense weight gradient",
+            "launches": checked, "max_rel_err": max(worst.values()),
+            "kernel_only_ms": kernel_ms["voxelized"], "empty_ms": kernel_ms["empty"],
+            "full_ms": kernel_ms["full"], "plain_ms": plain_ms,
+            "bound_ms": bounds["voxelized"][2], "bound_by": bounds["voxelized"][3],
+            "bytes": bounds["voxelized"][0], "library_ms": library_ms["voxelized"],
+            "library_full_ms": library_ms["full"], "launches_per_call": 1,
+            "phase_50_launches": per_step}
 
 
 def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max_batch=64):

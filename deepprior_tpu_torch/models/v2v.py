@@ -9,7 +9,8 @@ re-implementation github.com/dragonbook/V2V-PoseNet-pytorch
 resolution (ops/voxel.py::heatmap_targets, ``decode_heatmaps``).
 
 Blocks (every convolution with a bias; BatchNorm is ``layers.BatchNorm``,
-flax's semantics, on 5-D maps):
+flax's semantics, on 5-D maps; the stem's Basic(7, 16) is ``Stem``, whose
+weight gradient gathers over the grid's set voxels):
   Basic(k, c)  Conv3d k^3 'same' -> BN -> ReLU
   Res(a, b)    ReLU(BN(Conv3(ReLU(BN(Conv3(x))))) + skip(x)), skip = x when
                a == b, else BN(Conv1(x))
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepprior_tpu_torch.models.layers import BatchNorm
+from deepprior_tpu_torch.ops.hopper_stem import stem_conv3d
 from deepprior_tpu_torch.ops.voxel import decode_heatmaps, heatmap_loss, heatmap_targets, voxelize
 from deepprior_tpu_torch.utils.profiling import span
 
@@ -83,6 +85,21 @@ class Basic(nn.Module):
 
     def forward(self, x):
         return torch.relu(self.bn(_conv(self.conv, x, self.dtype)))
+
+
+class Stem(Basic):
+    """Basic(1, 16, 7) on the occupancy grid, the only layer whose input is
+    the grid: its convolution's weight gradient gathers over the set voxels
+    (ops/hopper_stem.py, the kernel K9 on the card).  Parameters as
+    Basic's: ``stem.conv.weight``, ``stem.conv.bias``."""
+
+    def __init__(self, dtype):
+        super().__init__(1, 16, 7, dtype)
+
+    def forward(self, x):
+        dt = self.dtype
+        h = stem_conv3d(x.to(dt), self.conv.weight.to(dt), self.conv.bias.to(dt))
+        return torch.relu(self.bn(h))
 
 
 class Res(nn.Module):
@@ -131,7 +148,7 @@ class V2VPoseNet(nn.Module):
                              f"cube_voxels {cfg.cube_voxels}, with an even difference")
         self.cfg = cfg
         dt = cfg.dtype
-        self.stem = Basic(1, 16, 7, dt)
+        self.stem = Stem(dt)
         self.front = nn.ModuleList([Res(16, 32, dt), Res(32, 32, dt), Res(32, 32, dt)])
         self.skip1 = Res(32, 32, dt)
         self.enc1 = Res(32, 64, dt)
