@@ -1202,6 +1202,7 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64, n_cpu=16):
     from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
     from deepprior_tpu_torch.data.detector_np import HandCropper
     from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.device import float32_compute
     from deepprior_tpu_torch.models import PoseRegNet, ScaleNet, ScaleNetConfig
     from deepprior_tpu_torch.ops import com as tcom
     from deepprior_tpu_torch.ops import hopper_crop
@@ -1211,7 +1212,6 @@ def realtime_phases(dev, tag, log, model, prior, batch=512, n_det=64, n_cpu=16):
     from deepprior_tpu_torch.realtime.fused import FusedEstimator
     from deepprior_tpu_torch.realtime.pipeline import (
         HAND_RIGHT, STATE_RUN, RealtimeHandposePipeline)
-    from deepprior_tpu_torch.train.trainer import float32_compute
 
     cam = NYU_CAMERA
     cube = (250.0, 250.0, 250.0)
@@ -2022,12 +2022,12 @@ def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max
 
     from deepprior_tpu_torch.camera import NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.device import _tf32_switches, float32_compute
     from deepprior_tpu_torch.mains.common import load_serving_net
     from deepprior_tpu_torch.ops import hopper_crop
     from deepprior_tpu_torch.realtime import export as xp
     from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
     from deepprior_tpu_torch.realtime.fused import FusedEstimator
-    from deepprior_tpu_torch.train.trainer import _tf32_switches, float32_compute
 
     cam = NYU_CAMERA
     hw = (cam.height, cam.width)
@@ -2489,10 +2489,10 @@ def calibrated_resnet(dev, cam, depth, com):
     it.  Returns (model, prior)."""
     import torch
 
+    from deepprior_tpu_torch.device import float32_compute
     from deepprior_tpu_torch.mains.common import load_serving_net
     from deepprior_tpu_torch.models.layers import calibrate_batchnorm
     from deepprior_tpu_torch.realtime.fused import FusedEstimator
-    from deepprior_tpu_torch.train.trainer import float32_compute
 
     model, prior = load_serving_net("resnet", device=dev)
     crops = FusedEstimator(model, cam, prior=prior, device=dev)(depth, com)[2]

@@ -214,7 +214,7 @@ int dp_warp_general(const float* src, const float* params, float* out, int b,
 }
 
 // the compile-time constants the wrapper checks its own against
-int dp_probe_constant(int which) {
+int dp_constant(int which) {
   switch (which) {
     case kConstCorner: return kCorner;
     case kConstSelRow: return kSelRow;
@@ -223,7 +223,7 @@ int dp_probe_constant(int which) {
   }
 }
 
-const char* dp_probe_error_string(int err) {
+const char* dp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -523,7 +523,7 @@ int dp_warp_norm(const float* patch, const int64_t* mode_idx,
 
 // the compile-time layout the wrapper checks its own against: K4's params
 // per sample (0) and K5's mode count (1)
-int dp_warp_constant(int which) {
+int dp_constant(int which) {
   switch (which) {
     case 0: return kNumPatchParams;
     case 1: return kNumModes;
@@ -531,7 +531,7 @@ int dp_warp_constant(int which) {
   }
 }
 
-const char* dp_warp_error_string(int err) {
+const char* dp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

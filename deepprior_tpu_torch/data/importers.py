@@ -43,8 +43,8 @@ import torch
 from deepprior_tpu_torch.camera import Camera, ICVL_CAMERA, MSRA15_CAMERA, NYU_CAMERA
 from deepprior_tpu_torch.data.basetypes import DepthFrame, ImageSequence
 from deepprior_tpu_torch.data.detector_np import HandCropper
+from deepprior_tpu_torch.device import default_device
 from deepprior_tpu_torch.geometry import transform_points_2d_np
-from deepprior_tpu_torch.mains.common import default_device
 
 
 def _detection_mode(docom: bool, refine: bool) -> str:

@@ -46,6 +46,8 @@ import time
 import numpy as np
 import torch
 
+from deepprior_tpu_torch.device import default_device
+
 # the shipped baseline predictions --accept compares with (the JAX mains'
 # specs): Tompson et al.'s on NYU, Tang et al.'s LRF on ICVL; MSRA15 ships none
 NYU_BASELINE = {"label": "Tompson et al.",
@@ -61,18 +63,6 @@ PRIOR_POSES_SYNTHETIC = 50_000
 # (the paper's RMSProp at 2.5e-4, batch 8)
 RECIPE_DEFAULTS = {"lr": 0.001, "batch_size": 128}
 V2V_DEFAULTS = {"lr": 2.5e-4, "batch_size": 8}
-
-
-def default_device() -> torch.device:
-    """The entry points' default device: the CUDA card.  Raises
-    RuntimeError when there is none; the CPU is only ever asked for
-    (``--device cpu``)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device (torch.cuda.is_available() is False); pass "
-            "--device cpu to run on the CPU"
-        )
-    return torch.device("cuda")
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:

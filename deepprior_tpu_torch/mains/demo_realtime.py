@@ -29,7 +29,8 @@ import os
 import numpy as np
 import torch
 
-from deepprior_tpu_torch.mains.common import default_device, load_serving_net
+from deepprior_tpu_torch.device import default_device
+from deepprior_tpu_torch.mains.common import load_serving_net
 
 
 def build_parser() -> argparse.ArgumentParser:

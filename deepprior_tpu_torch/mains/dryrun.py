@@ -155,7 +155,7 @@ def _rank_main(rank, world):
 
 
 def main(argv=None):
-    from deepprior_tpu_torch.mains.common import default_device
+    from deepprior_tpu_torch.device import default_device
     from deepprior_tpu_torch.parallel import multihost
 
     ap = argparse.ArgumentParser(description=__doc__,

@@ -40,7 +40,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from deepprior_tpu_torch.mains.common import default_device, load_serving_net
+from deepprior_tpu_torch.device import default_device
+from deepprior_tpu_torch.mains.common import load_serving_net
 
 
 def _device(args) -> torch.device:

@@ -1,4 +1,5 @@
-"""Build the package's native sources and load them with ctypes.
+"""Build the package's native sources, load them with ctypes, and launch
+the CUDA kernels.
 
 Each CUDA source under ``csrc/`` compiles with nvcc on first use into a
 shared library with a plain C interface, in ``deepprior_tpu_torch/_build/``
@@ -9,6 +10,11 @@ an edited source or header rebuilds and an unchanged one loads at once.
 A build writes a temporary file of its own and renames it into place, so
 concurrent builds and loaders never see half a library; a failed build
 raises.  Nothing builds at import.
+
+``bind`` declares a CUDA library's C functions from its wrapper's
+signature table, and ``launch`` calls one on the current stream, so a
+kernel's wrapper (``ops/hopper_*.py``) holds only its table and its own
+checks.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +44,10 @@ NVCC_FLAGS = (
 # the host shim's flags (deepprior_tpu/cpp/CMakeLists.txt builds the JAX
 # package's copy the same way)
 HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+# the C types of the kernels' signature tables (``bind``): pointers and the
+# stream as c_void_p, since as c_int they would be cut to 32 bits
+PTR, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # what the last build of each source printed (nvcc -Xptxas -v reports each
 # kernel's registers, shared memory and spills)
@@ -104,6 +116,77 @@ def load_library(source: str) -> ctypes.CDLL:
     lib = os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
     return ctypes.CDLL(_build(source, os.path.join(CSRC, source), lib, [find_nvcc()],
                               NVCC_FLAGS))
+
+
+def bind(source: str, signatures: dict, constants: tuple = ()):
+    """The loader of csrc/<source>'s library: a function that, on its first
+    call, builds and loads it (``load_library``), declares each C function
+    of ``signatures`` ({name: (argtypes, restype)}, the stream last) and
+    ``dp_error_string``, and checks the source's compile-time ``constants``
+    ((name, value) pairs, read as ``dp_constant(0)``, ``dp_constant(1)``,
+    ...) against the wrapper's, raising RuntimeError where they differ;
+    later calls return the same library (``cache_clear`` forgets it).  Its
+    ``pointers`` attribute holds, for each function, the positions of its
+    pointer arguments before the stream, which ``launch`` reads."""
+    table = {**signatures, "dp_error_string": ([I32], ctypes.c_char_p)}
+    if constants:
+        table["dp_constant"] = ([I32], I32)
+
+    @functools.lru_cache(maxsize=None)
+    def build() -> ctypes.CDLL:
+        lib = load_library(source)
+        for name, (argtypes, restype) in table.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(argtypes), restype
+        got = tuple(lib.dp_constant(i) for i in range(len(constants)))
+        want = tuple(value for _, value in constants)
+        if got != want:
+            names = ", ".join(name for name, _ in constants)
+            raise RuntimeError(f"csrc/{source} has ({names}) {got}, this wrapper {want}")
+        return lib
+
+    build.pointers = {name: tuple(i for i, t in enumerate(argtypes[:-1]) if t is PTR)
+                      for name, (argtypes, _) in signatures.items()}
+    return build
+
+
+def launch(build, name: str, kernel: str, *args) -> None:
+    """Call the C function ``name`` of ``build()``'s library (``bind``) with
+    ``args`` in its order, the current CUDA stream last: a tensor (or None)
+    at each pointer position of its signature, passed as its data pointer,
+    and the scalars as they are.  Every tensor must be contiguous and on one
+    CUDA device, else ValueError before the library loads; a non-zero
+    return raises RuntimeError with the library's ``dp_error_string``."""
+    cargs = list(args)
+    dev = None
+    for i in build.pointers[name]:
+        t = cargs[i]
+        if t is None:
+            continue
+        if dev is None:
+            dev = t.device
+        if t.device != dev or not t.is_contiguous():
+            raise _refusal(kernel, args)
+        cargs[i] = t.data_ptr()
+    if dev.type != "cuda":
+        raise _refusal(kernel, args)
+    lib = build()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*cargs, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: {lib.dp_error_string(err).decode()}")
+
+
+def _refusal(kernel: str, args) -> ValueError:
+    """What ``launch`` raises for tensors that are not all contiguous on
+    one CUDA device (the check runs once per launch; this, only on a
+    refusal)."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if not all(t.is_contiguous() for t in tensors):
+        return ValueError(f"{kernel} needs contiguous tensors")
+    return ValueError(f"{kernel} needs every tensor on one CUDA device, got "
+                      f"{sorted({str(t.device) for t in tensors})}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -27,12 +27,11 @@ registered operator, ``torch.ops.deepprior_tpu_torch.normalized_crop``
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from deepprior_tpu_torch.ops._build import F32, I32, PTR, bind, launch
 from deepprior_tpu_torch.ops.crop import (
     _embed_geometry,
     _exact_floor_div,
@@ -62,21 +61,11 @@ PARAM_NAMES = (
 _MAX_GRID_Y = 65535  # the kernel's grid is (ceil(dh / 32), B)
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile csrc/crop.cu (once per source hash) and load it."""
-    from deepprior_tpu_torch.ops._build import load_library
-
-    lib = load_library("crop.cu")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+build = bind("crop.cu", {
     # dpt, com, cube, cube_stride, fx, fy, min_d, max_d, out, m,
     # b, h, w, dh, dw, fuse_clamp, norm_zero_one, linear, stream
-    lib.dp_normalized_crop.argtypes = (
-        [ptr] * 3 + [i32] + [f32] * 2 + [ptr] * 4 + [i32] * 8 + [ptr])
-    lib.dp_normalized_crop.restype = i32
-    lib.dp_error_string.argtypes = [i32]
-    lib.dp_error_string.restype = ctypes.c_char_p
-    return lib
+    "dp_normalized_crop": ([PTR] * 3 + [I32] + [F32] * 2 + [PTR] * 4 + [I32] * 8 + [PTR], I32),
+})
 
 
 def crop_params(dpt, com, cube, fx, fy, dsize=(128, 128), fuse_clamp=False):
@@ -192,15 +181,9 @@ def launch_crop(dpt, args: CropArgs, norm_zero_one=False, linear=False):
     carry the clamp limits."""
     name = "normalized_crop_linear" if linear else "normalized_crop"
     tensors = [t for t in (dpt, *args) if isinstance(t, torch.Tensor)]
-    if dpt.device.type != "cuda" or any(t.device != dpt.device for t in tensors):
-        raise ValueError(
-            f"launch_crop needs every tensor on one CUDA device, got "
-            f"{sorted({str(t.device) for t in tensors})}")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(
             f"launch_crop takes float32, got {[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("launch_crop needs contiguous tensors")
     if dpt.dim() != 3:
         raise ValueError(f"dpt must be (B, H, W), got {tuple(dpt.shape)}")
     b, h, w = dpt.shape
@@ -215,20 +198,9 @@ def launch_crop(dpt, args: CropArgs, norm_zero_one=False, linear=False):
         raise ValueError(f"crop args of shapes {got}, want {want}")
     if b > _MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit {_MAX_GRID_Y}")
-    lib = build()
-    limits = (args.min_d.data_ptr(), args.max_d.data_ptr()) if fuse_clamp else (None, None)
-    with torch.cuda.device(dpt.device):
-        stream = torch.cuda.current_stream(dpt.device).cuda_stream
-        err = lib.dp_normalized_crop(
-            dpt.data_ptr(), args.com.data_ptr(), args.cube.data_ptr(),
-            args.cube_stride, args.fx, args.fy, *limits,
-            args.out.data_ptr(), args.m.data_ptr(),
-            b, h, w, dh, dw, int(fuse_clamp), int(norm_zero_one), int(linear),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"crop kernel launch failed: {lib.dp_error_string(err).decode()}")
+    launch(build, "dp_normalized_crop", "crop", dpt, args.com, args.cube, args.cube_stride,
+           args.fx, args.fy, args.min_d, args.max_d, args.out, args.m, b, h, w, dh, dw,
+           int(fuse_clamp), int(norm_zero_one), int(linear))
     LAUNCHES[name] += 1
     return args.out, args.m
 

@@ -21,12 +21,12 @@ package on them and chip_smoke.py the kernel to the plain scan.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from deepprior_tpu_torch.ops._build import I32, PTR, bind, launch
 
 # labeling calls since the last reset (each three kernel launches per
 # 65,535 frames); chip_smoke.py reads it to show that detection went
@@ -37,19 +37,10 @@ _MAX_TILES_Y = 65535
 _INT32_MAX = 2**31 - 1
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile csrc/label.cu (once per source hash) and load it."""
-    from deepprior_tpu_torch.ops._build import load_library
-
-    lib = load_library("label.cu")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+build = bind("label.cu", {
     # mask, region, region_bytes, out, n, h, w, stream
-    lib.dp_label.argtypes = [ptr, ptr, i32, ptr, i32, i32, i32, ptr]
-    lib.dp_label.restype = i32
-    lib.dp_error_string.argtypes = [i32]
-    lib.dp_error_string.restype = ctypes.c_char_p
-    return lib
+    "dp_label": ([PTR, PTR, I32, PTR, I32, I32, I32, PTR], I32),
+})
 
 
 class LabelArgs(NamedTuple):
@@ -96,34 +87,19 @@ def launch_label(args: LabelArgs) -> torch.Tensor:
     """Run the kernel on ``label_args``' CUDA tensors; returns ``args.out``
     (N, H, W), written."""
     tensors = [t for t in args if isinstance(t, torch.Tensor)]
-    dev = args.mask.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            f"launch_label needs every tensor on one CUDA device, got "
-            f"{sorted({str(t.device) for t in tensors})}")
     region_bytes = 0 if args.region is None else args.region.element_size()
     if (args.mask.dtype != torch.bool or args.out.dtype != torch.int32
             or (args.region is not None and args.region.dtype not in (torch.int32, torch.int64))):
         raise TypeError(
             f"launch_label takes a bool mask, int32 or int64 regions and int32 labels, got "
             f"{[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("launch_label needs contiguous tensors")
     shapes = {tuple(t.shape) for t in tensors}
     if len(shapes) != 1 or args.mask.dim() != 3:
         raise ValueError(f"launch_label needs (N, H, W) tensors of one shape, got {shapes}")
     n, h, w = args.mask.shape
     if h * w > _INT32_MAX or -(-h // 32) > _MAX_TILES_Y or n > _INT32_MAX:
         raise ValueError(f"frames of {h}x{w} (x{n}) exceed the kernel's int32 labels or grid")
-    lib = build()
-    region = None if args.region is None else args.region.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dp_label(args.mask.data_ptr(), region, region_bytes, args.out.data_ptr(),
-                           n, h, w, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"label kernel launch failed: {lib.dp_error_string(err).decode()}")
+    launch(build, "dp_label", "label", args.mask, args.region, region_bytes, args.out, n, h, w)
     LAUNCHES["label"] += 1
     return args.out
 

@@ -15,12 +15,10 @@ tensor they launch the kernel or raise: there is no fallback.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
+from deepprior_tpu_torch.ops._build import I32, PTR, bind, launch
 from deepprior_tpu_torch.ops.hopper_warp import warp_patch_params, warp_patch_plain
 
 # kernel launches since the last reset, per kernel; chip_smoke.py reads them
@@ -42,34 +40,12 @@ ROW_ALIGN, COL_ALIGN = 8, 128
 _MAX_GRID_Y = 65535
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile csrc/probes.cu (once per source hash) and load it."""
-    from deepprior_tpu_torch.ops._build import load_library
-
-    lib = load_library("probes.cu")
-    lib.dp_band_probe.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.dp_band_probe.restype = ctypes.c_int
-    lib.dp_warp_general.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    lib.dp_warp_general.restype = ctypes.c_int
-    lib.dp_probe_constant.argtypes = [ctypes.c_int]
-    lib.dp_probe_constant.restype = ctypes.c_int
-    lib.dp_probe_error_string.argtypes = [ctypes.c_int]
-    lib.dp_probe_error_string.restype = ctypes.c_char_p
-    got = tuple(lib.dp_probe_constant(i) for i in range(3))
-    if got != (CORNER, SEL_ROW, SEL_COL):
-        raise RuntimeError(
-            f"csrc/probes.cu has (corner, sel_row, sel_col) {got}, "
-            f"this wrapper {(CORNER, SEL_ROW, SEL_COL)}")
-    return lib
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: {build().dp_probe_error_string(err).decode()}")
+build = bind("probes.cu", {
+    # dpt, offsets, out, b, h, w, band_h, band_w, body, stream
+    "dp_band_probe": ([PTR] * 3 + [I32] * 6 + [PTR], I32),
+    # src, params, out, b, h, w, split, stream
+    "dp_warp_general": ([PTR] * 3 + [I32] * 4 + [PTR], I32),
+}, constants=(("corner", CORNER), ("sel_row", SEL_ROW), ("sel_col", SEL_COL)))
 
 
 # ---------------------------------------------------------------------------
@@ -126,17 +102,14 @@ def launch_band(dpt, offsets, band, body: str = "trivial"):
     (B, 2) int32 (checked by ``check_offsets``) -> (B, CORNER, CORNER)."""
     if body not in BODIES:
         raise ValueError(f"unknown band body {body!r} (want one of {BODIES})")
-    if dpt.device.type != "cuda" or offsets.device != dpt.device:
-        raise ValueError(f"band probe needs dpt and offsets on one CUDA device, "
-                         f"got {dpt.device} and {offsets.device}")
     if dpt.dtype != torch.float32 or offsets.dtype != torch.int32:
         raise TypeError(f"band probe takes float32 dpt and int32 offsets, got "
                         f"{dpt.dtype} and {offsets.dtype}")
     b, h, w = dpt.shape
     bh, bw = band
-    if offsets.shape != (b, 2) or not (dpt.is_contiguous() and offsets.is_contiguous()):
-        raise ValueError(f"band probe needs contiguous dpt (B, H, W) and offsets "
-                         f"(B, 2), got {tuple(dpt.shape)} and {tuple(offsets.shape)}")
+    if offsets.shape != (b, 2):
+        raise ValueError(f"band probe needs dpt (B, H, W) and offsets (B, 2), got "
+                         f"{tuple(dpt.shape)} and {tuple(offsets.shape)}")
     if w % 4 or dpt.data_ptr() % 16:
         raise ValueError("band probe reads 16-byte vectors: W must be a multiple "
                          "of 4 and dpt 16-byte aligned")
@@ -145,13 +118,9 @@ def launch_band(dpt, offsets, band, body: str = "trivial"):
                          f"to fit the {h}x{w} frame")
     if b > _MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit {_MAX_GRID_Y}")
-    lib = build()
     out = torch.empty((b, CORNER, CORNER), dtype=torch.float32, device=dpt.device)
-    with torch.cuda.device(dpt.device):
-        stream = torch.cuda.current_stream(dpt.device).cuda_stream
-        err = lib.dp_band_probe(dpt.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                                b, h, w, bh, bw, BODIES.index(body), stream)
-    _raise_on(err, f"band_{body}")
+    launch(build, "dp_band_probe", f"band_{body}", dpt, offsets, out, b, h, w, bh, bw,
+           BODIES.index(body))
     LAUNCHES[f"band_{body}"] += 1
     return out
 
@@ -216,26 +185,16 @@ def launch_warp_general(patch, params, split: bool = False):
     """Run K7 on CUDA tensors: patch (B, H, W) float32, params (B, 6)
     float32 -> (B, H, W)."""
     name = "warp_general_split" if split else "warp_general"
-    if patch.device.type != "cuda" or params.device != patch.device:
-        raise ValueError(f"{name} needs patch and params on one CUDA device, got "
-                         f"{patch.device} and {params.device}")
     if patch.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError(f"{name} takes float32, got {patch.dtype} and {params.dtype}")
     if patch.dim() != 3 or params.shape != (patch.shape[0], 6):
         raise ValueError(f"bad shapes: patch {tuple(patch.shape)} (want (B, H, W)), "
                          f"params {tuple(params.shape)} (want (B, 6))")
-    if not (patch.is_contiguous() and params.is_contiguous()):
-        raise ValueError(f"{name} needs contiguous patch and params")
     b, h, w = patch.shape
     if b > _MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit {_MAX_GRID_Y}")
-    lib = build()
     out = torch.empty_like(patch)
-    with torch.cuda.device(patch.device):
-        stream = torch.cuda.current_stream(patch.device).cuda_stream
-        err = lib.dp_warp_general(patch.data_ptr(), params.data_ptr(), out.data_ptr(),
-                                  b, h, w, int(split), stream)
-    _raise_on(err, name)
+    launch(build, "dp_warp_general", name, patch, params, out, b, h, w, int(split))
     LAUNCHES[name] += 1
     return out
 

@@ -30,13 +30,13 @@ its result does not change from run to run.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import itertools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from deepprior_tpu_torch.ops._build import I32, PTR, bind, launch
 
 # weight-gradient calls since the last reset (each two kernel launches);
 # chip_smoke.py reads it to show that the V2V step went through the kernel
@@ -51,19 +51,10 @@ _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _INT32_MAX = 2**31 - 1
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile csrc/stem_wgrad.cu (once per source hash) and load it."""
-    from deepprior_tpu_torch.ops._build import load_library
-
-    lib = load_library("stem_wgrad.cu")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+build = bind("stem_wgrad.cu", {
     # x, dy, partial, out, elem_bytes, blocks, n, d, h, w, stream
-    lib.dp_stem_wgrad.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-    lib.dp_stem_wgrad.restype = i32
-    lib.dp_error_string.argtypes = [i32]
-    lib.dp_error_string.restype = ctypes.c_char_p
-    return lib
+    "dp_stem_wgrad": ([PTR] * 4 + [I32] * 6 + [PTR], I32),
+})
 
 
 def _check_shapes(x, dy):
@@ -125,21 +116,8 @@ def launch_stem_wgrad(args: StemArgs) -> torch.Tensor:
                          f"{tuple(out.shape)} and {tuple(partial.shape)}")
     if d * h * w > _INT32_MAX:
         raise ValueError(f"a grid of {d}x{h}x{w} exceeds the kernel's int32 voxel index")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("launch_stem_wgrad needs contiguous tensors")
-    dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in args):
-        raise ValueError(f"launch_stem_wgrad needs every tensor on one CUDA device, got "
-                         f"{sorted({str(t.device) for t in args})}")
-    lib = build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dp_stem_wgrad(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                                out.data_ptr(), _ELEM_BYTES[x.dtype], blocks, n, d, h, w,
-                                stream)
-    if err != 0:
-        raise RuntimeError(f"stem weight-gradient kernel launch failed: "
-                           f"{lib.dp_error_string(err).decode()}")
+    launch(build, "dp_stem_wgrad", "stem weight-gradient", x, dy, partial, out,
+           _ELEM_BYTES[x.dtype], blocks, n, d, h, w)
     LAUNCHES["stem_wgrad"] += 1
     return out
 

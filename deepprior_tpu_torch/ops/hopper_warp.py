@@ -24,14 +24,13 @@ they launch the kernel or raise: there is no fallback.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Sequence
 
 import torch
 
 from deepprior_tpu_torch.camera import Camera
 from deepprior_tpu_torch.geometry import inv3x3
+from deepprior_tpu_torch.ops._build import F32, I32, PTR, bind, launch
 from deepprior_tpu_torch.ops.crop import _gather_patch, nv_threshold
 from deepprior_tpu_torch.utils.flops import distinct_per_row
 
@@ -60,34 +59,16 @@ MODES = ("none", "com", "rot", "sc")
 MAX_PATCH_BYTES = 227 * 1024 - 1024
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile csrc/warp.cu (once per source hash) and load it."""
-    from deepprior_tpu_torch.ops._build import load_library
-
-    lib = load_library("warp.cu")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+build = bind("warp.cu", {
     # patch, params, out, b, h, w, border, use_nv, nv_val, nv_thresh, stream
-    lib.dp_warp_patch.argtypes = [ptr] * 3 + [i32] * 3 + [f32, i32, f32, f32] + [ptr]
+    "dp_warp_patch": ([PTR] * 3 + [I32] * 3 + [F32, I32, F32, F32] + [PTR], I32),
     # patch, mode_idx, off, rot, sc, com, cube, cube_stride, m, fx, fy, ux,
     # uy, flip_y, img_h, img_w, 4 mode masks, norm_zero_one, border, use_nv,
     # nv_val, nv_thresh, out, new_com, new_cube, m_out, com3d, new_com3d_c,
     # rot_out, is_mode, b, h, w, stream
-    lib.dp_warp_norm.argtypes = (
-        [ptr] * 7 + [i32, ptr] + [f32] * 4 + [i32] * 3 + [i32] * 4 + [i32]
-        + [f32, i32, f32, f32] + [ptr] * 8 + [i32] * 3 + [ptr])
-    for fn in (lib.dp_warp_patch, lib.dp_warp_norm):
-        fn.restype = i32
-    lib.dp_warp_constant.argtypes = [i32]
-    lib.dp_warp_constant.restype = i32
-    lib.dp_warp_error_string.argtypes = [i32]
-    lib.dp_warp_error_string.restype = ctypes.c_char_p
-    got = (lib.dp_warp_constant(0), lib.dp_warp_constant(1))
-    if got != (len(PATCH_PARAMS), len(MODES)):
-        raise RuntimeError(
-            f"csrc/warp.cu takes {got[0]} params per sample and {got[1]} modes, "
-            f"this wrapper {len(PATCH_PARAMS)} and {len(MODES)}")
-    return lib
+    "dp_warp_norm": ([PTR] * 7 + [I32, PTR] + [F32] * 4 + [I32] * 3 + [I32] * 4 + [I32]
+                     + [F32, I32, F32, F32] + [PTR] * 8 + [I32] * 3 + [PTR], I32),
+}, constants=(("params per sample", len(PATCH_PARAMS)), ("modes", len(MODES))))
 
 
 # ---------------------------------------------------------------------------
@@ -234,11 +215,6 @@ def launch_warp(patch, params, border: float = 0.0, nv_val=None):
     """Run K4 on CUDA tensors: patch (B, H, W) float32 and params (B, 6)
     -> (B, H, W)."""
     n_params = len(PATCH_PARAMS)
-    if patch.device.type != "cuda" or params.device != patch.device:
-        raise ValueError(
-            f"warp_patch needs patch and params on one CUDA device, got "
-            f"{patch.device} and {params.device}"
-        )
     if patch.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError(f"warp_patch takes float32, got {patch.dtype} and {params.dtype}")
     if patch.dim() != 3 or params.shape != (patch.shape[0], n_params):
@@ -246,24 +222,15 @@ def launch_warp(patch, params, border: float = 0.0, nv_val=None):
             f"bad shapes: patch {tuple(patch.shape)} (want (B, H, W)), params "
             f"{tuple(params.shape)} (want (B, {n_params}))"
         )
-    if not (patch.is_contiguous() and params.is_contiguous()):
-        raise ValueError("warp_patch needs contiguous patch and params")
     b, h, w = patch.shape
     if h * w * 4 > MAX_PATCH_BYTES:
         raise ValueError(
             f"a {h}x{w} float32 patch ({h * w * 4} bytes) does not fit in one "
             f"block's shared memory ({MAX_PATCH_BYTES} bytes)"
         )
-    lib = build()
     out = torch.empty_like(patch)
-    with torch.cuda.device(patch.device):
-        stream = torch.cuda.current_stream(patch.device).cuda_stream
-        err = lib.dp_warp_patch(patch.data_ptr(), params.data_ptr(), out.data_ptr(),
-                                b, h, w, float(border), *_nv_args(nv_val), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"warp_patch kernel launch failed: {lib.dp_warp_error_string(err).decode()}"
-        )
+    launch(build, "dp_warp_patch", "warp_patch", patch, params, out, b, h, w, float(border),
+           *_nv_args(nv_val))
     LAUNCHES["warp_patch"] += 1
     return out
 
@@ -372,16 +339,10 @@ def launch_warp_norm(patch, args: WarpNormArgs, border: float = 0.0,
     one block per sample, which stages the whole patch in its shared memory
     (``MAX_PATCH_BYTES``).  A refused launch raises."""
     tensors = [t for t in (patch, *args[:8], *args.outs) if isinstance(t, torch.Tensor)]
-    if patch.device.type != "cuda" or any(t.device != patch.device for t in tensors):
-        raise ValueError(
-            f"warp_norm needs every tensor on one CUDA device, got "
-            f"{sorted({str(t.device) for t in tensors})}")
     dtypes = {id(args.mode_idx): torch.int64, id(args.outs.is_mode): torch.bool}
     if any(t.dtype != dtypes.get(id(t), torch.float32) for t in tensors):
         raise TypeError(f"warp_norm takes float32 (mode_idx int64, is_mode bool), got "
                         f"{[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("warp_norm needs contiguous tensors")
     if patch.dim() != 3 or args.outs.out.shape != patch.shape:
         raise ValueError(f"patch must be (B, H, W) like args.outs.out, got "
                          f"{tuple(patch.shape)} and {tuple(args.outs.out.shape)}")
@@ -392,24 +353,12 @@ def launch_warp_norm(patch, args: WarpNormArgs, border: float = 0.0,
         raise ValueError(
             f"a {h}x{w} float32 patch ({h * w * 4} bytes) does not fit in one "
             f"block's shared memory ({MAX_PATCH_BYTES} bytes)")
-    lib = build()
     cam, o = args.camera, args.outs
-    with torch.cuda.device(patch.device):
-        stream = torch.cuda.current_stream(patch.device).cuda_stream
-        err = lib.dp_warp_norm(
-            patch.data_ptr(), args.mode_idx.data_ptr(), args.off.data_ptr(),
-            args.rot.data_ptr(), args.sc.data_ptr(), args.com.data_ptr(),
-            args.cube.data_ptr(), args.cube_stride, args.m.data_ptr(),
-            float(cam.fx), float(cam.fy), float(cam.ux), float(cam.uy),
-            int(cam.flip_y), int(cam.height), int(cam.width), *args.masks,
-            int(args.norm_zero_one), float(border), *_nv_args(nv_val),
-            o.out.data_ptr(), o.new_com.data_ptr(), o.new_cube.data_ptr(),
-            o.m_out.data_ptr(), o.com3d.data_ptr(), o.new_com3d_c.data_ptr(),
-            o.rot.data_ptr(), o.is_mode.data_ptr(), b, h, w, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"warp_norm kernel launch failed: {lib.dp_warp_error_string(err).decode()}")
+    launch(build, "dp_warp_norm", "warp_norm", patch, args.mode_idx, args.off, args.rot,
+           args.sc, args.com, args.cube, args.cube_stride, args.m, float(cam.fx),
+           float(cam.fy), float(cam.ux), float(cam.uy), int(cam.flip_y), int(cam.height),
+           int(cam.width), *args.masks, int(args.norm_zero_one), float(border),
+           *_nv_args(nv_val), *o, b, h, w)
     LAUNCHES["warp_norm"] += 1
     return o
 

@@ -11,8 +11,8 @@ from __future__ import annotations
 import torch
 
 from deepprior_tpu_torch.camera import Camera
+from deepprior_tpu_torch.device import float32_compute
 from deepprior_tpu_torch.ops.hopper_crop import hopper_normalized_crop
-from deepprior_tpu_torch.train.trainer import float32_compute
 
 
 class CNNComRefiner:

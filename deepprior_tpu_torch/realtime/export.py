@@ -40,8 +40,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from deepprior_tpu_torch.device import float32_compute
 from deepprior_tpu_torch.realtime.fused import Captured, capture_graph, replay_fn
-from deepprior_tpu_torch.train.trainer import float32_compute
 
 MAGIC = b"DPTTX1\x00\x00"
 _JAX_MAGIC = b"DPTPUX1\x00"

@@ -33,11 +33,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from deepprior_tpu_torch.camera import Camera
+from deepprior_tpu_torch.device import float32_compute
 from deepprior_tpu_torch.ops.com import detect_closest, refine_com_iterative
 from deepprior_tpu_torch.ops.crop import RESIZE_METHODS, clamp_depth, normalized_crop
 from deepprior_tpu_torch.ops.hopper_crop import normalized_crop_op
 from deepprior_tpu_torch.prior import PCAPrior
-from deepprior_tpu_torch.train.trainer import float32_compute
 from deepprior_tpu_torch.utils.profiling import graph_capture
 
 _CROP_METHODS = ("auto", "pallas", "hopper", "gather", "onehot")

@@ -71,6 +71,7 @@ import torch
 from torch import nn
 
 from deepprior_tpu_torch.camera import Camera
+from deepprior_tpu_torch.device import float32_compute
 from deepprior_tpu_torch.ops.augment import augment_batch
 from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.train.checkpoint import (
@@ -236,37 +237,6 @@ def _l2_penalty(model: nn.Module):
         if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
             total = total + torch.sum(torch.square(mod.weight))
     return total
-
-
-def _tf32_switches():
-    """The process's TF32 switches for cuDNN's convs and cuBLAS's matmuls,
-    and the value that turns each off.  torch >= 2.9 keeps one TF32 state
-    per backend and lets two APIs write it: ``fp32_precision`` and the
-    legacy ``allow_tf32``.  Once the new API holds a value the legacy flag
-    cannot express, reading the legacy flag raises, so the switches are
-    read and written through ``fp32_precision`` wherever this torch has it."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    conv = getattr(cudnn, "conv", None)
-    if hasattr(matmul, "fp32_precision") and hasattr(conv, "fp32_precision"):
-        return ((conv, "fp32_precision"), (matmul, "fp32_precision")), "ieee"
-    return ((cudnn, "allow_tf32"), (matmul, "allow_tf32")), False
-
-
-@contextlib.contextmanager
-def float32_compute():
-    """float32 means float32 on the card too: inside the block cuDNN's convs
-    and cuBLAS's matmuls do not round their inputs to TF32 (cuDNN does by
-    default), and the caller's settings come back after it, whichever of
-    PyTorch's two TF32 APIs the caller set them through."""
-    switches, off = _tf32_switches()
-    saved = [getattr(obj, attr) for obj, attr in switches]
-    for obj, attr in switches:
-        setattr(obj, attr, off)
-    try:
-        yield
-    finally:
-        for (obj, attr), value in zip(switches, saved):
-            setattr(obj, attr, value)
 
 
 class Trainer:

@@ -18,14 +18,19 @@ CPU: what can be checked without the card.
   (c) ``fuse_norm=None``: K5 on the kernel path of every device, its
       plain version on the CPU, where no launcher is reached;
   (d) ``build()`` binds the C signatures of csrc/warp.cu as written there,
-      and ``hopper_label.build()`` those of csrc/label.cu (K8).
+      and ``hopper_label.build()`` those of csrc/label.cu (K8);
+  (e) ``_build.launch``, the launch step every kernel wrapper shares,
+      refuses tensors the kernels cannot take before any library loads, and
+      turns a non-zero return into the library's error string.
 The kernel itself runs only on a CUDA card: chip_smoke.py phase 7 holds it
 to augment_geometry + warp_norm_plain bit for bit.
 """
 
+import contextlib
 import ctypes
 import os
 import re
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -234,7 +239,7 @@ def test_warp_build_binds_the_c_signatures(monkeypatch):
     c_float, in the order csrc/warp.cu declares them; build() refuses a
     source whose layout constants differ from the wrapper's."""
     consts = {0: len(hw.PATCH_PARAMS), 1: len(hw.MODES)}
-    stub = _StubLib(dp_warp_constant=lambda i: consts[i])
+    stub = _StubLib(dp_constant=lambda i: consts[i])
     monkeypatch.setattr(_build, "load_library", lambda source: stub)
     hw.build.cache_clear()
     try:
@@ -244,7 +249,7 @@ def test_warp_build_binds_the_c_signatures(monkeypatch):
             assert getattr(lib, name).restype is ctypes.c_int
         assert len(lib.dp_warp_norm.argtypes) == 37
         hw.build.cache_clear()
-        bad = _StubLib(dp_warp_constant=lambda i: consts[i] + i)
+        bad = _StubLib(dp_constant=lambda i: consts[i] + i)
         monkeypatch.setattr(_build, "load_library", lambda source: bad)
         with pytest.raises(RuntimeError, match="modes"):
             hw.build()
@@ -289,3 +294,57 @@ def test_build_key_covers_the_shared_headers(tmp_path):
     (tmp_path / "warp.cu").write_text((tmp_path / "warp.cu").read_text() + "\n")
     assert _build.source_digest("crop.cu", str(tmp_path)) == after["crop.cu"]
     assert _build.source_digest("warp.cu", str(tmp_path)) != after["warp.cu"]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that a launch gets
+    past the device check to the library's call."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _launch_case(kind):
+    """(the launch's two pointer arguments, the exception, its message) of
+    one case."""
+    return {
+        "a CPU tensor": ((torch.zeros(4), None), ValueError, "one CUDA device"),
+        "mixed devices": ((torch.zeros(4), torch.zeros(4, device="meta")), ValueError,
+                          "one CUDA device"),
+        "a non-contiguous tensor": ((torch.zeros((4, 3)).t(), None), ValueError, "contiguous"),
+        "a non-zero return": ((torch.zeros(4).as_subclass(_OnCard), None), RuntimeError,
+                              "stub kernel launch failed: an illegal stub"),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ["a CPU tensor", "mixed devices", "a non-contiguous tensor",
+                                  "a non-zero return"])
+def test_launch_refuses_and_raises_the_library_error(monkeypatch, kind):
+    """(e) the refusals come before ``build`` runs; a call that returns an
+    error code raises RuntimeError with ``dp_error_string``'s text, after
+    passing each tensor at a pointer position as its data pointer, None and
+    the scalars as they are, and the current stream last."""
+    (a, b), exc, match = _launch_case(kind)
+    calls = []
+
+    def dp_stub(*args):
+        calls.append(args)
+        return 700
+
+    stub = _StubLib(dp_stub=dp_stub, dp_error_string=lambda err: b"an illegal stub")
+    loads = []
+    ptr = ctypes.c_void_p
+    build = _build.bind("stub.cu", {"dp_stub": ([ptr, ptr, ctypes.c_int, ptr], ctypes.c_int)})
+    assert build.pointers == {"dp_stub": (0, 1)}
+    monkeypatch.setattr(_build, "load_library", lambda source: loads.append(source) or stub)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=1234))
+    with pytest.raises(exc, match=match):
+        _build.launch(build, "dp_stub", "stub", a, b, 7)
+    if exc is ValueError:
+        assert loads == [] and calls == []
+    else:
+        assert loads == ["stub.cu"]
+        assert calls == [(a.data_ptr(), None, 7, 1234)]

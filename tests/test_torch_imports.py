@@ -1,7 +1,10 @@
 """Guards for the port: it imports no jax and nothing of the JAX package,
-and a request for a CUDA device on a machine without one raises instead
-of running on the CPU."""
+its layers import one way (entry points above serving and training above
+ops, with the device and precision rules at the bottom), and a request for
+a CUDA device on a machine without one raises instead of running on the
+CPU."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -58,8 +61,55 @@ def test_port_imports_no_jax():
                 "parallel.train_dist", "parallel.serve", "train.checkpoint_sharded",
                 "mains.dryrun", "prof.sweeps", "eval.plots", "utils.helpers", "utils.text",
                 "utils.pointcloud", "ops._build", "parallel.spatial",
-                "train.jax_checkpoint", "prof.prof_graph_gc"):
+                "train.jax_checkpoint", "prof.prof_graph_gc", "device"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
+
+
+def _imports(path):
+    """The modules the file at ``path`` imports anywhere in it, at the top
+    or inside a function: ``import a.b`` names a.b, ``from a.b import c``
+    names a.b and a.b.c (c may be a module).  The package imports
+    absolutely, so a relative import fails here."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path}:{node.lineno}: a relative import"
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def test_layers_import_downward():
+    """No module outside mains/ imports the entry points; no module of the
+    ops, serving or data layers imports the trainer; device.py, the rules
+    they share, imports nothing of the package."""
+    pkg = os.path.join(ROOT, "deepprior_tpu_torch")
+    seen = {}
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                seen[os.path.relpath(path, pkg)] = _imports(path)
+
+    def under(names, module):
+        return sorted(n for n in names if n == module or n.startswith(module + "."))
+
+    layer = {rel: rel.split(os.sep)[0] for rel in seen}
+    assert {"mains", "ops", "realtime", "data", "train"} <= set(layer.values())
+    for rel, names in seen.items():
+        if layer[rel] != "mains":
+            assert not under(names, "deepprior_tpu_torch.mains"), rel
+        if layer[rel] in ("ops", "realtime", "data"):
+            assert not under(names, "deepprior_tpu_torch.train.trainer"), rel
+    assert not under(seen["device.py"], "deepprior_tpu_torch")
+    # the walk sees the imports the rules are about
+    assert under(seen[os.path.join("mains", "serve_http.py")], "deepprior_tpu_torch.mains")
+    assert "deepprior_tpu_torch.device.float32_compute" in seen[
+        os.path.join("realtime", "fused.py")]
 
 
 def test_cuda_request_raises_without_a_card():

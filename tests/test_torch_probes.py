@@ -197,9 +197,9 @@ def test_band_build_binds_and_checks_constants(monkeypatch):
 
     def stub(constants):
         lib = type("StubLib", (), {})()
-        for name in ("dp_band_probe", "dp_warp_general", "dp_probe_error_string"):
+        for name in ("dp_band_probe", "dp_warp_general", "dp_error_string"):
             setattr(lib, name, Fn(lambda *a: 0))
-        lib.dp_probe_constant = Fn(lambda i: constants[i] if i < len(constants) else -1)
+        lib.dp_constant = Fn(lambda i: constants[i] if i < len(constants) else -1)
         return lib
 
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -213,7 +213,7 @@ def test_band_build_binds_and_checks_constants(monkeypatch):
         assert lib.dp_band_probe.restype is i32
         # src, params, out, b, h, w, split, stream
         assert lib.dp_warp_general.argtypes == [ptr] * 3 + [i32] * 4 + [ptr]
-        assert lib.dp_probe_constant.argtypes == [i32]
+        assert lib.dp_constant.argtypes == [i32]
         hp.build.cache_clear()
         bad = stub((hp.CORNER, hp.SEL_ROW + 1, hp.SEL_COL))
         monkeypatch.setattr(_build, "load_library", lambda source: bad)

@@ -39,7 +39,7 @@ from deepprior_tpu.realtime import pipeline as jpipeline
 from deepprior_tpu.realtime.fused import FusedEstimator as JaxFusedEstimator
 
 from deepprior_tpu_torch.camera import ICVL_CAMERA, NYU_CAMERA
-from deepprior_tpu_torch.mains import common as tcommon
+from deepprior_tpu_torch.device import default_device
 from deepprior_tpu_torch.mains import demo_realtime
 from deepprior_tpu_torch.models import (PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig,
                                         ScaleNet, ScaleNetConfig)
@@ -272,7 +272,7 @@ def test_demo_main_on_cpu(tmp_path):
             demo_realtime.main(["--device", "synthetic", "--frames", "1"],
                                log=lines.append)
         with pytest.raises(RuntimeError, match="--device cpu"):
-            tcommon.default_device()
+            default_device()
     # --checkpoint: a missing file raises, a network_prior.ckpt serves its
     # weights and prior
     with pytest.raises(FileNotFoundError):

@@ -36,6 +36,7 @@ from deepprior_tpu.realtime import export as jxp
 from deepprior_tpu.realtime.fused import FusedEstimator as JaxFusedEstimator
 
 from deepprior_tpu_torch.camera import NYU_CAMERA
+from deepprior_tpu_torch.device import _tf32_switches
 from deepprior_tpu_torch.mains import serve_http
 from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
 from deepprior_tpu_torch.models.layers import calibrate_batchnorm
@@ -46,7 +47,6 @@ from deepprior_tpu_torch.realtime.batcher import MicroBatchServer, _Request
 from deepprior_tpu_torch.realtime.export import ArtifactEstimator
 from deepprior_tpu_torch.realtime.fused import Captured, FusedEstimator, replay_fn
 from deepprior_tpu_torch.train.checkpoint import save_checkpoint
-from deepprior_tpu_torch.train.trainer import _tf32_switches
 from deepprior_tpu_torch.utils.convert import poseregnet_state_dict_from_flax
 from deepprior_tpu_torch.utils.refweights import reference_pickle_from_state_dict
 

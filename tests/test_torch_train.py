@@ -36,6 +36,7 @@ from deepprior_tpu.train import trainer as jtrainer
 from deepprior_tpu_torch import prior as tprior
 from deepprior_tpu_torch.camera import NYU_CAMERA
 from deepprior_tpu_torch.data.synthetic import make_depth_frame, make_sequence
+from deepprior_tpu_torch.device import float32_compute
 from deepprior_tpu_torch.mains import main_nyu_posereg_embedding
 from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
 from deepprior_tpu_torch.train import prefetch as tprefetch
@@ -449,7 +450,8 @@ def test_pca_prior_computes_in_float32_with_tf32_on(api):
 @pytest.mark.parametrize("api", ["allow_tf32", "fp32_precision"])
 def test_float32_compute_under_both_tf32_apis(api):
     """The caller turns TF32 on through either of PyTorch's two APIs; a
-    float32 Trainer step then runs with TF32 off inside it (read through
+    float32 Trainer step, and a ``float32_compute`` block of the caller's
+    own, then run with TF32 off inside them (read through
     ``fp32_precision``: after the new API set a value, reading a legacy
     flag can raise, which made this step raise before) and the caller's
     settings read back unchanged through the caller's own API."""
@@ -471,11 +473,13 @@ def test_float32_compute_under_both_tf32_apis(api):
         state, loss = trainer._train_step_core(trainer.init_state(),
                                                data.take(torch.arange(4)), None, None, 1e-4)
         trainer.evaluate(state, data)
+        with float32_compute():
+            seen.append(_tf32_state())
         assert [getattr(obj, attr) for obj, attr in flags] == [on, on]
     finally:
         for (obj, attr), value in zip(flags, saved):
             setattr(obj, attr, value)
-    assert np.isfinite(float(loss)) and len(seen) == 2
+    assert np.isfinite(float(loss)) and len(seen) == 3
     assert all(s == _TF32_OFF for s in seen), seen
 
 
