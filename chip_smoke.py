@@ -124,6 +124,12 @@ random 5% grid, empty and full grids; float32 and bfloat16) within float32
 round-off, exactly on a full grid of ones, and times it alone from CUDA
 graphs beside its bound, cuDNN's dense weight gradient and the plain
 gather.
+Phase 52 (run after phase 51) counts 14 launches of K10, the weight
+gradient of V2V's dense convolutions with few channels, in each of phase
+50's steps, holds K10 to the plain version on the card at the five distinct
+shapes of those 14 layers (float32 and bfloat16) within float32 round-off,
+two launches and a CUDA graph's replay bit for bit, and times each shape
+alone from CUDA graphs beside its bound and cuDNN's weight gradient.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -708,9 +714,10 @@ def main(argv=None):
         kernels.insert(1, realtime_phases(dev, tag, log, model, prior))
     with stage("49"):
         kernels.append(label_phase(dev, tag, log))
-    with stage("50-51"):
+    with stage("50-52"):
         v2v = v2v_phase(dev, tag, log)
         kernels.append(stem_phase(dev, tag, log, v2v["train_steps"]))
+        kernels.append(wgrad_phase(dev, tag, log, v2v["train_steps"]))
     with stage("21-26"):
         serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
@@ -1708,7 +1715,7 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
     from deepprior_tpu_torch.camera import NYU_CAMERA
     from deepprior_tpu_torch.data.synthetic import make_sequence
     from deepprior_tpu_torch.models import V2VConfig, V2VPoseNet
-    from deepprior_tpu_torch.ops import hopper_stem, voxel
+    from deepprior_tpu_torch.ops import hopper_conv3d, hopper_stem, voxel
     from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
     from deepprior_tpu_torch.utils.flops import roofline_ms
 
@@ -1738,6 +1745,7 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
     lr = 2.5e-5  # lr_of_ep(0) of V2V's 2.5e-4
     rows = [torch.arange(s * batch, (s + 1) * batch, device=dev) % data.n for s in range(steps)]
     hopper_stem.LAUNCHES["stem_wgrad"] = 0
+    hopper_conv3d.LAUNCHES["conv3d_wgrad"] = 0
     losses, grad1 = [], None
     for s in range(steps):
         state, loss = trainer.train_step(state, data.take(rows[s]), None, None, lr)
@@ -1810,12 +1818,12 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
         elif s1 > end:
             busy, end = busy + (s1 - end), s1
     device_ms = busy / 3 / 1e3  # the profiler's times are in us
-    # a step's device ms in K9's two kernels and in cuDNN's dense weight
-    # gradient that it took the stem's share of
+    # a step's device ms in K9's and K10's kernels and in cuDNN's dense
+    # weight gradient that they took the stem's and the 44^3 layers' shares of
     by_name = Counter()
     for e in prof.events():
         if is_device_op(e):
-            name = "K9" if "stem_wgrad" in e.name else (
+            name = "K9" if "stem_wgrad" in e.name else "K10" if "conv3d_wgrad" in e.name else (
                 "wgrad2d_grouped_direct_kernel" if "wgrad2d_grouped_direct" in e.name else None)
             if name:
                 by_name[name] += (e.time_range.end - e.time_range.start) / 3 / 1e3
@@ -1839,15 +1847,17 @@ def v2v_phase(dev, tag, log, batch=8, frames=24, steps=3, timed_steps=10, grid=8
     log(f"[50 v2v] {tag} train step B={batch}: {step_ms:.3f} ms (host clock, {timed_steps} "
         f"synchronised steps), device busy {device_ms:.3f} ms a step "
         f"({100 * device_ms / step_ms:.1f}%), {flops / step_ms / 1e9:.2f} TFLOP/s of "
-        f"{flops / 1e12:.4g} TFLOP a step (K9 {by_name['K9']:.4f} ms a step, "
-        f"wgrad2d_grouped_direct_kernel {by_name['wgrad2d_grouped_direct_kernel']:.3f} ms); "
+        f"{flops / 1e12:.4g} TFLOP a step (K9 {by_name['K9']:.4f} ms a step, K10 "
+        f"{by_name['K10']:.3f} ms, wgrad2d_grouped_direct_kernel "
+        f"{by_name['wgrad2d_grouped_direct_kernel']:.3f} ms); "
         f"memory peak {peak / 1e9:.3f} GB; voxelize alone {vox_ms:.4f} ms "
         f"({100 * vox_bound / vox_ms:.1f}% of its {vox_bound:.4f} ms byte bound), "
         f"heatmap_targets {heat_ms:.4f} ms ({100 * heat_bound / heat_ms:.1f}% of "
         f"{heat_bound:.4f} ms)")
     return {"readings": readings, "step_ms": step_ms, "device_ms": device_ms,
             "peak_bytes": peak, "voxelize_ms": vox_ms, "heatmap_ms": heat_ms,
-            "train_steps": steps + 1 + timed_steps + 3, "k9_ms_a_step": by_name["K9"]}
+            "train_steps": steps + 1 + timed_steps + 3, "k9_ms_a_step": by_name["K9"],
+            "k10_ms_a_step": by_name["K10"]}
 
 
 def stem_phase(dev, tag, log, train_steps, batch=8, frames=24, grid=88, dense_iters=3):
@@ -1993,6 +2003,109 @@ def stem_phase(dev, tag, log, train_steps, batch=8, frames=24, grid=88, dense_it
             "bound_ms": bounds["voxelized"][2], "bound_by": bounds["voxelized"][3],
             "bytes": bounds["voxelized"][0], "library_ms": library_ms["voxelized"],
             "library_full_ms": library_ms["full"], "launches_per_call": 1,
+            "phase_50_launches": per_step}
+
+
+def wgrad_phase(dev, tag, log, train_steps, batch=8, side=44, library_iters=3):
+    """Phase 52, run after phase 51: K10 (csrc/conv3d_wgrad.cu), the weight
+    gradient of V2V-PoseNet's convolutions that ``hopper_conv3d.takes``, on
+    the card.  Phase 50's ``train_steps`` steps each launched it 14 times
+    (``hopper_conv3d.LAUNCHES``).  At the five distinct shapes of those 14
+    layers (B = ``batch``, a ``side``^3 volume; x a ReLU's output, dy of
+    either sign) K10 equals the plain version (``conv3d_wgrad_plain`` in
+    float64 on the card) within float32 round-off of a sum taken in another
+    order: |K10 - plain| <= 1e-5 of sum |x dy| for each weight (a block sums
+    about 5,000 products in turn, then 132 or 264 rows are added: the random
+    signs of dy keep the round-off near 2^-24 x sqrt(5,000) of that sum);
+    bfloat16 inputs the same plus one bfloat16 ulp of the result (K10 rounds
+    its float32 sum once).  Two launches and a CUDA graph's replay are equal
+    bit for bit.  Then each shape alone from CUDA graphs beside its bound
+    (operations for 3^3, bytes for 1^3: x and dy read once) and cuDNN's
+    ``torch.nn.grad.conv3d_weight`` with TF32 off (the yardstick, never
+    called by the port), and the plain version in float32.  Returns K10's
+    JSON record."""
+    import torch
+
+    from deepprior_tpu_torch.device import float32_compute
+    from deepprior_tpu_torch.ops import hopper_conv3d as hc
+    from deepprior_tpu_torch.utils.flops import roofline_ms
+
+    launches = hc.LAUNCHES
+    per_step = launches["conv3d_wgrad"]
+    if per_step != 14 * train_steps:
+        raise AssertionError(f"phase 50's {train_steps} train steps launched K10 {per_step} "
+                             f"times, not 14 a step")
+    # (layers of V2V at 44^3 of this shape, input channels, output channels, side)
+    shapes = [(1, 16, 32, 3), (9, 32, 32, 3), (1, 16, 32, 1), (2, 32, 32, 1), (1, 32, 14, 1)]
+    gen = torch.Generator(dev).manual_seed(52)
+    worst, timing = {}, []
+    for count, cin, cout, k in shapes:
+        x = torch.relu(torch.randn((batch, cin, side, side, side), generator=gen, device=dev))
+        dy = torch.randn((batch, cout, side, side, side), generator=gen, device=dev)
+        label = f"{cin}->{cout} {k}^3"
+        for dtype in (torch.float32, torch.bfloat16):
+            xc, dc = x.to(dtype), dy.to(dtype)
+            before = launches["conv3d_wgrad"]
+            got = hc.conv3d_weight_grad(xc, dc, k).double()
+            if launches["conv3d_wgrad"] != before + 1:
+                raise AssertionError(f"K10 {label}: {launches['conv3d_wgrad'] - before} "
+                                     f"launches counted for one call")
+            want = hc.conv3d_wgrad_plain(xc.double(), dc.double(), k)
+            scale = hc.conv3d_wgrad_plain(xc.double().abs(), dc.double().abs(), k)
+            tol = 1e-5 * scale
+            if dtype == torch.bfloat16:
+                tol = tol + want.abs() * 2.0 ** -8
+            err = (got - want).abs()
+            if not torch.all(err <= tol):
+                raise AssertionError(f"K10 {label} {dtype}: {int((err > tol).sum())} of "
+                                     f"{err.numel()} weights off the plain version, worst "
+                                     f"{float((err / scale.clamp_min(1e-30)).max()):.3g} of "
+                                     f"sum |x dy|")
+            worst[f"{label} {dtype}"] = float((err / scale.clamp_min(1e-30)).max())
+        args = hc.conv3d_wgrad_args(x, dy, k)
+        first = hc.launch_conv3d_wgrad(args).clone()
+        second = hc.launch_conv3d_wgrad(args).clone()
+        replayed = graph_outputs(lambda: (hc.launch_conv3d_wgrad(args),))[0]
+        torch.cuda.synchronize()
+        if not (torch.equal(first, second) and torch.equal(first, replayed)):
+            raise AssertionError(f"K10 {label}: two launches or a CUDA graph's replay differ")
+        kernel_ms = graph_ms(lambda: hc.launch_conv3d_wgrad(args), iters=20)
+        ops = 2.0 * x.numel() * cout * k ** 3
+        n_bytes = (x.numel() + dy.numel()) * 4 + cout * cin * k ** 3 * 4
+        bound_ms, by = roofline_ms(n_bytes, ops, device=dev)
+        with float32_compute():
+            library_ms = graph_ms(lambda: torch.nn.grad.conv3d_weight(
+                x, (cout, cin, k, k, k), dy, padding=(k - 1) // 2), iters=library_iters)
+            plain_ms = time_ms(lambda: hc.conv3d_wgrad_plain(x, dy, k), iters=3, warmup=1)
+        timing.append(dict(shape=label, layers=count, kernel_ms=kernel_ms, ops=ops,
+                           bytes=n_bytes, bound_ms=bound_ms, bound_by=by,
+                           library_ms=library_ms, plain_ms=plain_ms))
+        log(f"[52 timing] {tag} K10 B={batch} {side}^3 {label} (x{count} a step): "
+            f"{kernel_ms:.4f} ms alone (CUDA graph), {ops / kernel_ms / 1e9:.2f} TFLOP/s; "
+            f"{n_bytes} B, {ops:.4g} operations, bound {bound_ms:.4f} ms by {by}, share "
+            f"{bound_ms / kernel_ms:.4f}; cuDNN conv3d_weight {library_ms:.3f} ms (TF32 off); "
+            f"plain {plain_ms:.3f} ms")
+    checked = launches["conv3d_wgrad"] - per_step
+    step_ms = sum(t["layers"] * t["kernel_ms"] for t in timing)
+    step_library = sum(t["layers"] * t["library_ms"] for t in timing)
+    step_bound = sum(t["layers"] * t["bound_ms"] for t in timing)
+    log(f"[52 K10 vs plain] {len(worst)} cases within float32 round-off of the plain version "
+        f"(worst |K10 - plain| / sum |x dy| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"); two launches and a graph replay equal; {per_step} launches in phase 50's "
+          f"{train_steps} train steps; the 14 layers of a step {step_ms:.3f} ms alone "
+          f"(bound {step_bound:.3f} ms, share {step_bound / step_ms:.4f}; cuDNN "
+          f"{step_library:.3f} ms)")
+    main = timing[1]  # a 3^3 32 -> 32 layer, nine of the fourteen
+    return {"name": "conv3d_wgrad", "route": "cuda",
+            "source": "deepprior_tpu_torch/csrc/conv3d_wgrad.cu",
+            "replaces": "none: the JAX package has no V2V-PoseNet; cuDNN's dense weight "
+                        "gradients of the 14 convolutions at 44^3",
+            "launches": checked, "max_rel_err": max(worst.values()),
+            "kernel_only_ms": main["kernel_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "plain_ms": main["plain_ms"], "step_ms": step_ms, "step_bound_ms": step_bound,
+            "step_library_ms": step_library, "shapes": timing, "launches_per_call": 1,
             "phase_50_launches": per_step}
 
 

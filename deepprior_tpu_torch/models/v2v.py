@@ -10,7 +10,9 @@ resolution (ops/voxel.py::heatmap_targets, ``decode_heatmaps``).
 
 Blocks (every convolution with a bias; BatchNorm is ``layers.BatchNorm``,
 flax's semantics, on 5-D maps; the stem's Basic(7, 16) is ``Stem``, whose
-weight gradient gathers over the grid's set voxels):
+weight gradient gathers over the grid's set voxels; every convolution that
+ops/hopper_conv3d.py::takes, the fourteen at 44^3 with at most 32
+channels, runs its weight gradient through that module's kernel):
   Basic(k, c)  Conv3d k^3 'same' -> BN -> ReLU
   Res(a, b)    ReLU(BN(Conv3(ReLU(BN(Conv3(x))))) + skip(x)), skip = x when
                a == b, else BN(Conv1(x))
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepprior_tpu_torch.models.layers import BatchNorm
+from deepprior_tpu_torch.ops import hopper_conv3d
 from deepprior_tpu_torch.ops.hopper_stem import stem_conv3d
 from deepprior_tpu_torch.ops.voxel import decode_heatmaps, heatmap_loss, heatmap_targets, voxelize
 from deepprior_tpu_torch.utils.profiling import span
@@ -69,10 +72,14 @@ def _count(stats, key, value, device):
 
 
 def _conv(conv, x, dtype):
-    """``conv`` (a Conv3d or a ConvTranspose3d) in the compute ``dtype``."""
+    """``conv`` (a Conv3d or a ConvTranspose3d) in the compute ``dtype``; a
+    convolution that ``hopper_conv3d.takes`` through ``hopper_conv3d.conv3d``
+    (its weight gradient the kernel K10 on the card)."""
     w, b = conv.weight.to(dtype), conv.bias.to(dtype)
     if isinstance(conv, nn.ConvTranspose3d):
         return F.conv_transpose3d(x.to(dtype), w, b, conv.stride)
+    if hopper_conv3d.takes(conv):
+        return hopper_conv3d.conv3d(x.to(dtype), w, b)
     return F.conv3d(x.to(dtype), w, b, conv.stride, conv.padding)
 
 
