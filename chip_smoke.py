@@ -130,6 +130,14 @@ gradient of V2V's dense convolutions with few channels, in each of phase
 shapes of those 14 layers (float32 and bfloat16) within float32 round-off,
 two launches and a CUDA graph's replay bit for bit, and times each shape
 alone from CUDA graphs beside its bound and cuDNN's weight gradient.
+Phase 53 (run after phase 52) serves V2V-PoseNet: a network_prior.ckpt
+of it through load_serving_net("v2v"), the estimator's aot_compile replay
+at B = 8 and 480x640 bit-equal to the eager pipeline in joints, crops,
+grids and heatmaps, its voxel and row counters against the grids,
+MicroBatchServer over the graph answering 64 requests bit-equal to eager,
+the artifact export and ShardedEstimator refusing the family, and
+serve_http --model v2v --checkpoint as a subprocess; then the replay's
+time a batch and the capture's memory peak.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -718,6 +726,8 @@ def main(argv=None):
         v2v = v2v_phase(dev, tag, log)
         kernels.append(stem_phase(dev, tag, log, v2v["train_steps"]))
         kernels.append(wgrad_phase(dev, tag, log, v2v["train_steps"]))
+    with stage("53"):
+        v2v_serving_phase(dev, tag, log)
     with stage("21-26"):
         serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
@@ -2107,6 +2117,180 @@ def wgrad_phase(dev, tag, log, train_steps, batch=8, side=44, library_iters=3):
             "plain_ms": main["plain_ms"], "step_ms": step_ms, "step_bound_ms": step_bound,
             "step_library_ms": step_library, "shapes": timing, "launches_per_call": 1,
             "phase_50_launches": per_step}
+
+
+def v2v_serving_phase(dev, tag, log, batch=8, n_req=64, grid=88, frames=16, replays=20,
+                      out="eval/chip_smoke_v2v_serve"):
+    """Phase 53, run after phase 52: V2V-PoseNet on the serving path.  A
+    network_prior.ckpt of a V2V-PoseNet (He weights, BatchNorm statistics
+    from training-mode passes over the frames' grids), written in the
+    training main's format, through ``load_serving_net("v2v",
+    checkpoint=)``; its ``FusedEstimator``'s ``aot_compile`` at (``batch``,
+    480, 640) replayed against the eager pipeline bit for bit in every
+    output (joints, com3d, crops, grids, heatmaps), its counters against the
+    grids; ``MicroBatchServer`` over it answering ``n_req`` requests
+    (``frames`` distinct frames) equal to the eager call; the refusals of
+    the artifact export and ShardedEstimator; ``serve_http --model v2v
+    --checkpoint`` as a subprocess answering 4 concurrent posts with the
+    eager joints; then the replay's time (CUDA events over ``replays``
+    replays) and the memory peak.  ``grid`` (with the published margin of 4
+    voxels a side) is for a rehearsal on the CPU."""
+    import io
+    from concurrent.futures import wait
+
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.mains.common import load_serving_net
+    from deepprior_tpu_torch.models import V2VConfig, V2VPoseNet
+    from deepprior_tpu_torch.parallel.serve import ShardedEstimator
+    from deepprior_tpu_torch.realtime import export
+    from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.train.checkpoint import save_checkpoint
+
+    cam, hw = NYU_CAMERA, (480, 640)
+    rng = np.random.default_rng(53)
+    made = [make_depth_frame(cam, rng, num_joints=14) for _ in range(frames)]
+    depth_np = np.stack([d for d, _ in made]).astype(np.float32)
+    com_np = np.stack([c for _, c in made]).astype(np.float32)
+    cube = (300.0, 300.0, 300.0)
+    vcfg = dict(num_joints=14, grid=grid, cube_voxels=grid + 8, sigma=1.7)
+    net = V2VPoseNet(V2VConfig(**vcfg))
+    gen = torch.Generator().manual_seed(53)
+    with torch.no_grad():  # He-normal kernels, as the benchmark draws them
+        for p in net.parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, float(np.sqrt(2.0 / (p.numel() // p.shape[0]))), generator=gen)
+    net = net.to(dev)
+    # BatchNorm statistics at a trained network's scale: training-mode
+    # passes over the frames' grids (momentum 0.9, 20 passes)
+    est = FusedEstimator(net, cam, cube=cube, device=dev)
+    depth, com = torch.from_numpy(depth_np).to(dev), torch.from_numpy(com_np).to(dev)
+    grids = torch.cat([est(depth[s:s + batch], com[s:s + batch])[3]
+                       for s in range(0, frames, batch)])
+    net.train()
+    with torch.no_grad():
+        for k in range(20):
+            net(grids[(torch.arange(batch, device=dev) + k * batch) % frames][:, None])
+    os.makedirs(out, exist_ok=True)
+    ckpt = os.path.join(out, "network_prior.ckpt")
+    save_checkpoint(ckpt, {"params": {k: v.cpu() for k, v in net.state_dict().items()}},
+                    config=dict(model="v2v", **vcfg))
+    del est, net
+
+    served, prior = load_serving_net("v2v", checkpoint=ckpt, device=dev)
+    if prior is not None or not isinstance(served, V2VPoseNet) or served.cfg.grid != grid:
+        raise AssertionError(f"load_serving_net('v2v') gave {type(served).__name__}, {prior}")
+    est = FusedEstimator(served, cam, cube=cube, device=dev)
+    rows = np.arange(batch) % frames
+    eager = est(depth[rows], com[rows])
+    fn = est.aot_compile(batch, hw)
+    for k in est.stats:
+        est.stats[k].zero_()
+    replayed = fn(depth_np[rows], com_np[rows])
+    torch.cuda.synchronize()
+    names = ("joints", "com3d", "crops", "grids", "heatmaps")
+    unequal = [n for n, a, b in zip(names, replayed, eager) if not torch.equal(a, b)]
+    if len(replayed) != 5 or unequal:
+        raise AssertionError(f"phase 53: the replay differs from the eager pipeline in {unequal}")
+    counted = {k: int(v) for k, v in est.stats.items()}
+    want = {"rows": batch, "voxels_set": int(torch.count_nonzero(replayed[3])),
+            "voxels_seen": batch * grid ** 3}
+    if counted != want:
+        raise AssertionError(f"phase 53: counters {counted}, want {want}")
+    occupancy = 100.0 * want["voxels_set"] / want["voxels_seen"]
+
+    # the server over the same estimator: one graph at max_batch = batch
+    want_joints = {}
+    for s in range(0, frames, batch):
+        r = np.arange(s, s + batch) % frames
+        for i, j in zip(r, est(depth[r], com[r])[0].cpu().numpy()):
+            want_joints.setdefault(int(i), j)
+    server = MicroBatchServer(est, max_batch=batch, max_wait_ms=2.0)
+    try:
+        if not server.graph:
+            raise AssertionError("phase 53: the server does not replay a graph")
+        futs = [server.submit(depth_np[i % frames], com_np[i % frames]) for i in range(n_req)]
+        wait(futs, timeout=300)
+        got = [f.result() for f in futs]
+        stats = dict(server.stats)
+    finally:
+        server.close()
+    off = [i for i, g in enumerate(got) if not np.array_equal(g, want_joints[i % frames])]
+    if off or stats["frames"] != n_req:
+        raise AssertionError(f"phase 53: server answers {off} differ from eager; {stats}")
+
+    refused = []
+    for what, call in (("export", lambda: export.export_serving(
+            est, batch, hw, os.path.join(out, "v2v.dpx"))),
+                       ("--dp", lambda: ShardedEstimator(est, devices=[dev, dev]))):
+        try:
+            call()
+        except ValueError as e:
+            if "V2VPoseNet" not in str(e):
+                raise
+            refused.append(what)
+    if refused != ["export", "--dp"]:
+        raise AssertionError(f"phase 53: only {refused} refused V2V")
+
+    proc, port, seen = http_server(["deepprior_tpu_torch.mains.serve_http", "--model", "v2v",
+                                    "--checkpoint", ckpt, "--port", "0", "--device", str(dev),
+                                    "--max-batch", str(batch), "--max-wait-ms", "20"])
+    try:
+        def npz(i):  # the server's default cube is 250 mm: each post carries ours
+            buf = io.BytesIO()
+            np.savez(buf, depth=depth_np[i], com=com_np[i], cube=np.float32(cube))
+            return buf.getvalue()
+
+        results = {}
+        posts = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, http_call(port, "POST", "/predict", npz(i)))) for i in range(4)]
+        for th in posts:
+            th.start()
+        for th in posts:
+            th.join(timeout=300)
+        health = http_call(port, "GET", "/healthz")
+    finally:
+        stop(proc)
+    errs = []
+    for i in range(4):
+        status, body = results.get(i, (None, None))
+        if status != 200:
+            raise AssertionError(f"phase 53: POST {i}: {status} {body}")
+        errs.append(float(np.abs(np.asarray(body["joints"], np.float32)
+                              - want_joints[i]).max()))
+    if max(errs) > 1e-3 or health[1]["stats"]["frames"] < 4:
+        raise AssertionError(f"phase 53: serve_http joints off by {errs} mm, {health}")
+
+    # the replay's time at max_batch, and the memory peak of a fresh capture
+    del fn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap = est._capture(batch, hw)
+    with torch.inference_mode():
+        cap.depth.copy_(depth[rows])
+        cap.com.copy_(com[rows])
+    ms = []
+    for _ in range(3):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(replays):
+            cap.graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1) / replays)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[53 v2v serving] {tag} V2V-PoseNet {grid}^3 from network_prior.ckpt through "
+        f"load_serving_net: aot_compile at B={batch} 480x640 == eager in all 5 outputs bit "
+        f"for bit; counters {counted} (occupancy {occupancy:.4f}%); MicroBatchServer "
+        f"(graph) answered {n_req} requests == eager ({stats['batches']} batches); export "
+        f"and ShardedEstimator refuse V2VPoseNet; serve_http --model v2v: {seen[-1]}, 4 "
+        f"posts within {max(errs)} mm of eager; replay {min(ms):.3f} ms a batch of {batch} "
+        f"({min(ms) / batch:.3f} ms a frame; all {[f'{v:.3f}' for v in ms]}), memory peak "
+        f"of a capture {peak / 2**30:.3f} GiB")
+    return {"replay_ms": min(ms), "peak_bytes": int(peak), "occupancy_pct": occupancy}
 
 
 def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max_batch=64):

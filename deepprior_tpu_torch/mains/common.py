@@ -107,7 +107,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="regressor family: PoseRegNet, ResNet-47 (the "
                         "reference's best results and realtime demo), or "
                         "V2V-PoseNet (3D heatmaps from voxelized crops; "
-                        "training only, RMSProp)")
+                        "RMSProp; serve_http --model v2v serves its checkpoint)")
     p.add_argument("--resnet-type", type=int, default=2,
                    help="reference ResNet head type 0-4 (resnet.py:119-195); "
                         "2 = dropout head (default), 1 = plain head (pair "
@@ -445,14 +445,6 @@ def recipe_value(args, key: str, defaults=RECIPE_DEFAULTS):
     return defaults[key] if given is None else given
 
 
-def _refuse_one_device_family(family: str, where: str):
-    """Raise ValueError where a serving path is handed the v2v family, which
-    trains on one device only."""
-    if family == "v2v":
-        raise ValueError(f"{where} does not take v2v: V2V-PoseNet trains on one device "
-                         f"only; serving it is not supported")
-
-
 def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_joints,
                           eval_cls=None, n_pca: int = 30, baseline_spec=None,
                           accept_mm: float = 10.0, log=print, v2v=None):
@@ -472,7 +464,8 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     history) and writes
     <out>/<prefix>/network_prior.ckpt (the trained weights, a ResNet's
     BatchNorm statistics and the PCA prior, fingerprinted with the
-    TrainConfig and the family; ``load_serving_net`` reads it),
+    TrainConfig and the family, V2V-PoseNet's with its joints, grid,
+    cube_voxels and sigma; ``load_serving_net`` reads it),
     <out>/<prefix>/net_last.ckpt (the rolling snapshot),
     <out>/<prefix>/results.json with the JAX main's metrics (and with
     --accept its acceptance record; a miss then raises SystemExit after the
@@ -549,6 +542,9 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     family = {"model": args.model}
     if args.model == "resnet":
         family["resnet_type"] = args.resnet_type
+    elif voxel:  # what load_serving_net builds the network from
+        family.update(num_joints=num_joints, grid=model.cfg.grid,
+                      cube_voxels=model.cfg.cube_voxels, sigma=model.cfg.sigma)
     params = serving_state_dict(trainer, state)
     if is_writer():
         tree = {"params": params}
@@ -735,24 +731,23 @@ def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
       save), and then no prior is returned; a pickle that emits the bare
       embedding raises SystemExit;
     - else ``model_name``'s serving net, PoseRegNet type 0 or ResNet-47
-      type 0 with a 30-D output (hidden 1024, float32): with
-      ``checkpoint`` (a network_prior.ckpt of ``run_posereg_embedding``, or
-      one the JAX package's training main wrote) its trained weights,
-      BatchNorm statistics and PCA prior (a missing file raises
-      FileNotFoundError, a checkpoint of the other family ValueError: the
-      port's config names the family, a JAX checkpoint's flax tree shows
-      it); without, weights from ``torch.Generator`` seed 0 and a random
+      type 0 with a 30-D output (hidden 1024, float32), or V2V-PoseNet
+      ("v2v", float32, no prior): with ``checkpoint`` (a network_prior.ckpt
+      of ``run_posereg_embedding``, or one the JAX package's training main
+      wrote) its trained weights, BatchNorm statistics and PCA prior, a
+      V2V-PoseNet built from the checkpoint's joints, grid, cube_voxels
+      and sigma (a missing file raises FileNotFoundError, a checkpoint of
+      another family ValueError: the port's config names the family, a JAX
+      checkpoint's flax tree shows it); without, weights from
+      ``torch.Generator`` seed 0 and, for the crop regressors, a random
       (30, 42) PCA prior from numpy seed 0 (pipeline smoke mode).
 
-    The v2v family (V2V-PoseNet, by name or as a checkpoint's family) is
-    refused with ValueError: it trains on one device only.
-
     Returns (model on ``device``, prior or None)."""
-    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig
+    from deepprior_tpu_torch.models import (PoseRegNet, PoseRegNetConfig, ResNet, ResNetConfig,
+                                            V2VConfig, V2VPoseNet)
     from deepprior_tpu_torch.prior import PCAPrior
     from deepprior_tpu_torch.train.checkpoint import load_checkpoint, read_checkpoint
 
-    _refuse_one_device_family(model_name, "load_serving_net")
     device = torch.device(device) if device else default_device()
     if ref_pickle:
         from deepprior_tpu_torch.utils.refweights import model_from_reference_pickle
@@ -764,21 +759,31 @@ def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
                 "the network_prior.pkl form the reference main saved (decode "
                 "appended), or a --checkpoint that carries the prior")
         return model.to(device), None  # the appended decode layer decodes
-    gen = torch.Generator().manual_seed(0)
-    if model_name == "resnet":
-        model = ResNet(ResNetConfig(num_joints=1, n_dims=30), generator=gen)
-    elif model_name == "poseregnet":
-        model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30), generator=gen)
-    else:
+    if model_name not in ("poseregnet", "resnet", "v2v"):
         raise ValueError(f"unknown model {model_name!r}")
+    stored = None
     if checkpoint:
         stored = read_checkpoint(checkpoint)  # a JAX file is decoded once
         # checkpoints written before the family was recorded hold PoseRegNets
         family = stored[2] or "poseregnet"
-        _refuse_one_device_family(family, f"load_serving_net ({checkpoint})")
         if family != model_name:
             raise ValueError(f"{checkpoint} holds a {family}, not a {model_name}: pass "
                              f"--model {family}")
+    gen = torch.Generator().manual_seed(0)
+    if model_name == "v2v":
+        config = json.loads(stored[0]) if stored else {}
+        model = V2VPoseNet(V2VConfig(**{k: config[k] for k in V2VConfig._fields
+                                        if k in config and k != "dtype"}), generator=gen)
+        if stored:
+            tree, _ = load_checkpoint(checkpoint, {"params": model.state_dict()},
+                                      stored=stored)
+            model.load_state_dict(tree["params"])
+        return model.to(device), None
+    if model_name == "resnet":
+        model = ResNet(ResNetConfig(num_joints=1, n_dims=30), generator=gen)
+    else:
+        model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30), generator=gen)
+    if stored:
         tree = {
             "params": model.state_dict(),
             "pca_components": np.zeros((30, 42), np.float32),

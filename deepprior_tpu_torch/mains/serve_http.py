@@ -22,9 +22,12 @@ API:
 Run:  python -m deepprior_tpu_torch.mains.serve_http --port 8000 \\
           --max-batch 64 [--model resnet] \\
           [--checkpoint eval/train_EMB_PCA30/network_prior.ckpt | --ref-pickle net.pkl]
---model picks PoseRegNet (default) or ResNet-47; --checkpoint serves a
-network_prior.ckpt of the training main, --ref-pickle a reference-trained
-network_prior.pkl (its PCA decode appended), random weights otherwise.
+--model picks PoseRegNet (default), ResNet-47 or V2V-PoseNet (v2v: the
+occupancy grid of each crop in, 3D heatmaps decoded at their argmax out);
+--checkpoint serves a network_prior.ckpt of the training main, --ref-pickle
+a reference-trained network_prior.pkl (its PCA decode appended), random
+weights otherwise.  V2V-PoseNet serves through the estimator on one device:
+--dp and the artifacts refuse it.
 --device is the torch device, cuda by default; without a card the server
 raises unless given --device cpu.  --dp D serves each batch over D
 estimator replicas (parallel/serve.py::ShardedEstimator), one per card in
@@ -191,7 +194,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu only when asked for)")
-    p.add_argument("--model", default="poseregnet", choices=["poseregnet", "resnet"])
+    p.add_argument("--model", default="poseregnet", choices=["poseregnet", "resnet", "v2v"])
     p.add_argument("--checkpoint", default=None,
                    help="trained network_prior.ckpt (random weights if absent)")
     p.add_argument("--ref-pickle", default=None,

@@ -32,9 +32,14 @@ its family's choices to the trainer (train/trainer.py): ``inputs`` (the
 grid, under the span ``train.voxelize`` in a train step, its occupied and
 offered voxels counted), ``targets`` (the heatmaps, under
 ``train.targets``), ``loss`` (the paper's summed squared error), ``joints``
-(the argmax decode) and ``rows`` (evaluation's statistics).  The family
-trains on one device only (``one_device_only``): the serving paths and the
-sharded trainer refuse it.
+(the argmax decode), ``rows`` (evaluation's statistics) and
+``mirror_dim`` (a right hand's grid is mirrored along x); the serving
+estimator (realtime/fused.py) takes the same ``inputs``, counting into its
+own ``stats``, ``joints`` and ``extras`` (the grid and the heatmaps, returned
+beside the joints); a serving artifact does not freeze it (``freezes``).
+In eval mode BatchNorm normalizes by its
+running statistics.  The family runs on one device only
+(``one_device_only``): the sharded trainer and sharded serving refuse it.
 """
 
 from __future__ import annotations
@@ -144,8 +149,10 @@ def _pool(x):
 
 
 class V2VPoseNet(nn.Module):
-    # realtime/ (serving) and parallel/ (sharding) refuse the family
+    # parallel/ (sharded training and serving) refuses the family
     one_device_only = True
+    mirror_dim = 2  # the grid's x axis
+    freezes = False  # realtime/export.py freezes a crop regressor's pipeline only
 
     def __init__(self, cfg: V2VConfig = V2VConfig(),
                  generator: Optional[torch.Generator] = None):
@@ -202,7 +209,8 @@ class V2VPoseNet(nn.Module):
             h = block(h)
         return _conv(self.out, h, self.cfg.dtype).to(torch.float32)
 
-    # the family's choices, which train/trainer.py::Trainer takes from the model
+    # the family's choices (models/family.py), which the trainer and the
+    # serving estimator take from the model
     def _span(self, name, step, batch):
         """In a train step (``step`` given) the span ``name``."""
         if step is None:
@@ -212,9 +220,9 @@ class V2VPoseNet(nn.Module):
     def inputs(self, batch, camera, step=None, stats=None):
         """The occupancy grid (B, 1, G, G, G) of the batch's crops, from their
         CoMs (image coords), cubes and crop transforms (ops/voxel.py::
-        voxelize); in a train step under ``train.voxelize``, its occupied
+        voxelize); in a train step under ``train.voxelize``; its occupied
         and offered voxels added to ``stats['voxels_set']`` and
-        ``['voxels_seen']`` (no host sync)."""
+        ``['voxels_seen']`` where ``stats`` is given (no host sync)."""
         crops = batch["crops"]
         with self._span("train.voxelize", step, crops.shape[0]):
             vox = voxelize(crops, batch["com"], batch["cube"], batch["m"], camera,
@@ -238,6 +246,11 @@ class V2VPoseNet(nn.Module):
         """The joints (B, J, 3) in mm about the CoM at the argmax voxels."""
         cube = batch["cube"]
         return decode_heatmaps(out, torch.zeros_like(cube), cube, self.cfg.cube_voxels)
+
+    def extras(self, x, out):
+        """The serving estimator's grids (B, G, G, G), before the mirror, and
+        heatmaps."""
+        return x[:, 0], out
 
     def rows(self, out, y, batch):
         """(cost, normalized error, joint distances in mm) of each sample:

@@ -35,7 +35,7 @@ import torch
 from deepprior_tpu_torch.parallel.collectives import all_gather_rows
 from deepprior_tpu_torch.parallel.mesh import (
     axis_size, data_groups, data_rank, param_shardings, shard_model)
-from deepprior_tpu_torch.realtime.fused import FusedEstimator, fixed_inputs
+from deepprior_tpu_torch.realtime.fused import FusedEstimator, fixed_inputs, new_stats
 
 
 class ShardedEstimator:
@@ -54,6 +54,10 @@ class ShardedEstimator:
         if devices is not None and mesh is not None:
             raise ValueError("give devices (one process) or mesh (a process group), "
                              "not both")
+        if getattr(est.model, "one_device_only", False):
+            raise ValueError(f"ShardedEstimator does not take a {type(est.model).__name__}: "
+                             f"its family runs on one device only; sharded serving is not "
+                             f"supported")
         self.est = est
         self.camera = est.camera
         self.detect = est.detect
@@ -77,6 +81,7 @@ class ShardedEstimator:
                 rep = copy.copy(est)
                 rep.model, rep.device = models[dev], dev
                 rep.cube = est.cube.to(dev)
+                rep.stats = new_stats(dev)
                 rep.prior = None if est.prior is None else est.prior.to(dev)
                 self.replicas.append(rep)
             self.dp = len(self.replicas)

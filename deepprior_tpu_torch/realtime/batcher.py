@@ -7,7 +7,8 @@ submit single frames and get Futures; a collector thread groups up to
 arrival), pads the tail to ``max_batch`` by repeating the last request
 (the reference's tail-pad rule, netbase.py:287-307), runs the fused
 pipeline once, and resolves every caller's Future from one copy of the
-joints back to the host.
+joints back to the host.  A padded row costs what a real one does: little
+for a crop regressor, a whole forward pass for V2V-PoseNet.
 
 On a CUDA estimator whose mode captures (``FusedEstimator.captures``) the
 server replays one CUDA graph of the pipeline at the ``max_batch`` shape
@@ -32,7 +33,8 @@ spans record (utils/profiling.py) the collector thread records
 ``server.collect`` and, for each batch (its number the ``id``),
 ``server.batch`` (``frames``, ``padded``) around ``server.stage`` (the
 stack into the pinned or plain host buffers), ``server.launch`` (the copies
-to the device and the replay, or the eager call), ``server.fetch`` (the
+to the device and the replay, or the eager call; ``rows``, the batch the
+device computes, padding included), ``server.fetch`` (the
 joints' copy to the host, which waits for the device) and
 ``server.resolve``; and a ``server.request`` per request, from ``submit``
 to its Future resolving (``batch``).
@@ -313,7 +315,7 @@ class MicroBatchServer:
             self.stats["stage_s"] += staging.seconds
             self.stats["queue_wait_s"] += 1e-9 * sum(staging.start_ns - r.submitted_ns
                                                      for r in items)
-            with span("server.launch", id=batch):
+            with span("server.launch", id=batch, rows=self.max_batch):
                 joints = self._launch(inputs, staged)
             with span("server.fetch", id=batch):
                 # one copy to the host resolves the whole batch

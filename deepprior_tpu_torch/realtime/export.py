@@ -32,6 +32,7 @@ with a message.
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import os
@@ -74,11 +75,13 @@ def _read(path: str) -> Tuple[Dict[str, Any], bytes]:
 
 
 class _Frozen(torch.nn.Module):
-    """The estimator's fixed-config pipeline as a module: what is traced."""
+    """The estimator's fixed-config pipeline as a module: what is traced (the
+    live estimator's counters left out)."""
 
     def __init__(self, est):
         super().__init__()
-        self.est = est
+        self.est = copy.copy(est)
+        self.est.stats = None
         self.model = est.model  # its weights become the program's parameters
 
     def forward(self, depth, com):
@@ -90,6 +93,10 @@ def _device_name(device: torch.device) -> str:
 
 
 def _export(est, batch: int, hw: Tuple[int, int]) -> Tuple[bytes, Dict[str, Any]]:
+    if not est.family.freezes:
+        raise ValueError(f"a serving artifact freezes a crop regressor's pipeline; a "
+                         f"{type(est.model).__name__} is not supported: serve it from its "
+                         f"checkpoint through the estimator")
     dev = est.device
     depth = torch.zeros((batch, *hw), dtype=torch.float32, device=dev)
     com = torch.zeros((batch, 3), dtype=torch.float32, device=dev)

@@ -3,8 +3,15 @@
 Counterpart of deepprior_tpu/realtime/fused.py.  Per batch:
 
   clamp -> (optional CoM detection / iterative refinement) -> cube crop +
-  normalize -> PoseRegNet -> (optional PCA decode) -> mirror / flip ->
-  denormalize (pose * cube_z/2 + com3D)
+  normalize -> the family's inputs -> mirror -> the network -> the
+  family's joints about the CoM -> flips -> + com3D
+
+The model's family (models/family.py::family_of) decides the middle: a
+crop regressor (PoseRegNet, ResNet) takes the crop, mirrored along its
+width, and its output is decoded through the optional PCA prior and scaled
+by cube_z/2; V2V-PoseNet takes the occupancy grid of the crop
+(ops/voxel.py::voxelize, from the crop transform the crop returns),
+mirrored along x, and its heatmaps are decoded at their argmax voxels.
 
 On a CUDA device the crop and normalize are one launch of the hand-written
 kernel (ops/hopper_crop.py): K1 for the nearest resize, K2 for 'linear',
@@ -23,17 +30,25 @@ capture (``_capture``) with per-request cube and mirror.  Every mode
 captures: the detection (``ops/com.py::detect_closest``) and the refinement
 (``refine_com_iterative``) are fixed counts of tensor operations with no
 read back to the host, and 'nd_bilinear' is the plain gather.
+
+``stats`` holds the estimator's counters, 0-d int64 tensors on its device
+added to inside every call and every replay with no host sync: ``rows``
+(rows computed, padding included) and, for V2V-PoseNet, ``voxels_set``
+and ``voxels_seen`` (the grids' occupied and offered voxels).  An
+estimator whose ``stats`` is None counts nothing (a frozen program's
+trace, realtime/export.py).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from deepprior_tpu_torch.camera import Camera
 from deepprior_tpu_torch.device import float32_compute
+from deepprior_tpu_torch.models.family import family_of
 from deepprior_tpu_torch.ops.com import detect_closest, refine_com_iterative
 from deepprior_tpu_torch.ops.crop import RESIZE_METHODS, clamp_depth, normalized_crop
 from deepprior_tpu_torch.ops.hopper_crop import normalized_crop_op
@@ -47,7 +62,7 @@ class Captured(NamedTuple):
     """One CUDA graph of the pipeline over static device buffers: write the
     inputs into ``depth``, ``com``, ``cube`` and ``mirror`` (on the device,
     under ``torch.inference_mode``), replay ``graph``, and read ``outputs``
-    (joints, com3d, crops), which the next replay overwrites.  The graph
+    (``_pipeline_cfg``'s), which the next replay overwrites.  The graph
     reads the buffers' memory and ``owner``'s tensors (the weights), so
     whoever replays it holds this tuple: memory freed and reallocated would
     feed the next replay garbage."""
@@ -57,15 +72,17 @@ class Captured(NamedTuple):
     com: torch.Tensor     # (B, 3) image coords
     cube: Optional[torch.Tensor]    # (B, 3) mm, the constructor's cube until written
     mirror: Optional[torch.Tensor]  # (B,) bool, False until written
-    outputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    outputs: Tuple[torch.Tensor, ...]
     owner: object         # the estimator or program whose weights the graph reads
 
 
 class FusedEstimator:
     """Applies the frame -> pose pipeline to batches.
 
-    ``model`` is an ``nn.Module`` that holds its weights and maps
-    (B, 1, dh, dw) crops to (B, out) embeddings or poses.  ``device``
+    ``model`` is an ``nn.Module`` that holds its weights: a crop regressor
+    mapping (B, 1, dh, dw) crops to (B, out) embeddings or poses, or a
+    model that brings its family's choices (V2V-PoseNet: grids to heatmaps;
+    models/family.py).  Either runs in eval mode.  ``device``
     defaults to the model's; the model and prior move to it.  A float32
     model computes in float32 on the card too, whatever the process's TF32
     switches say (``float32_compute``: no TF32 convs), and so does a graph
@@ -87,10 +104,6 @@ class FusedEstimator:
     from the JAX estimator: it sends 'linear' to its XLA one-hot crop,
     while the kernel path here runs the cv2-linear kernel K2; both compute
     the same crop to float32 round-off.
-
-    A model of a family that trains on one device only (``one_device_only``:
-    V2V-PoseNet) is refused with ValueError: the estimator, and the
-    pipeline and server built on it, serve the crop regressors.
     """
 
     def __init__(
@@ -110,9 +123,6 @@ class FusedEstimator:
     ):
         if resize is not None and resize not in RESIZE_METHODS:
             raise ValueError(f"unknown resize method {resize!r}")
-        if getattr(model, "one_device_only", False):
-            raise ValueError(f"FusedEstimator does not take a {type(model).__name__}: its "
-                             f"family trains on one device only; serving it is not supported")
         if crop_method not in _CROP_METHODS:
             raise ValueError(f"unknown crop method {crop_method!r}")
         if device is None:
@@ -127,6 +137,7 @@ class FusedEstimator:
         self.camera = camera
         self.cube = torch.as_tensor(cube, dtype=torch.float32, device=self.device)
         self.prior = None if prior is None else prior.to(self.device)
+        self.stats = new_stats(self.device)
         self.num_joints = num_joints
         self.dsize = tuple(dsize)
         self.refine_iters = refine_iters
@@ -137,6 +148,12 @@ class FusedEstimator:
         elif crop_method == "pallas":
             crop_method = "hopper"
         self.crop_method = crop_method
+
+    @property
+    def family(self):
+        """The model's family (models/family.py), of the model and prior
+        this estimator holds now (a replica's copy swaps them)."""
+        return family_of(self.model, self.prior)
 
     # ------------------------------------------------------------------
     def _pipeline(self, depth, com):
@@ -155,7 +172,10 @@ class FusedEstimator:
         invx/invy flip the relative pose's index 1/0 respectively, the
         reference's swapped-index quirk (realtimehandpose:353-363).
 
-        Returns (joints3d_mm (B, J, 3), com3d (B, 3), crops (B, dh, dw))."""
+        Returns (joints3d_mm (B, J, 3), com3d (B, 3), crops (B, dh, dw))
+        and the family's ``extras`` (V2V-PoseNet: its grids (B, G, G, G)
+        before the mirror and its heatmaps (B, J, n, n, n)).  Adds to
+        ``stats``."""
         cam = self.camera
         kernel = self.crop_method == "hopper" and self.resize != "nd_bilinear"
         clamped = False
@@ -174,35 +194,38 @@ class FusedEstimator:
             # without detection the kernel applies the clamp to the pixels
             # it reads: no full-frame clean pass
             dw, dh = self.dsize
-            crops, _ = normalized_crop_op(
+            crops, m = normalized_crop_op(
                 depth, com, cube, float(cam.fx), float(cam.fy), dw, dh, False,
                 not clamped, self.resize == "linear",
             )
         else:
             # 'nd_bilinear' on the kernel route takes the plain gather
             method = "onehot" if self.crop_method == "onehot" else "gather"
-            crops, _ = normalized_crop(
+            crops, m = normalized_crop(
                 depth, com, cube, cam.fx, cam.fy, self.dsize,
                 method=method, resize=self.resize,
             )
-        net_in = torch.where(mirror[:, None, None], crops.flip(-1), crops)
+        batch = {"crops": crops, "com": com, "cube": cube, "m": m}
+        family = self.family
+        x = family.inputs(batch, cam, stats=self.stats)
+        if self.stats is not None:
+            self.stats["rows"].add_(x.shape[0])
+        flipped = mirror.reshape((-1,) + (1,) * (x.dim() - 1))
+        net_in = torch.where(flipped, x.flip(family.mirror_dim), x)
         with float32_compute():  # a float32 model: no TF32 convs on the card
-            out = self.model(net_in[:, None])
-        if self.prior is not None:
-            out = self.prior.inverse_transform(out)
-        pose = out.reshape(out.shape[0], -1, 3)
+            out = self.model(net_in)
+        rel = family.joints(out, batch)  # mm about the CoM
         # relative-pose sign flips, in the reference's order and indices
-        flip = torch.ones((pose.shape[0], 3), dtype=torch.float32, device=pose.device)
+        flip = torch.ones((rel.shape[0], 3), dtype=torch.float32, device=rel.device)
         if invx:  # reference invX flips index 1 (realtimehandpose:355-358)
             flip[:, 1] = -1.0
         if invy:  # reference invY flips index 0 (:360-363)
             flip[:, 0] = -1.0
         # un-mirror the x of mirrored (right-hand) poses (:366-369)
         flip[:, 0] = flip[:, 0] * torch.where(mirror, -1.0, 1.0)
-        pose = pose * flip[:, None, :]
         com3d = cam.img_to_3d(com)
-        joints = pose * (cube[:, 2] / 2.0)[:, None, None] + com3d[:, None, :]
-        return joints, com3d, crops
+        joints = rel * flip[:, None, :] + com3d[:, None, :]
+        return (joints, com3d, crops) + tuple(family.extras(x, out))
 
     @torch.inference_mode()
     def __call__(self, depth, com=None, cube=None, mirror=None,
@@ -275,6 +298,12 @@ class FusedEstimator:
                 return self._pipeline(depth, com)
 
         return fn
+
+
+def new_stats(device) -> Dict[str, torch.Tensor]:
+    """The estimator's counters, zero, on ``device``."""
+    return {k: torch.zeros((), dtype=torch.int64, device=device)
+            for k in ("rows", "voxels_set", "voxels_seen")}
 
 
 def capture_graph(fn, device):

@@ -174,14 +174,14 @@ class RealtimeHandposePipeline:
         calibration and +/- resizing reach the crop and the
         denormalization (:330-336)."""
         with timed("pipeline.pose", id=self._frame) as took:
-            joints, _, _ = self.estimator(
+            joints = self.estimator(
                 frame[None],
                 np.asarray(com, np.float32)[None],
                 cube=np.asarray(self.config["cube"], np.float32),
                 mirror=np.asarray([self.hand == HAND_RIGHT]),
                 invx=bool(self.config.get("invX", False)),
                 invy=bool(self.config.get("invY", False)),
-            )
+            )[0]
             joints = joints[0].cpu().numpy()
         self.times["pose"] = took.seconds
         return joints

@@ -16,8 +16,9 @@ Loss semantics match poseregnettrainer.py:92-101:
 plus optional L2 weight decay iff the model has no dropout
 (poseregnettrainer.py:106-107).
 
-The model family's choices come from ``family``: the model itself where
-it brings them (models/v2v.py::V2VPoseNet: an occupancy grid in, 3D
+The model family's choices come from ``family`` (models/family.py::
+family_of, the seam the serving estimator takes too): the model itself
+where it brings them (models/v2v.py::V2VPoseNet: an occupancy grid in, 3D
 heatmaps out), else ``CropRegression`` (PoseRegNet, ResNet, ScaleNet: the
 crops in as one-channel maps, the PCA embedding or the normalized joints
 out).  A family's ``inputs`` may count into ``stats`` (V2V-PoseNet's
@@ -72,6 +73,7 @@ from torch import nn
 
 from deepprior_tpu_torch.camera import Camera
 from deepprior_tpu_torch.device import float32_compute
+from deepprior_tpu_torch.models.family import family_of
 from deepprior_tpu_torch.ops.augment import augment_batch
 from deepprior_tpu_torch.prior import PCAPrior
 from deepprior_tpu_torch.train.checkpoint import (
@@ -178,55 +180,6 @@ class TrainState:
     step: int = 0
 
 
-def _loss_from_targets(out, y):
-    if y.dim() == 2:
-        per_sample = torch.sum(torch.square(out - y), dim=1)
-    else:
-        out3 = out.reshape(y.shape)
-        per_sample = torch.mean(torch.sum(torch.square(out3 - y), dim=2), dim=1)
-    return torch.mean(per_sample)
-
-
-class CropRegression:
-    """The crop regressors' family (PoseRegNet, ResNet, ScaleNet): the crops
-    in as one-channel maps; out, the PCA embedding of the cube-normalized
-    joints when a prior is attached (poseregnettrainer.py:252-259), else the
-    joints; ``_loss_from_targets``."""
-
-    def __init__(self, prior: Optional[PCAPrior]):
-        self.prior = prior
-
-    def inputs(self, batch, camera, step=None, stats=None):
-        return batch["crops"][:, None]
-
-    def targets(self, labels_norm, step=None):
-        if self.prior is not None:
-            return self.prior.transform(labels_norm.reshape(labels_norm.shape[0], -1))
-        return labels_norm
-
-    def loss(self, out, y):
-        return _loss_from_targets(out, y)
-
-    def joints(self, out, batch):
-        """The joints (B, J, 3) in mm about the CoM."""
-        d3 = self.prior.inverse_transform(out) if self.prior is not None else out
-        return d3.reshape(out.shape[0], -1, 3) * (batch["cube"][:, 2] / 2.0)[:, None, None]
-
-    def rows(self, out, y, batch):
-        """(cost, normalized error, joint distances in mm) of each sample
-        (poseregnettrainer.py:122-126)."""
-        if y.dim() == 2:
-            cost_ps = torch.sum(torch.square(out - y), dim=1)
-            err_ps = torch.sqrt(cost_ps)
-        else:
-            sq = torch.sum(torch.square(out.reshape(y.shape) - y), dim=2)
-            cost_ps = torch.mean(sq, dim=1)
-            err_ps = torch.mean(torch.sqrt(sq), dim=1)
-        dist = torch.sqrt(torch.sum(
-            torch.square(self.joints(out, batch) - batch["gt3d_crop"]), dim=2))
-        return cost_ps, err_ps, dist
-
-
 def _l2_penalty(model: nn.Module):
     """Sum of squares of the conv (2D, 3D, transposed 3D) and dense weights,
     never biases, activation slopes or BatchNorm parameters
@@ -272,7 +225,7 @@ class Trainer:
         self.history: Dict[str, list] = {"train_cost": [], "val_error_mm": []}
         # the family's inputs, targets, loss and decode: the model's own, if
         # it brings them
-        self.family = model if hasattr(model, "targets") else CropRegression(self.prior)
+        self.family = family_of(model, self.prior)
         self.stats: Dict[str, torch.Tensor] = {}
         # the rolling snapshot's format: one file (train/checkpoint.py) or,
         # True, a sharded directory (train/checkpoint_sharded.py)

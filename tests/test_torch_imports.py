@@ -61,7 +61,7 @@ def test_port_imports_no_jax():
                 "parallel.train_dist", "parallel.serve", "train.checkpoint_sharded",
                 "mains.dryrun", "prof.sweeps", "eval.plots", "utils.helpers", "utils.text",
                 "utils.pointcloud", "ops._build", "parallel.spatial",
-                "train.jax_checkpoint", "prof.prof_graph_gc", "device"):
+                "train.jax_checkpoint", "prof.prof_graph_gc", "device", "models.family"):
         assert f"deepprior_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -85,8 +85,10 @@ def _imports(path):
 
 def test_layers_import_downward():
     """No module outside mains/ imports the entry points; no module of the
-    ops, serving or data layers imports the trainer; device.py, the rules
-    they share, imports nothing of the package."""
+    ops, serving, data or model layers imports the trainer; the models
+    import no serving module; device.py, the rules they share, imports
+    nothing of the package.  The estimator and the trainer reach a model
+    through one seam below both, models/family.py."""
     pkg = os.path.join(ROOT, "deepprior_tpu_torch")
     seen = {}
     for dirpath, _, files in os.walk(pkg):
@@ -103,13 +105,17 @@ def test_layers_import_downward():
     for rel, names in seen.items():
         if layer[rel] != "mains":
             assert not under(names, "deepprior_tpu_torch.mains"), rel
-        if layer[rel] in ("ops", "realtime", "data"):
+        if layer[rel] in ("ops", "realtime", "data", "models"):
             assert not under(names, "deepprior_tpu_torch.train.trainer"), rel
+        if layer[rel] == "models":
+            assert not under(names, "deepprior_tpu_torch.realtime"), rel
     assert not under(seen["device.py"], "deepprior_tpu_torch")
     # the walk sees the imports the rules are about
     assert under(seen[os.path.join("mains", "serve_http.py")], "deepprior_tpu_torch.mains")
     assert "deepprior_tpu_torch.device.float32_compute" in seen[
         os.path.join("realtime", "fused.py")]
+    for rel in (os.path.join("realtime", "fused.py"), os.path.join("train", "trainer.py")):
+        assert "deepprior_tpu_torch.models.family.family_of" in seen[rel], rel
 
 
 def test_cuda_request_raises_without_a_card():

@@ -4,8 +4,11 @@ the network at the published channel widths on a 24^3 grid (levels 12^3,
 6^3 and 3^3, the lowest odd like the published 11^3), with seeded random
 weights, in float32; the grid, the targets and the decode bit for bit at
 the published 88^3 / 44^3; one Trainer step against the reference's step;
-``--model v2v`` through the NYU main; the checkpoint; the refusals of the
-serving and distributed entry points."""
+``--model v2v`` through the NYU main; the checkpoint; the serving path
+(``FusedEstimator`` eager and under ``MicroBatchServer``, ``load_serving_net``,
+``serve_http``) against the benchmark's plain serving reference
+``bench_torch/reference/serve_v2v.py``; the refusals of the sharded and
+frozen entry points."""
 
 import importlib.util
 import os
@@ -187,7 +190,8 @@ def test_predict_joints_decodes_each_family_about_the_com(family):
     the same float32 operations but for the CoM's sum: 1e-3 mm."""
     from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
     from deepprior_tpu_torch.prior import PCAPrior
-    from deepprior_tpu_torch.train.trainer import CropRegression, TrainData
+    from deepprior_tpu_torch.models.family import CropRegression
+    from deepprior_tpu_torch.train.trainer import TrainData
 
     crops, com, cube, m, _ = batch(b=5, seed=8)
     data = TrainData(crops, torch.zeros((5, 14, 3)), com, cube, m)
@@ -373,23 +377,220 @@ def test_checkpoint_round_trip(trained):
         assert torch.equal(fresh.state_dict()[k], v.cpu()), k
 
 
-@pytest.mark.parametrize("entry", ["load_serving_net", "checkpoint", "estimator",
-                                   "distributed"])
+@pytest.mark.parametrize("entry", ["distributed"])
 def test_serving_and_distributed_entry_points_refuse_v2v(trained, entry):
-    out = trained[0]
     net = V2VPoseNet(V2VConfig(**SMALL))
     with pytest.raises(ValueError, match="one device only"):
-        if entry == "load_serving_net":
-            common.load_serving_net("v2v", device="cpu")
-        elif entry == "checkpoint":
-            common.load_serving_net("poseregnet", device="cpu", checkpoint=os.path.join(
-                str(out), "train_V2V", "network_prior.ckpt"))
-        elif entry == "estimator":
-            from deepprior_tpu_torch.realtime.fused import FusedEstimator
+        from deepprior_tpu_torch.parallel import DistributedTrainer
 
-            FusedEstimator(net, NYU_CAMERA, device="cpu")
+        DistributedTrainer(net, TrainConfig(batch_size=8, optimizer="rmsprop"),
+                           NYU_CAMERA, mesh=None, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the serving path
+# ---------------------------------------------------------------------------
+CUBE = (300.0, 300.0, 300.0)
+SERVE_CFG = {  # the benchmark's configuration at the small grid
+    "model": dict(SMALL), "input_hw": 128, "cube_mm": list(CUBE),
+    "camera": {"fx": NYU_CAMERA.fx, "fy": NYU_CAMERA.fy, "ux": NYU_CAMERA.ux,
+               "uy": NYU_CAMERA.uy, "flip_y": NYU_CAMERA.flip_y, "width": 640, "height": 480}}
+
+
+def frames(n=3, seed=11):
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+
+    rng = np.random.default_rng(seed)
+    made = [make_depth_frame(NYU_CAMERA, rng) for _ in range(n)]
+    return (torch.from_numpy(np.stack([d for d, _ in made])),
+            torch.from_numpy(np.stack([c for _, c in made])))
+
+
+@pytest.fixture(scope="module")
+def served():
+    """A random V2V-PoseNet (random BatchNorm statistics too) in eval mode
+    behind a CPU FusedEstimator with the 300 mm cube, and three rendered
+    NYU frames."""
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    net = random_net(seed=12)
+    gen = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0.0, 0.5, generator=gen)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 2.0, generator=gen)
+    est = FusedEstimator(net, NYU_CAMERA, cube=CUBE, device="cpu")
+    return est, net, *frames()
+
+
+@pytest.mark.parametrize("mirrored", [False, True], ids=["plain", "mirror"])
+def test_estimator_matches_the_serving_reference(served, mirrored):
+    """The eager estimator against the plain reference on the same weights:
+    the grids bit for bit (the same float32 operations), the heatmaps within
+    1e-5 of their largest magnitude (BatchNorm's two forms, as above), the
+    joints bit for bit (the same argmax voxels; none is close here).  A
+    mirrored row's heatmaps are the network's on the grid flipped along x,
+    and its relative x is negated."""
+    from bench_torch.reference import serve_v2v
+
+    est, net, depth, com = served
+    mirror = torch.tensor([True, False, True]) if mirrored else None
+    joints, com3d, crops, grid, heat = est(depth, com, mirror=mirror)
+    weights = {k: v.detach() for k, v in net.state_dict().items()}
+    cube = torch.tensor(CUBE).expand(3, 3)
+    ref_grid, ref_heat, ref_joints = serve_v2v.pipeline(SERVE_CFG, weights, depth, com, cube,
+                                                         mirror=mirror)
+    assert grid.shape == (3, 24, 24, 24) and heat.shape == (3, 14, 12, 12, 12)
+    assert torch.equal(grid, ref_grid) and 0.001 < float(grid.mean()) < 0.2
+    scale = float(ref_heat.abs().max())
+    assert float((heat - ref_heat).abs().max()) <= 1e-5 * scale
+    assert torch.equal(joints, ref_joints)
+    if mirrored:
+        with torch.no_grad():
+            flipped = net(grid[0:1, None].flip(2))
+        assert float((heat[0:1] - flipped).abs().max()) <= 1e-6 * scale
+        rel = voxel.decode_heatmaps(flipped, torch.zeros((1, 3)), cube[:1], 32)
+        assert torch.equal(joints[0, :, 0], com3d[0, 0] - rel[0, :, 0])
+        assert torch.equal(joints[0, :, 1:], com3d[0, 1:] + rel[0, :, 1:])
+
+
+def test_server_answers_equal_the_eager_estimator(served):
+    """MicroBatchServer (graph=False, max_batch 4) over the estimator, five
+    requests in padded batches, two of them mirrored and one with its own
+    cube: each answer equals the eager estimator's on a batch of that
+    request alone, repeated to the server's batch."""
+    from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
+
+    est, _, depth, com = served
+    reqs = [(0, False, None), (1, True, None), (2, False, (280.0,) * 3), (0, True, None),
+            (2, False, None)]
+    with MicroBatchServer(est, max_batch=4, max_wait_ms=50.0, graph=False) as server:
+        futs = [server.submit(depth[i].numpy(), com[i].numpy(), cube=c, mirror=m)
+                for i, m, c in reqs]
+        got = [f.result(timeout=300) for f in futs]
+        batches = server.stats["batches"]
+    assert batches >= 2  # at least one batch was padded
+    for (i, m, c), answer in zip(reqs, got):
+        want = est(depth[[i] * 4], com[[i] * 4], cube=c, mirror=[m] * 4)[0][0]
+        assert np.array_equal(answer, want.numpy()), (i, m, c)
+
+
+def test_estimator_counts_rows_and_voxels(served):
+    """``stats`` after two calls: the rows computed and the grids' occupied
+    and offered voxels, 0-d int64 tensors on the estimator's device."""
+    est, _, depth, com = served
+    for v in est.stats.values():
+        v.zero_()
+    grids = [est(depth, com)[3], est(depth[:2], com[:2])[3]]
+    st = est.stats
+    assert all(v.dtype == torch.int64 and v.dim() == 0 for v in st.values())
+    assert int(st["rows"]) == 5
+    assert int(st["voxels_set"]) == sum(int(torch.count_nonzero(g)) for g in grids) > 0
+    assert int(st["voxels_seen"]) == 5 * 24 ** 3
+
+
+@pytest.mark.parametrize("family", ["posereg", "v2v"])
+def test_family_declares_the_estimators_outputs_and_whether_it_freezes(served, family):
+    """The estimator returns (joints, com3d, crops) and the family's
+    ``extras``: nothing for a crop regressor, which an artifact may freeze;
+    V2V-PoseNet's grids and heatmaps, which it may not."""
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.models.family import CropRegression
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    est, net, depth, com = served
+    if family == "posereg":
+        net = PoseRegNet(PoseRegNetConfig(num_joints=14, n_dims=42),
+                         generator=torch.Generator().manual_seed(16)).eval()
+        est = FusedEstimator(net, NYU_CAMERA, cube=CUBE, device="cpu")
+    out = est(depth[:1], com[:1])
+    fam = est.family
+    assert isinstance(fam, CropRegression) == (family == "posereg")
+    assert fam.freezes == (family == "posereg")
+    assert len(out) == (3 if family == "posereg" else 5)
+    assert [t.shape[1:] for t in out[1:3]] == [(3,), (128, 128)] and out[0].shape[2] == 3
+
+
+@pytest.mark.parametrize("case", ["plain", "mirror_invx_invy"])
+def test_crop_regressors_joints_through_the_family_equal_the_old_formula(case):
+    """PoseRegNet with a PCA prior through ``CropRegression``: the joints
+    bit-equal to the estimator's formula before the family seam (the pose
+    flipped by +-1, then scaled by cube_z / 2, plus the CoM)."""
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.ops.crop import clamp_depth, normalized_crop
+    from deepprior_tpu_torch.prior import PCAPrior
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    g = torch.Generator().manual_seed(14)
+    net = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30), generator=g).eval()
+    prior = PCAPrior(torch.randn((30, 42), generator=g) * 0.1, torch.randn(42, generator=g) * 0.1)
+    est = FusedEstimator(net, NYU_CAMERA, cube=CUBE, prior=prior, device="cpu")
+    depth, com = frames(seed=15)
+    flips = dict(mirror=[True, False, True], invx=True, invy=True) if case != "plain" else {}
+    joints, com3d, crops = est(depth, com, **flips)
+    mirror = torch.tensor(flips.get("mirror", [False] * 3))
+    cube = torch.tensor(CUBE).expand(3, 3)
+    want_crops, _ = normalized_crop(clamp_depth(depth)[0], com, cube, NYU_CAMERA.fx,
+                                    NYU_CAMERA.fy, (128, 128), method="gather")
+    net_in = torch.where(mirror[:, None, None], want_crops.flip(-1), want_crops)
+    with torch.no_grad():
+        pose = prior.inverse_transform(net(net_in[:, None])).reshape(3, -1, 3)
+    flip = torch.ones((3, 3))
+    if flips:
+        flip[:, 1] = -1.0
+        flip[:, 0] = -1.0
+    flip[:, 0] = flip[:, 0] * torch.where(mirror, -1.0, 1.0)
+    want = (pose * flip[:, None, :]) * (cube[:, 2] / 2.0)[:, None, None] + com3d[:, None, :]
+    assert torch.equal(crops, want_crops)
+    assert torch.equal(joints, want)
+
+
+@pytest.mark.parametrize("case", ["checkpoint", "other_family"])
+def test_load_serving_net_builds_v2v_from_its_checkpoint(trained, case):
+    """``load_serving_net("v2v", checkpoint=)`` builds the checkpoint's
+    V2V-PoseNet (its grid and joints) with its weights and no prior, which
+    ``serve_http --model v2v`` serves; the checkpoint under another family's
+    name raises ValueError naming it."""
+    from deepprior_tpu_torch.mains import serve_http
+
+    out, state = trained[:2]
+    path = os.path.join(str(out), "train_V2V", "network_prior.ckpt")
+    if case == "other_family":
+        with pytest.raises(ValueError, match="holds a v2v"):
+            common.load_serving_net("poseregnet", device="cpu", checkpoint=path)
+        return
+    model, prior = common.load_serving_net("v2v", device="cpu", checkpoint=path)
+    assert prior is None and isinstance(model, V2VPoseNet)
+    assert (model.cfg.grid, model.cfg.cube_voxels, model.cfg.num_joints) == (24, 32, 14)
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v.cpu()), k
+    args = serve_http.build_parser().parse_args(
+        ["--model", "v2v", "--checkpoint", path, "--device", "cpu", "--max-batch", "2"])
+    server = serve_http.build_server(args)
+    try:
+        depth, com = frames(n=1, seed=16)
+        answer = server.submit(depth[0].numpy(), com[0].numpy()).result(timeout=300)
+    finally:
+        server.close()
+    assert answer.shape == (14, 3)
+    want = server.est(depth[[0, 0]], com[[0, 0]])[0][0]
+    assert np.array_equal(answer, want.numpy())
+
+
+@pytest.mark.parametrize("entry", ["export", "dp"])
+def test_frozen_and_sharded_serving_refuse_v2v(tmp_path, entry):
+    """The artifact export and ``serve_http --dp`` (ShardedEstimator) raise
+    ValueError naming V2VPoseNet."""
+    from deepprior_tpu_torch.mains import serve_http
+    from deepprior_tpu_torch.realtime import export
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+
+    with pytest.raises(ValueError, match="V2VPoseNet"):
+        if entry == "export":
+            est = FusedEstimator(V2VPoseNet(V2VConfig(**SMALL)), NYU_CAMERA, device="cpu")
+            export.export_serving(est, 2, (480, 640), str(tmp_path / "v2v.dpx"))
         else:
-            from deepprior_tpu_torch.parallel import DistributedTrainer
-
-            DistributedTrainer(net, TrainConfig(batch_size=8, optimizer="rmsprop"),
-                               NYU_CAMERA, mesh=None, device="cpu")
+            serve_http.build_server(serve_http.build_parser().parse_args(
+                ["--model", "v2v", "--device", "cpu", "--dp", "2", "--max-batch", "4"]))
