@@ -134,10 +134,19 @@ Phase 53 (run after phase 52) serves V2V-PoseNet: a network_prior.ckpt
 of it through load_serving_net("v2v"), the estimator's aot_compile replay
 at B = 8 and 480x640 bit-equal to the eager pipeline in joints, crops,
 grids and heatmaps, its voxel and row counters against the grids,
-MicroBatchServer over the graph answering 64 requests bit-equal to eager,
-the artifact export and ShardedEstimator refusing the family, and
-serve_http --model v2v --checkpoint as a subprocess; then the replay's
-time a batch and the capture's memory peak.
+MicroBatchServer over the graph answering 64 requests bit-equal to eager
+calls at the rows each batch was computed at, the artifact export and
+ShardedEstimator refusing the family, and serve_http --model v2v
+--checkpoint as a subprocess; then the replay's time a batch and the
+capture's memory peak.
+Phase 54 (run after phase 53) holds MicroBatchServer's graphs, one for
+each row count up to max_batch over one set of static buffers and outputs
+in one memory pool, to the eager pipeline at that row count bit for bit,
+for a float32 PoseRegNet at max_batch 64 and phase 53's V2V-PoseNet at 8
+and at 64; serves batches of sizes up to max_batch bit-equal to eager
+calls at the rows computed, with each server.launch span's rows equal to
+its batch's frames; and logs the seconds and memory of the captures and
+each checked row count's replay time.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -601,24 +610,19 @@ def main(argv=None):
             th.join(timeout=300)
             if th.is_alive():
                 raise AssertionError("a submitting thread hung")
-        return np.stack([f.result(timeout=300) for f in futs])
+        for f in futs:
+            f.result(timeout=300)
+        return futs
 
     with MicroBatchServer(est, max_batch=max_batch, max_wait_ms=2) as srv:
-        got = serve(srv, n_req)
+        seen = record_batches(srv)
+        futs = serve(srv, n_req)
+        got = np.stack([f.result(timeout=300) for f in futs])
         stats, occ = dict(srv.stats), srv.occupancy()
     if stats["frames"] != n_req or stats["errors"]:
         raise AssertionError(f"server stats {stats}")
-    want = []
-    for s in range(0, n_req, max_batch):  # direct calls at the server's shape
-        reqs = [request(i) for i in range(s, s + max_batch)]
-        j, _, _ = est(
-            np.stack([r[0] for r in reqs]), np.stack([r[1] for r in reqs]),
-            cube=np.stack([r[2] if r[2] is not None else np.full(3, 250.0, np.float32)
-                           for r in reqs]),
-            mirror=np.array([r[3] for r in reqs]),
-        )
-        want.append(j.cpu().numpy())
-    serr = float(np.abs(got - np.concatenate(want)).max())
+    # direct calls on each batch's requests at the rows the server computed
+    serr = float(np.abs(got - eager_batches(est, seen, futs, request)).max())
     if serr > 1e-3:
         raise AssertionError(f"server results differ from direct calls by {serr} mm")
     log(f"[5 server] {n_req} requests from {n_threads} threads: stats {stats}, "
@@ -726,8 +730,10 @@ def main(argv=None):
         v2v = v2v_phase(dev, tag, log)
         kernels.append(stem_phase(dev, tag, log, v2v["train_steps"]))
         kernels.append(wgrad_phase(dev, tag, log, v2v["train_steps"]))
-    with stage("53"):
-        v2v_serving_phase(dev, tag, log)
+    with stage("53-54"):
+        v2v_serving = v2v_serving_phase(dev, tag, log)
+        row_graphs_phase(dev, tag, log, v2v_serving)
+        del v2v_serving
     with stage("21-26"):
         serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
@@ -834,6 +840,47 @@ def graph_outputs(fn):
     out = [t.clone() for t in out]  # out of the graph's memory pool
     torch.cuda.synchronize()
     return out
+
+
+def record_batches(srv):
+    """The batches ``srv`` (a MicroBatchServer) resolves from now on, in a
+    list: each batch's Futures and the rows its joints came back with, the
+    rows the device computed (padding included).  Wraps ``srv._resolve`` on
+    the instance."""
+    seen, resolve = [], srv._resolve
+
+    def logged(items, joints):
+        seen.append(([r.future for r in items], len(joints)))
+        resolve(items, joints)
+
+    srv._resolve = logged
+    return seen
+
+
+def eager_batches(est, seen, futs, request):
+    """What each of ``futs`` must resolve to: the eager pipeline on its
+    batch's requests (``request(i)`` -> (depth, com[, cube or None,
+    mirror]) for ``futs[i]``), tail-padded to the rows the server computed
+    the batch at (``record_batches``); the joints (len(futs), J, 3) on the
+    host, in the order of ``futs``."""
+    index = {id(f): i for i, f in enumerate(futs)}
+    want = [None] * len(futs)
+    default = est.cube.cpu().numpy()
+    for batch, rows in seen:
+        ids = [index[id(f)] for f in batch if id(f) in index]
+        if not ids:  # a warm-up batch
+            continue
+        reqs = [tuple(request(i)) + (None, False) for i in ids]
+        reqs += [reqs[-1]] * (rows - len(reqs))
+        joints = est(np.stack([r[0] for r in reqs]), np.stack([r[1] for r in reqs]),
+                     cube=np.stack([default if r[2] is None else r[2] for r in reqs]),
+                     mirror=np.array([r[3] for r in reqs]))[0].cpu().numpy()
+        for k, i in enumerate(ids):
+            want[i] = joints[k]
+    missing = [i for i, w in enumerate(want) if w is None]
+    if missing:
+        raise AssertionError(f"no batch resolved requests {missing[:8]}")
+    return np.stack(want)
 
 
 def graph_ms(fn, iters):
@@ -2129,12 +2176,14 @@ def v2v_serving_phase(dev, tag, log, batch=8, n_req=64, grid=88, frames=16, repl
     480, 640) replayed against the eager pipeline bit for bit in every
     output (joints, com3d, crops, grids, heatmaps), its counters against the
     grids; ``MicroBatchServer`` over it answering ``n_req`` requests
-    (``frames`` distinct frames) equal to the eager call; the refusals of
+    (``frames`` distinct frames) equal to the eager call at the rows each
+    batch was computed at; the refusals of
     the artifact export and ShardedEstimator; ``serve_http --model v2v
     --checkpoint`` as a subprocess answering 4 concurrent posts with the
     eager joints; then the replay's time (CUDA events over ``replays``
     replays) and the memory peak.  ``grid`` (with the published margin of 4
-    voxels a side) is for a rehearsal on the CPU."""
+    voxels a side) is for a rehearsal on the CPU.  Returns the estimator and
+    its frames too, for phase 54."""
     import io
     from concurrent.futures import wait
 
@@ -2202,25 +2251,34 @@ def v2v_serving_phase(dev, tag, log, batch=8, n_req=64, grid=88, frames=16, repl
         raise AssertionError(f"phase 53: counters {counted}, want {want}")
     occupancy = 100.0 * want["voxels_set"] / want["voxels_seen"]
 
-    # the server over the same estimator: one graph at max_batch = batch
+    # the server over the same estimator: a graph for each row count, each
+    # batch's answers equal to the eager call at the rows it was computed at
     want_joints = {}
     for s in range(0, frames, batch):
         r = np.arange(s, s + batch) % frames
         for i, j in zip(r, est(depth[r], com[r])[0].cpu().numpy()):
             want_joints.setdefault(int(i), j)
+
+    def request(i):
+        return depth_np[i % frames], com_np[i % frames]
+
     server = MicroBatchServer(est, max_batch=batch, max_wait_ms=2.0)
     try:
         if not server.graph:
             raise AssertionError("phase 53: the server does not replay a graph")
-        futs = [server.submit(depth_np[i % frames], com_np[i % frames]) for i in range(n_req)]
+        resolved = record_batches(server)
+        futs = [server.submit(*request(i)) for i in range(n_req)]
         wait(futs, timeout=300)
-        got = [f.result() for f in futs]
+        got = np.stack([f.result() for f in futs])
         stats = dict(server.stats)
     finally:
         server.close()
-    off = [i for i, g in enumerate(got) if not np.array_equal(g, want_joints[i % frames])]
-    if off or stats["frames"] != n_req:
-        raise AssertionError(f"phase 53: server answers {off} differ from eager; {stats}")
+    want = eager_batches(est, resolved, futs, request)
+    off = [i for i in range(n_req) if not np.array_equal(got[i], want[i])]
+    sizes = Counter(rows for _, rows in resolved)
+    if off or stats["frames"] != n_req or stats["rows"] != n_req:
+        raise AssertionError(f"phase 53: server answers {off} differ from eager at the rows "
+                             f"computed; {stats}")
 
     refused = []
     for what, call in (("export", lambda: export.export_serving(
@@ -2285,12 +2343,170 @@ def v2v_serving_phase(dev, tag, log, batch=8, n_req=64, grid=88, frames=16, repl
     log(f"[53 v2v serving] {tag} V2V-PoseNet {grid}^3 from network_prior.ckpt through "
         f"load_serving_net: aot_compile at B={batch} 480x640 == eager in all 5 outputs bit "
         f"for bit; counters {counted} (occupancy {occupancy:.4f}%); MicroBatchServer "
-        f"(graph) answered {n_req} requests == eager ({stats['batches']} batches); export "
+        f"(graph) answered {n_req} requests == eager at the rows each batch was computed at "
+        f"({stats['batches']} batches, rows {dict(sorted(sizes.items()))}); export "
         f"and ShardedEstimator refuse V2VPoseNet; serve_http --model v2v: {seen[-1]}, 4 "
         f"posts within {max(errs)} mm of eager; replay {min(ms):.3f} ms a batch of {batch} "
         f"({min(ms) / batch:.3f} ms a frame; all {[f'{v:.3f}' for v in ms]}), memory peak "
         f"of a capture {peak / 2**30:.3f} GiB")
-    return {"replay_ms": min(ms), "peak_bytes": int(peak), "occupancy_pct": occupancy}
+    return {"replay_ms": min(ms), "peak_bytes": int(peak), "occupancy_pct": occupancy,
+            "est": est, "depth": depth_np, "com": com_np}
+
+
+def _counts(ns):
+    """Row counts for a log line: a range as 'a-b', else the list."""
+    ns = list(ns)
+    return f"{ns[0]}-{ns[-1]}" if ns == list(range(ns[0], ns[-1] + 1)) else str(ns)
+
+
+def row_graphs_phase(dev, tag, log, v2v, max_batch=64, v2v_batch=8, replays=20,
+                     pose_frames=16, hidden=1024, wide_replays=3):
+    """Phase 54, after phase 53: ``MicroBatchServer``'s graphs, one for each
+    row count from 1 to max_batch over one set of static buffers and
+    outputs in one memory pool, for a float32 PoseRegNet (``hidden``, a
+    drawn PCA prior) at ``max_batch`` and phase 53's V2V-PoseNet (``v2v``,
+    its return) at ``v2v_batch`` and at ``max_batch`` (``serve_http``'s
+    default).  For each: the seconds the server's construction spends
+    capturing them all, the memory that construction reserves and what the
+    graphs still hold once the allocator's cache is emptied; each row
+    count's replay (every count, but a spread of them for V2V-PoseNet at
+    ``max_batch``) equal to the eager pipeline at that row
+    count in every output, bit for bit (the static rows past it NaN);
+    batches of sizes up to max_batch answered equal to the eager call at the
+    rows each was computed at, each ``server.launch`` span's ``rows`` its
+    ``server.batch``'s ``frames``, ``stats['rows']`` the frames served; and
+    the device ms of each checked row count's replay (CUDA events over
+    ``replays`` replays, ``wide_replays`` for V2V-PoseNet at max_batch),
+    T(n)."""
+    import gc
+
+    import torch
+
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_depth_frame
+    from deepprior_tpu_torch.models import PoseRegNet, PoseRegNetConfig
+    from deepprior_tpu_torch.prior import PCAPrior
+    from deepprior_tpu_torch.realtime.batcher import MicroBatchServer
+    from deepprior_tpu_torch.realtime.fused import FusedEstimator
+    from deepprior_tpu_torch.utils import profiling
+
+    cam = NYU_CAMERA
+    rng = np.random.default_rng(54)
+    made = [make_depth_frame(cam, rng) for _ in range(pose_frames)]
+    net = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=30, hidden=hidden),
+                     generator=torch.Generator().manual_seed(54))
+    prior = PCAPrior(rng.standard_normal((30, 42)).astype(np.float32) * 0.05,
+                     np.zeros(42, np.float32))
+    pose_est = FusedEstimator(net, cam, cube=(300.0,) * 3, prior=prior, device=dev)
+    half = max_batch // 2
+    spread = sorted({1, 2, 3, max_batch // 8, max_batch // 4, half - 1, half, half + 1,
+                     max_batch - 2, max_batch - 1, max_batch})
+    cases = [("PoseRegNet f32", pose_est, np.stack([d for d, _ in made]),
+              np.stack([c for _, c in made]), max_batch, range(1, max_batch + 1), replays),
+             ("V2V-PoseNet", v2v["est"], v2v["depth"], v2v["com"], v2v_batch,
+              range(1, v2v_batch + 1), replays),
+             ("V2V-PoseNet", v2v["est"], v2v["depth"], v2v["com"], max_batch, spread,
+              wide_replays)]
+    for label, est, depth_np, com_np, mb, checked, reps in cases:
+        shape, k = depth_np.shape[1:], len(depth_np)
+
+        def request(i):
+            return depth_np[i % k], com_np[i % k]
+
+        torch.cuda.synchronize()
+        gc.collect()  # earlier phases' graphs in reference cycles give their pools back
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        server = MicroBatchServer(est, max_batch=mb, max_wait_ms=20.0)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        graphs_bytes = torch.cuda.memory_reserved(dev) - before
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()  # the warm-up calls' cache: what stays is the graphs'
+        held_bytes = torch.cuda.memory_reserved(dev) - before
+        try:
+            staged = server._stage(shape)
+            counts = [g.depth.shape[0] for g in staged.graphs]
+            if not server.graph or counts != list(range(1, mb + 1)) \
+                    or staged[0] is not staged.graphs[-1]:
+                raise AssertionError(f"phase 54: {label} server staged graphs at {counts}")
+            # every row count's replay against the eager pipeline at that count
+            rows_all = np.arange(mb) % k
+            d_all = torch.from_numpy(depth_np[rows_all]).to(dev)
+            c_all = torch.from_numpy(com_np[rows_all]).to(dev)
+            t_n = {}
+            for n in checked:
+                cap = staged.graphs[n - 1]
+                with torch.inference_mode():
+                    staged.full.depth.fill_(float("nan"))
+                    staged.full.com.fill_(float("nan"))
+                    cap.depth.copy_(d_all[:n])
+                    cap.com.copy_(c_all[:n])
+                    cap.cube.copy_(est.cube.expand(n, 3))
+                    cap.mirror.zero_()
+                    cap.graph.replay()
+                    got = [t.clone() for t in cap.outputs]
+                    want = est._pipeline(d_all[:n], c_all[:n])
+                torch.cuda.synchronize()
+                unequal = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+                if unequal or len(got) != len(want):
+                    raise AssertionError(f"phase 54: {label} the {n}-row replay differs from "
+                                         f"the eager pipeline in outputs {unequal}")
+                outputs = len(got)
+                ms = []
+                for _ in range(2):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    for _ in range(reps):
+                        cap.graph.replay()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    ms.append(e0.elapsed_time(e1) / reps)
+                t_n[n] = min(ms)
+            # batches of sizes up to max_batch, one thread submitting each
+            # group and waiting for its answers
+            sizes = [n for n in range(1, mb + 1) if mb <= 8 or n < 4 or n % 7 == 0 or n == mb]
+            futs = []
+            seen = record_batches(server)
+            frames0, rows0 = server.stats["frames"], server.stats["rows"]
+            profiling.clear()
+            with profiling.recording():
+                for n in sizes:
+                    group = [server.submit(*request(len(futs) + i)) for i in range(n)]
+                    for f in group:
+                        f.result(timeout=300)
+                    futs += group
+            spans = profiling.spans()
+            profiling.clear()
+            got = np.stack([f.result() for f in futs])
+            frames = server.stats["frames"] - frames0
+            rows = server.stats["rows"] - rows0
+        finally:
+            server.close()
+        want = eager_batches(est, seen, futs, request)
+        off = [i for i in range(len(futs)) if not np.array_equal(got[i], want[i])]
+        batches = {s.id: s.attrs for s in spans if s.name == "server.batch"}
+        launches = {s.id: s.attrs["rows"] for s in spans if s.name == "server.launch"}
+        bad = {b: (a, launches.get(b)) for b, a in batches.items()
+               if a["padded"] or launches.get(b) != a["frames"]}
+        if off or bad or not batches or not rows == frames == len(futs):
+            raise AssertionError(f"phase 54: {label} answers {off[:8]} differ from eager at "
+                                 f"the rows computed; spans {bad}; rows {rows}, frames {frames}")
+        computed = Counter(r for _, r in seen)
+        log(f"[54 row graphs] {tag} {label} at max_batch {mb} 480x640: {mb} graphs captured "
+            f"in {capture_s:.3f} s at the server's construction, {graphs_bytes / 2**30:.3f} GiB "
+            f"reserved, allocation peak {peak / 2**30:.3f} GiB, {held_bytes / 2**30:.3f} GiB "
+            f"held by the graphs with the cache emptied; the replay at row counts "
+            f"{_counts(checked)} == eager at that count in all {outputs} outputs bit for bit; {len(futs)} "
+            f"requests in {len(batches)} batches (rows {dict(sorted(computed.items()))}) == "
+            f"eager at the rows computed, launch rows == frames, stats rows {rows} == frames")
+        log(f"[54 row graphs] {tag} {label} at max_batch {mb} T(n), device ms a replay "
+            f"(best of 2 x {reps}): "
+            + ", ".join(f"{n}: {t:.4f}" for n, t in t_n.items()))
+        del server, staged
 
 
 def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max_batch=64):
@@ -2967,6 +3183,7 @@ def resnet_phases(dev, tag, log, kernels, figures, batch=512, max_batch=64, trai
         if not srv.graph:
             raise AssertionError("the ResNet server does not replay a graph")
         srv.submit(*request(0)).result(timeout=300)  # warm: captures
+        seen = record_batches(srv)
         t0 = time.perf_counter()
         futs = [srv.submit(*request(i)) for i in range(n_req)]
         burst = np.stack([f.result(timeout=300) for f in futs])
@@ -2991,12 +3208,8 @@ def resnet_phases(dev, tag, log, kernels, figures, batch=512, max_batch=64, trai
         stats = dict(srv.stats)
     if stats["errors"] or not np.isfinite(burst).all():
         raise AssertionError(f"ResNet server stats {stats}")
-    want = []
-    with torch.inference_mode():  # eager calls on the requests, max_batch at a time
-        for s0 in range(0, n_req, max_batch):
-            idx = np.arange(s0, s0 + max_batch) % n_unique
-            want.append(est16._pipeline(depth_u[idx], com_u[idx])[0].cpu().numpy())
-    srv_gap = float(np.abs(burst - np.concatenate(want)[:n_req]).max())
+    # eager calls on the burst's batches at the rows the server computed
+    srv_gap = float(np.abs(burst - eager_batches(est16, seen, futs, request)).max())
     if srv_gap > 1e-3:
         raise AssertionError(f"ResNet server joints off the eager call's by {srv_gap} mm")
     art_s = {}
@@ -3027,10 +3240,10 @@ def resnet_phases(dev, tag, log, kernels, figures, batch=512, max_batch=64, trai
         del art
     log(f"[28 resnet deployment] {tag} ResNet-47 bf16: aot_compile replays at B=1 and "
         f"B={batch} == the eager _pipeline bit for bit on two input batches (K1 not "
-        f"launched in replays); MicroBatchServer (graph + pinned, {max_batch}-frame "
-        f"batches, max_wait 2 ms): a burst of {n_req} requests from one thread "
+        f"launched in replays); MicroBatchServer (graph + pinned, max_batch {max_batch}, "
+        f"max_wait 2 ms): a burst of {n_req} requests from one thread "
         f"{burst_rps:.1f} requests/s (joints within {srv_gap} mm of eager calls on "
-        f"the same {max_batch}-request batches), {clients} closed-loop clients x {per_client} requests: p50 "
+        f"the same batches at the rows computed), {clients} closed-loop clients x {per_client} requests: p50 "
         f"{np.percentile(lat, 50):.3f} ms "
         f"p99 {np.percentile(lat, 99):.3f} ms, {loop_rps:.1f} requests/s; artifacts at "
         f"batch {max_batch} against _pipeline: "

@@ -4,19 +4,23 @@ estimator.
 Counterpart of deepprior_tpu/realtime/batcher.py.  Concurrent callers
 submit single frames and get Futures; a collector thread groups up to
 ``max_batch`` requests (waiting at most ``max_wait_ms`` after the first
-arrival), pads the tail to ``max_batch`` by repeating the last request
-(the reference's tail-pad rule, netbase.py:287-307), runs the fused
-pipeline once, and resolves every caller's Future from one copy of the
-joints back to the host.  A padded row costs what a real one does: little
-for a crop regressor, a whole forward pass for V2V-PoseNet.
+arrival), runs the fused pipeline once on them, and resolves every
+caller's Future from one copy of the joints back to the host.
 
 On a CUDA estimator whose mode captures (``FusedEstimator.captures``) the
-server replays one CUDA graph of the pipeline at the ``max_batch`` shape
-(``FusedEstimator._capture``): it stacks each batch into one pinned host
-buffer, copies it asynchronously into the graph's static buffers, writes
-the per-request cube and mirror, and replays.  ``graph=False`` runs the
-pipeline eagerly instead.  An estimator that holds a frozen program is
-called as it is (on a card its loader replays a graph of its own).
+server replays CUDA graphs of the pipeline (``FusedEstimator._capture``),
+one for each row count from 1 to ``max_batch``, all over leading slices of
+one set of static device buffers and outputs, in one memory pool: it
+stacks a batch of n requests into the first n rows of one pinned host
+buffer, copies those rows asynchronously into the static buffers, writes
+the n requests' cube and mirror, and replays the n-row graph, so the
+device computes exactly the batch's rows.
+``graph=False`` runs the pipeline eagerly instead, on the batch tail-padded
+to ``max_batch`` by repeating the last request (the reference's tail-pad
+rule, netbase.py:287-307).  An estimator that holds a frozen program is
+called as it is, tail-padded the same way (on a card its loader replays a
+graph of its own).  A padded row costs what a real one does: little for a
+crop regressor, a whole forward pass for V2V-PoseNet.
 
 A ``parallel.serve.ShardedEstimator`` is called as it is, with every
 batch padded to ``max_batch``, which must be a multiple of its
@@ -26,18 +30,19 @@ per replica where its replicas capture.
 A lone request pays up to ``max_wait_ms`` extra latency; under load the
 batch fills before the deadline.
 
-``stats`` counts frames, batches and errors, and sums two times in
-seconds: ``queue_wait_s``, each request's wait from ``submit`` to the start
-of its batch's staging, and ``stage_s``, the batches' staging.  While
-spans record (utils/profiling.py) the collector thread records
-``server.collect`` and, for each batch (its number the ``id``),
-``server.batch`` (``frames``, ``padded``) around ``server.stage`` (the
-stack into the pinned or plain host buffers), ``server.launch`` (the copies
-to the device and the replay, or the eager call; ``rows``, the batch the
-device computes, padding included), ``server.fetch`` (the
-joints' copy to the host, which waits for the device) and
-``server.resolve``; and a ``server.request`` per request, from ``submit``
-to its Future resolving (``batch``).
+``stats`` counts frames, batches, errors and ``rows``, the rows the device
+computed over all batches, padding included (1 - frames / rows is the
+padding's share: 0 on the graph path), and sums two times in seconds:
+``queue_wait_s``, each request's wait from ``submit`` to the start of its
+batch's staging, and ``stage_s``, the batches' staging.  While spans record
+(utils/profiling.py) the collector thread records ``server.collect`` and,
+for each batch (its number the ``id``), ``server.batch`` (``frames``,
+``padded``) around ``server.stage`` (the stack into the pinned or plain
+host buffers), ``server.launch`` (the copies to the device and the replay,
+or the eager call; ``rows``, the rows the device computes, padding
+included), ``server.fetch`` (the joints' copy to the host, which waits for
+the device) and ``server.resolve``; and a ``server.request`` per request,
+from ``submit`` to its Future resolving (``batch``).
 """
 
 from __future__ import annotations
@@ -48,13 +53,13 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from deepprior_tpu_torch.realtime.fused import FusedEstimator
-from deepprior_tpu_torch.utils.profiling import enabled, record, span, timed
+from deepprior_tpu_torch.realtime.fused import Captured, FusedEstimator
+from deepprior_tpu_torch.utils.profiling import collector_held, enabled, record, span, timed
 
 
 @dataclass
@@ -69,12 +74,27 @@ class _Request:
     number: int = 0  # the server's request number
 
 
+class _Staging(NamedTuple):
+    """One frame shape's staging: pinned host buffers for a (max_batch, H,
+    W) batch and its CoMs, and on the graph path the CUDA graphs by row
+    count, ``graphs[n - 1]`` computing n rows over the leading n rows of
+    ``full``'s static buffers and outputs, in ``full``'s memory pool
+    (``FusedEstimator._capture``): together they hold about the memory of
+    one graph at max_batch rows."""
+
+    full: Optional[Captured]  # the graph at max_batch rows (graphs[-1]), or None
+    depth: torch.Tensor
+    com: torch.Tensor
+    graphs: Tuple[Captured, ...]
+
+
 class MicroBatchServer:
     """Groups concurrent single-frame requests into one device batch.
 
     ``submit`` is thread-safe and returns a ``concurrent.futures.Future``
     resolving to the (J, 3) joints in mm.  All requests of a batch run as
-    one pipeline call at the fixed ``max_batch`` shape; per-request
+    one pipeline call: a replay at the batch's own row count, or an eager
+    or fixed-program call at ``max_batch`` rows; per-request
     ``cube``/``mirror`` ride the pipeline's per-sample config.
     """
 
@@ -99,10 +119,10 @@ class MicroBatchServer:
         shape fails its own caller with a ValueError instead of locking
         the server to it.
 
-        ``graph``: replay a CUDA graph of the pipeline where the estimator
-        ``captures`` (True), or run it eagerly (False).  The graph is
-        captured here when the frame shape is known, else at the first
-        batch."""
+        ``graph``: replay CUDA graphs of the pipeline where the estimator
+        ``captures`` (True), or run it eagerly (False).  The graphs, one
+        for each row count, are captured here when the frame shape is
+        known, else at the first batch."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_batch % getattr(est, "dp", 1):
@@ -134,7 +154,7 @@ class MicroBatchServer:
             tuple(frame_shape) if frame_shape is not None else None
         )
         self._tentative_shape: Optional[tuple] = None
-        # the graph and its pinned staging, one per frame shape
+        # the pinned staging and the graphs, one _Staging per frame shape
         self._staged: dict = {}
         if self.graph and self._frame_shape is not None:
             self._stage(self._frame_shape)
@@ -146,7 +166,7 @@ class MicroBatchServer:
         self._batches = itertools.count()
         self._batch = None  # the number of the batch the worker runs
         # realized occupancy = frames / (batches * max_batch)
-        self.stats = {"frames": 0, "batches": 0, "errors": 0,
+        self.stats = {"frames": 0, "batches": 0, "errors": 0, "rows": 0,
                       "queue_wait_s": 0.0, "stage_s": 0.0}
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -282,40 +302,40 @@ class MicroBatchServer:
                             RuntimeError("server closed")
                         )
 
-    def _stage(self, shape):
-        """The CUDA graph at (max_batch, *shape) and its pinned host buffers
-        for the stacked frames and CoMs, made on first use."""
+    def _stage(self, shape) -> _Staging:
+        """The pinned host buffers for a (max_batch, *shape) batch and its
+        CoMs and, on the graph path, the graphs at 1 to max_batch rows (one
+        collection of Python's garbage for them all), made on first use."""
         if shape not in self._staged:
             b = self.max_batch
-            self._staged[shape] = (
-                self.est._capture(b, shape),
+            graphs = ()
+            if self.graph:
+                with collector_held():
+                    full = self.est._capture(b, shape)
+                    # largest first: each capture's working memory fits in
+                    # the pool's blocks that the one before it freed
+                    graphs = tuple(reversed([self.est._capture(n, shape, over=full)
+                                             for n in range(b - 1, 0, -1)])) + (full,)
+            self._staged[shape] = _Staging(
+                graphs[-1] if graphs else None,
                 torch.empty((b, *shape), dtype=torch.float32).pin_memory(),
-                torch.empty((b, 3), dtype=torch.float32).pin_memory(),
-            )
-        return self._staged[shape]
-
-    def _pinned(self, shape):
-        """Pinned host buffers for a (max_batch, *shape) batch and its CoMs,
-        made on first use."""
-        if shape not in self._staged:
-            b = self.max_batch
-            self._staged[shape] = (torch.empty((b, *shape), dtype=torch.float32).pin_memory(),
-                                   torch.empty((b, 3), dtype=torch.float32).pin_memory())
+                torch.empty((b, 3), dtype=torch.float32).pin_memory(), graphs)
         return self._staged[shape]
 
     def _run_batch(self, items):
         n = len(items)
-        pad = self.max_batch - n
+        rows = n if self.graph else self.max_batch
         batch = self._batch = next(self._batches)
-        with span("server.batch", id=batch, frames=n, padded=pad), \
+        with span("server.batch", id=batch, frames=n, padded=rows - n), \
                 torch.inference_mode(self.graph):
-            staged = self._stage(items[0].depth.shape) if self.graph else None
+            staged = (self._stage(items[0].depth.shape)
+                      if self.graph or self._pin_fixed else None)
             with timed("server.stage", id=batch) as staging:
-                inputs = self._stack(items, pad, staged)
+                inputs = self._stack(items, rows, staged)
             self.stats["stage_s"] += staging.seconds
             self.stats["queue_wait_s"] += 1e-9 * sum(staging.start_ns - r.submitted_ns
                                                      for r in items)
-            with span("server.launch", id=batch, rows=self.max_batch):
+            with span("server.launch", id=batch, rows=rows):
                 joints = self._launch(inputs, staged)
             with span("server.fetch", id=batch):
                 # one copy to the host resolves the whole batch
@@ -323,25 +343,26 @@ class MicroBatchServer:
             with span("server.resolve", id=batch):
                 self._resolve(items, joints)
 
-    def _stack(self, items, pad, staged):
-        """The batch on the host: its frames and CoMs stacked (into the
-        pinned buffers where the batch goes to the device from them), tail-
-        padded by repeating the last request (netbase.py:290-296; padded rows
-        are computed and discarded), and per-request cube and mirror, or
-        None when every request takes the estimator's."""
+    def _stack(self, items, rows, staged):
+        """The batch on the host as ``rows`` rows: its frames and CoMs
+        stacked (into the leading rows of the pinned buffers where the
+        batch goes to the device from them), tail-padded by repeating the
+        last request up to ``rows`` (netbase.py:290-296; padded rows are
+        computed and discarded), and per-request cube and mirror, or None
+        when every request takes the estimator's."""
+        pad = rows - len(items)
         depths = [r.depth for r in items] + [items[-1].depth] * pad
         coms = [r.com for r in items] + [items[-1].com] * pad
-        if self._fixed and not self._pin_fixed:
-            return np.stack(depths), np.stack(coms), None, None
-        if self._fixed or self.graph:
+        if staged is None:
+            if self._fixed:
+                return np.stack(depths), np.stack(coms), None, None
+            depth_in, com_in = torch.from_numpy(np.stack(depths)), torch.from_numpy(np.stack(coms))
+        else:
             # the previous batch's copies from the pinned buffers have
             # landed: its joints' copy to the host waited for them
-            depth_in, com_in = (staged[1:] if self.graph
-                                else self._pinned(items[0].depth.shape))
+            depth_in, com_in = staged.depth[:rows], staged.com[:rows]
             np.stack(depths, out=depth_in.numpy())
             np.stack(coms, out=com_in.numpy())
-        else:
-            depth_in, com_in = torch.from_numpy(np.stack(depths)), torch.from_numpy(np.stack(coms))
         if self._fixed or not any(r.cube is not None or r.mirror for r in items):
             return depth_in, com_in, None, None
         default_cube = self.est.cube.cpu().numpy()
@@ -354,19 +375,21 @@ class MicroBatchServer:
 
     def _launch(self, inputs, staged):
         """The pipeline on a stacked batch: the copies to the device and the
-        graph's replay, or the eager call; returns the joints, on the device."""
+        replay of the graph at the batch's row count, or the eager call;
+        returns the joints, on the device."""
         depth_in, com_in, cube, mirror = inputs
         if self._fixed:
             return self.est(depth_in, com_in)[0]
         if self.graph:
-            cap = staged[0]
+            n = depth_in.shape[0]
+            cap = staged.graphs[n - 1]
             cap.depth.copy_(depth_in, non_blocking=True)
             cap.com.copy_(com_in, non_blocking=True)
             if cube is not None:
                 cap.cube.copy_(cube)
                 cap.mirror.copy_(mirror)
             else:
-                cap.cube.copy_(self.est.cube.expand(self.max_batch, 3))
+                cap.cube.copy_(self.est.cube.expand(n, 3))
                 cap.mirror.zero_()
             cap.graph.replay()
             return cap.outputs[0]
@@ -377,8 +400,11 @@ class MicroBatchServer:
         return self.est(depth_in.to(dev), com_in.to(dev))[0]
 
     def _resolve(self, items, joints_np):
+        """Resolve each request's Future from its row of the batch's joints
+        (``len(joints_np)`` rows computed, padding included)."""
         self.stats["frames"] += len(items)
         self.stats["batches"] += 1
+        self.stats["rows"] += len(joints_np)
         traced = enabled()
         for i, r in enumerate(items):
             r.future.set_result(joints_np[i])

@@ -26,7 +26,8 @@ counterpart of the JAX estimator's ahead-of-time compile, captures it into
 one CUDA graph over static device buffers and returns a callable that
 copies its inputs in and replays the graph: the host dispatches one
 replay instead of each operation.  ``MicroBatchServer`` replays the same
-capture (``_capture``) with per-request cube and mirror.  Every mode
+capture (``_capture``), one for each row count over one set of static
+buffers, with per-request cube and mirror.  Every mode
 captures: the detection (``ops/com.py::detect_closest``) and the refinement
 (``refine_com_iterative``) are fixed counts of tensor operations with no
 read back to the host, and 'nd_bilinear' is the plain gather.
@@ -258,22 +259,43 @@ class FusedEstimator:
         graph of this estimator: on a CUDA device, in every mode."""
         return self.device.type == "cuda"
 
-    def _capture(self, batch: int, hw) -> Captured:
+    def _capture(self, batch: int, hw, over: Optional[Captured] = None) -> Captured:
         """Capture ``_pipeline_cfg`` at (batch, *hw) into one CUDA graph
         (``capture_graph``).  The static buffers are allocated on the
         device under ``torch.inference_mode`` (write them under it too);
-        the cube starts as the constructor's and mirror as False."""
-        if self.device.type != "cuda":
+        the cube starts as the constructor's and mirror as False.
+
+        With ``over``, a capture at ``batch`` rows or more, the graph reads
+        the leading ``batch`` rows of ``over``'s static buffers, writes its
+        outputs into the leading rows of ``over``'s and takes its working
+        memory from ``over``'s pool, so graphs over one capture hold about
+        that capture's memory whatever their number.  They share it: a
+        replay of any of them overwrites the others' outputs and working
+        memory, so replay them one at a time, on one stream, and read each
+        replay's outputs before the next."""
+        if not self.captures:
             raise ValueError(f"a CUDA graph needs a CUDA estimator, not {self.device}")
         dev = self.device
         with torch.inference_mode():
-            f32 = dict(dtype=torch.float32, device=dev)
-            depth = torch.zeros((batch, *hw), **f32)
-            com = torch.zeros((batch, 3), **f32)
-            cube = self.cube.expand(batch, 3).clone()
-            mirror = torch.zeros(batch, dtype=torch.bool, device=dev)
-            graph, outputs = capture_graph(
-                lambda: self._pipeline_cfg(depth, com, cube, mirror), dev)
+            if over is None:
+                f32 = dict(dtype=torch.float32, device=dev)
+                depth = torch.zeros((batch, *hw), **f32)
+                com = torch.zeros((batch, 3), **f32)
+                cube = self.cube.expand(batch, 3).clone()
+                mirror = torch.zeros(batch, dtype=torch.bool, device=dev)
+                graph, outputs = capture_graph(
+                    lambda: self._pipeline_cfg(depth, com, cube, mirror), dev)
+            else:
+                depth, com = over.depth[:batch], over.com[:batch]
+                cube, mirror = over.cube[:batch], over.mirror[:batch]
+                outputs = tuple(o[:batch] for o in over.outputs)
+
+                def into_over():
+                    for out, new in zip(outputs, self._pipeline_cfg(depth, com, cube, mirror)):
+                        out.copy_(new)
+                    return outputs
+
+                graph, _ = capture_graph(into_over, dev, pool=over.graph.pool())
         return Captured(graph, depth, com, cube, mirror, tuple(outputs), self)
 
     def aot_compile(self, batch: int, hw):
@@ -306,12 +328,14 @@ def new_stats(device) -> Dict[str, torch.Tensor]:
             for k in ("rows", "voxels_set", "voxels_seen")}
 
 
-def capture_graph(fn, device):
+def capture_graph(fn, device, pool=None):
     """One CUDA graph of ``fn()`` on ``device``: one warm-up call on a side
     stream first, outside the capture (a first call builds the crop kernel
     with nvcc and sets its attributes, which a capture cannot do).  Returns
-    (graph, fn's outputs in the graph's memory).  A failed capture raises:
-    there is no eager fallback."""
+    (graph, fn's outputs in the graph's memory).  The graph takes its
+    memory from ``pool`` (another graph's ``pool()``) or, by default, a
+    pool of its own.  A failed capture raises: there is no eager
+    fallback."""
     with torch.cuda.device(device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -319,7 +343,7 @@ def capture_graph(fn, device):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with graph_capture(graph):
+        with graph_capture(graph, pool):
             outputs = fn()
     return graph, outputs
 

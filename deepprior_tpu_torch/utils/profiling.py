@@ -210,34 +210,44 @@ def to_wall_ns(perf_ns: int) -> int:
     return perf_ns + _REC.offset_ns
 
 
-_GC_HELD = {"captures": 0, "was_enabled": True}
+_GC_HELD = {"holds": 0, "was_enabled": True}
 _GC_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
-def graph_capture(graph):
-    """``torch.cuda.graph(graph)`` with Python's cyclic garbage
-    collector run first and held off until the capture ends.  A CUDA graph
-    left in a reference cycle (an estimator and its replay closures) is
-    destroyed whenever the collector runs, and destroying one while another
-    is being captured invalidates that capture
-    (cudaErrorStreamCaptureInvalidated); torch no longer collects before a
-    capture by default.  Captures in several threads share one hold: the
-    collector comes back when the last of them ends."""
+def collector_held():
+    """Python's cyclic garbage collector run once and held off until the
+    block ends (``graph_capture``'s hold, for a block of several captures:
+    one collection instead of one a capture).  Nested holds and holds in
+    several threads share one: the collector runs at the first and comes
+    back when the last ends, unless the caller had turned it off."""
     with _GC_LOCK:
-        if _GC_HELD["captures"] == 0:
+        if _GC_HELD["holds"] == 0:
             gc.collect()
             _GC_HELD["was_enabled"] = gc.isenabled()
             gc.disable()
-        _GC_HELD["captures"] += 1
+        _GC_HELD["holds"] += 1
     try:
-        with torch.cuda.graph(graph):
-            yield
+        yield
     finally:
         with _GC_LOCK:
-            _GC_HELD["captures"] -= 1
-            if _GC_HELD["captures"] == 0 and _GC_HELD["was_enabled"]:
+            _GC_HELD["holds"] -= 1
+            if _GC_HELD["holds"] == 0 and _GC_HELD["was_enabled"]:
                 gc.enable()
+
+
+@contextlib.contextmanager
+def graph_capture(graph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
+    collector run first and held off until the capture ends
+    (``collector_held``).  A CUDA graph left in a reference cycle (an
+    estimator and its replay closures) is destroyed whenever the collector
+    runs, and destroying one while another is being captured invalidates
+    that capture (cudaErrorStreamCaptureInvalidated); torch no longer
+    collects before a capture by default.  Captures in several threads
+    share one hold: the collector comes back when the last of them ends."""
+    with collector_held(), torch.cuda.graph(graph, pool=pool):
+        yield
 
 
 def _first_tensor(tree):

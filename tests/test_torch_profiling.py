@@ -66,7 +66,7 @@ def test_graph_capture_holds_the_collector_off(monkeypatch):
     seen = []
 
     @contextlib.contextmanager
-    def fake_graph(graph):
+    def fake_graph(graph, pool=None):
         seen.append((graph, gc.isenabled()))
         yield
 
