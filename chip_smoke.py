@@ -147,6 +147,15 @@ and at 64; serves batches of sizes up to max_batch bit-equal to eager
 calls at the rows computed, with each server.launch span's rows equal to
 its batch's frames; and logs the seconds and memory of the captures and
 each checked row count's replay time.
+Phase 55 (run after phase 54) holds A2J's train step (Adam with weight
+decay 1e-4, B = 64, 176x176 crops of a [220, 220, 300] mm cube, com / rot /
+sc / none augmentation through K5, He weights, TF32 off) to the
+benchmark's plain reference bench_torch/reference/a2j.py on the card over
+three steps, read as the cell a2j_nyu.train_b64 reads them and held to its
+limits; holds K5 at 176x176 to its plain version bit for bit, patches and
+side outputs, and counts one launch a step; times the step (host clock,
+device busy, model TFLOP/s) and its memory peak; and runs --model a2j
+through the NYU main for one epoch.
 Every phase raises on failure, so the
 exit code is 0 only when all passed.  The last line is {"ok": true, "device": {...}}; the
 line before it carries each kernel's launches, error, times and bound as
@@ -734,6 +743,8 @@ def main(argv=None):
         v2v_serving = v2v_serving_phase(dev, tag, log)
         row_graphs_phase(dev, tag, log, v2v_serving)
         del v2v_serving
+    with stage("55"):
+        a2j_phase(dev, tag, log)
     with stage("21-26"):
         serving_phases(dev, tag, log, model, prior, trained, figures)
     # before the probe scripts: after them torch.profiler saw no device events
@@ -2507,6 +2518,176 @@ def row_graphs_phase(dev, tag, log, v2v, max_batch=64, v2v_batch=8, replays=20,
             f"(best of 2 x {reps}): "
             + ", ".join(f"{n}: {t:.4f}" for n, t in t_n.items()))
         del server, staged
+
+
+def a2j_phase(dev, tag, log, batch=64, frames=64, steps=3, timed_steps=10, hw=176,
+              main_nmax=128, out="eval/chip_smoke"):
+    """Phase 55, run after phase 54: A2J (models/a2j.py) on the card.  K5 at
+    ``hw`` x ``hw`` against ``augment_geometry`` + ``warp_norm_plain`` on one
+    batch's draws, bit for bit in the patches and the side outputs; then
+    ``steps`` steps of the port's Trainer (Adam, weight decay 1e-4, A2J's
+    augmentation through K5, He weights on ``frames`` synthetic NYU crops
+    of the [220, 220, 300] mm cube) against the benchmark's plain reference
+    (bench_torch/reference/a2j.py ``follow``) from the same weights, rows
+    and augmentation generator state: each step's loss, the first step's
+    gradient as Adam got it, the decay it added and the parameters' change,
+    read as the cell a2j_nyu.train_b64 reads them and held to its limits
+    (bench_torch/workloads/a2j_nyu.train_b64.json).  One K5 launch a step.  Then the step's time
+    (host clock around ``timed_steps`` synchronised steps), its device time
+    (torch.profiler, the union of the device's operations), the model
+    TFLOP/s (bench_torch/models/a2j_flops.py) and its memory peak; and
+    ``--model a2j`` through the NYU main for one epoch on ``main_nmax``
+    synthetic frames.  ``hw`` (a multiple of 16) is for a rehearsal on the
+    CPU.  Returns the phase's figures."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_torch.models import a2j_flops
+    from bench_torch.reference import a2j as plain
+    from bench_torch.reference import train as train_ref
+    from deepprior_tpu_torch.camera import NYU_CAMERA
+    from deepprior_tpu_torch.data.synthetic import make_sequence
+    from deepprior_tpu_torch.mains import main_nyu_posereg_embedding
+    from deepprior_tpu_torch.models.a2j import A2J, A2JConfig
+    from deepprior_tpu_torch.ops import hopper_warp as hw_mod
+    from deepprior_tpu_torch.ops.augment import (NV_VAL, augment_geometry,
+                                                 sample_augment_params)
+    from deepprior_tpu_torch.train.trainer import TrainConfig, TrainData, Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "bench_torch", "configs", "a2j_nyu.json")) as fh:
+        cfg = dict(json.load(fh), input_hw=hw)
+    with open(os.path.join(here, "bench_torch", "workloads", "a2j_nyu.train_b64.json")) as fh:
+        limits = json.load(fh)["limits"]
+    tr_cfg = cfg["train"]
+    modes = tuple(tr_cfg["aug_modes"])
+    cam = NYU_CAMERA
+    seq = make_sequence(cam, frames, num_joints=cfg["num_joints"],
+                        cube=tuple(cfg["cube_mm"]), seed=55, dsize=(hw, hw))
+    data = TrainData.from_sequence(seq).to(dev)
+    rows = [torch.arange(s * batch, (s + 1) * batch, device=dev) % data.n for s in range(steps)]
+
+    # K5 at hw x hw against its plain version
+    b0 = data.take(rows[0])
+    gen = torch.Generator(dev).manual_seed(55)
+    drawn = sample_augment_params(gen, batch, len(modes), tr_cfg["sigma_com"],
+                                  tr_cfg["sigma_sc"], tr_cfg["rot_range"])
+    geo = augment_geometry(drawn, b0["com"], b0["cube"], b0["m"], cam, modes, (hw, hw))
+    want = hw_mod.warp_norm_plain(b0["crops"], hw_mod.warp_norm_params(geo.a_fwd, geo.norm),
+                                  0.0, NV_VAL)
+    got = hw_mod.launch_warp_norm(b0["crops"], hw_mod.warp_norm_args(
+        b0["crops"], drawn, b0["com"], b0["cube"], b0["m"], cam, modes), 0.0, NV_VAL)
+    side = dict(new_com=geo.new_com, new_cube=geo.new_cube, m_out=geo.m_out)
+    bad = [k for k, v in side.items() if not torch.equal(getattr(got, k), v)]
+    if not torch.equal(got.out, want) or bad:
+        raise AssertionError(f"phase 55: K5 at {hw}x{hw} != plain on "
+                             f"{int((got.out != want).sum())} pixels; side outputs {bad}")
+
+    # three steps against the reference
+    net = A2J(A2JConfig(num_joints=cfg["num_joints"], input_hw=hw),
+              generator=torch.Generator().manual_seed(55))
+    start = {k: v.detach().clone().to(dev) for k, v in net.state_dict().items()}
+    tc = TrainConfig(batch_size=batch, optimizer="adam", aug_modes=modes,
+                     sigma_com=tr_cfg["sigma_com"], sigma_sc=tr_cfg["sigma_sc"],
+                     rot_range=tr_cfg["rot_range"], model_has_dropout=False, seed=55)
+    trainer = Trainer(net.to(dev), tc, cam, device=dev, weight_decay=tr_cfg["weight_decay"])
+    state = trainer.init_state(state_dict=start)
+    lr = tr_cfg["learning_rate"] / 10.0  # lr_of_ep(0)
+    aug_gen = torch.Generator(dev).manual_seed(56)
+    aug_state = aug_gen.get_state()
+    hw_mod.LAUNCHES.update(dict.fromkeys(hw_mod.LAUNCHES, 0))
+    names = [k for k, _ in state.model.named_parameters()]
+
+    def moments():
+        return {k: state.optimizer.state[p]["mu"].clone()
+                for k, p in zip(names, state.model.parameters())}
+
+    losses, mu0 = [], moments()
+    for s in range(steps):
+        state, loss = trainer.train_step(state, data.take(rows[s]), aug_gen, None, lr)
+        losses.append(float(loss))
+        if s == 0:  # the gradient as Adam got it, and the loss's own
+            grad1 = train_ref.gradient_from_moments(mu0, moments())
+            raw1 = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+    launches = dict(hw_mod.LAUNCHES)
+    if launches.get("warp_norm") != steps:
+        raise AssertionError(f"phase 55: {steps} steps launched {launches}")
+    delta = {k: p.detach() - start[k] for k, p in state.model.named_parameters()}
+    ref_gen = torch.Generator(dev)
+    ref_gen.set_state(aug_state)
+    readings = train_ref.compare(losses, grad1, delta, *plain.follow(
+        cfg, start, data._asdict(), rows, lr, ref_gen, steps=steps))
+    readings["decay_gap"] = plain.decay_gap(grad1, raw1, start, tr_cfg["weight_decay"])
+    held = [k for k in ("loss_rel", "grad_norm_gap", "step_norm_gap", "decay_gap")
+            if k in limits]
+    log(f"[55 a2j] {tag} B={batch} {hw}x{hw}, {steps} steps against "
+        f"bench_torch/reference/a2j.py: losses {[f'{v:.6g}' for v in losses]}; "
+        + ", ".join(f"{k} {readings[k]:.3g} (limit {limits[k]:g})" for k in held)
+        + f"; grad_sign_flip_share {readings['grad_sign_flip_share']:.3g}; K5 at {hw}x{hw} "
+        f"== plain (patches, new_com, new_cube, m_out), one launch a step")
+    for k in held:
+        if not readings[k] <= limits[k]:
+            raise AssertionError(f"phase 55: {k} {readings[k]:.3g} above the cell's limit "
+                                 f"{limits[k]:g}")
+
+    b = data.take(rows[0])
+
+    def one_step():
+        nonlocal state
+        state, _ = trainer.train_step(state, b, aug_gen, None, lr)
+
+    one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if is_device_op(e))
+    busy, end = 0, None
+    for s0, s1 in spans:
+        if end is None or s0 > end:
+            busy, end = busy + (s1 - s0), s1
+        elif s1 > end:
+            busy, end = busy + (s1 - end), s1
+    device_ms = busy / 3 / 1e3  # the profiler's times are in us
+    top = Counter()
+    for e in prof.events():
+        if is_device_op(e):
+            top[e.name[:60]] += (e.time_range.end - e.time_range.start) / 3 / 1e3
+    with torch.device("meta"):
+        layout = A2J(A2JConfig(num_joints=cfg["num_joints"], input_hw=hw)).state_dict()
+    flops = a2j_flops.train_step_flops(layout, batch, cfg["num_joints"], hw)
+    log(f"[55 a2j] {tag} train step B={batch}: {step_ms:.3f} ms (host clock, {timed_steps} "
+        f"synchronised steps), device busy {device_ms:.3f} ms a step "
+        f"({100 * device_ms / step_ms:.1f}%), {flops / step_ms / 1e9:.2f} TFLOP/s of "
+        f"{flops / 1e12:.4g} TFLOP a step ({100 * flops / step_ms / 1e9 / 67:.1f}% of 67); "
+        f"memory peak {peak / 1e9:.3f} GB; device ms a step by kernel: "
+        + "; ".join(f"{k} {v:.3f}" for k, v in top.most_common(8)))
+    del trainer, state, net, data
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    st, results, hist = main_nyu_posereg_embedding.main(
+        ["--synthetic", "--model", "a2j", "--epochs", "1", "--nmax", str(main_nmax),
+         "--out", out, "--device", str(dev)], a2j=dict(input_hw=hw))
+    if not (np.isfinite(hist["train_cost"]).all() and st.step == -(-main_nmax // 64)):
+        raise AssertionError(f"phase 55: the main's costs {hist['train_cost']}, step {st.step}")
+    log(f"[55 a2j] {tag} main_nyu_posereg_embedding --model a2j --nmax {main_nmax}: "
+        f"{st.step} steps, costs {[f'{v:.4g}' for v in hist['train_cost']]}, test mean "
+        + ", ".join(f"{k} {v.getMeanError():.1f} mm" for k, v in results.items())
+        + f", {time.perf_counter() - t0:.1f} s")
+    del st
+    torch.cuda.empty_cache()
+    return {"readings": readings, "step_ms": step_ms, "device_ms": device_ms,
+            "peak_bytes": peak, "flops": flops}
 
 
 def serving_phases(dev, tag, log, model, prior, trained, figures, batch=512, max_batch=64):

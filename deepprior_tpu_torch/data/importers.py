@@ -17,7 +17,8 @@ cache:
 
 Each sequence is cached as a compressed .npz of stacked arrays under the
 JAX package's file name and keys, so a cache written by either package
-loads in the other.  The host crop (default) is the numpy oracle
+loads in the other; crops of another size than 128x128 (A2J's 176x176)
+add their size to the name.  The host crop (default) is the numpy oracle
 ``data/detector_np.HandCropper``, frame by frame; ``device_crop=True``
 crops in batches of 256 frames with the port's ``ops/crop.py`` and
 ``ops/com.py`` on ``device``.  With ``docom`` and a ``refine_net``
@@ -131,10 +132,12 @@ class DepthImporter:
         return 32001
 
     # ------------------------------------------------------------------
-    def _cache_path(self, seq_name, docom, cube, extra=""):
+    def _cache_path(self, seq_name, docom, cube, extra="", dsize=(128, 128)):
         tag = _detection_mode(docom, self.refine_net is not None)
         if self.resize_method != "nearest":  # crops differ per method
             tag += f"_{self.resize_method}"
+        if tuple(dsize) != (128, 128):  # the JAX package's name at its 128x128
+            tag += f"_{dsize[0]}x{dsize[1]}"
         return os.path.join(
             self.cache_dir,
             f"{type(self).__name__}_{seq_name}{extra}_{self.hand}_{tag}_"
@@ -343,7 +346,7 @@ class ICVLImporter(DepthImporter):
             raise NotImplementedError(f"ICVL sequences are {self.sides[seq_name]}-hand only")
         config = {"cube": cube if cube is not None else self.default_cubes[seq_name]}
         extra = "_" + "".join(subSeq) if subSeq else ""
-        cache = self._cache_path(seq_name, docom, config["cube"], extra)
+        cache = self._cache_path(seq_name, docom, config["cube"], extra, dsize)
         hit = self._load_cache(cache, seq_name, config, shuffle, rng, Nmax)
         if hit is not None:
             return hit
@@ -444,7 +447,8 @@ class NYUImporter(DepthImporter):
             # the reference has no NYU mirroring path (importers.py:1007-1008)
             raise NotImplementedError(f"NYU sequences are {self.sides[seq_name]}-hand only")
         config = {"cube": cube if cube is not None else self.default_cubes[seq_name]}
-        cache = self._cache_path(seq_name, docom, config["cube"], extra=f"_{self.all_joints}")
+        cache = self._cache_path(seq_name, docom, config["cube"], extra=f"_{self.all_joints}",
+                                 dsize=dsize)
         hit = self._load_cache(cache, seq_name, config, shuffle, rng, Nmax)
         if hit is not None:
             return hit
@@ -560,7 +564,7 @@ class MSRA15Importer(DepthImporter):
                      device_crop: bool = False) -> ImageSequence:
         config = {"cube": cube if cube is not None else self.default_cubes[seq_name]}
         extra = "_" + "".join(subSeq) if subSeq else ""
-        cache = self._cache_path(seq_name, docom, config["cube"], extra)
+        cache = self._cache_path(seq_name, docom, config["cube"], extra, dsize)
         hit = self._load_cache(cache, seq_name, config, shuffle, rng, Nmax)
         if hit is not None:
             return hit

@@ -236,14 +236,15 @@ def make_sequence(
     name: str = "train",
     docom: bool = False,
     keep_full: bool = False,
+    dsize: Tuple[int, int] = (128, 128),
 ) -> ImageSequence:
     """A synthetic ImageSequence shaped like an importer's output: the JAX
     ``make_sequence``'s frames for the same seed (without its on-disk
-    cache)."""
+    cache), cropped to ``dsize``."""
     rng = np.random.default_rng(seed)
     frames = []
     for _ in range(num_frames):
-        f = make_frame(camera, rng, num_joints, cube, docom=docom)
+        f = make_frame(camera, rng, num_joints, cube, dsize=dsize, docom=docom)
         if not keep_full:
             f = f._replace(extraData=None)
         frames.append(f)

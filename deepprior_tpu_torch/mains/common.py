@@ -7,7 +7,10 @@ from sampled poses -> PoseRegNet (or, with --model resnet, ResNet-47)
 -> metrics -> results.json.  With --model v2v it trains V2V-PoseNet
 (models/v2v.py) on occupancy grids of the same crops, with V2V's recipe
 (RMSProp, --lr 2.5e-4 and --batch-size 8 unless given), no PCA prior, and
-decodes its heatmaps to mm.  ``run_com_refine`` is the CoM-refinement
+decodes its heatmaps to mm.  With --model a2j it trains A2J (models/a2j.py)
+on 176x176 crops with A2J's recipe (Adam with weight decay 1e-4, --lr
+3.5e-4 and --batch-size 64 unless given), no PCA prior, and decodes its
+anchors' votes to mm.  ``run_com_refine`` is the CoM-refinement
 recipe (reference main_nyu_com_refine.py): ScaleNet over docom crops ->
 net_<prefix>.ckpt, which an importer's ``load_refine_net_lazy`` reads.
 Both train resident (``Trainer.fit``) or, with --streamed, from host
@@ -59,10 +62,12 @@ ICVL_BASELINE = {"label": "Tang et al.", "relpath": "LRF_Results_seq_1.txt", "ki
 PRIOR_POSES = 1_000_000
 PRIOR_POSES_SYNTHETIC = 50_000
 
-# --lr and --batch-size when not given: the flagship recipe's, and V2V's
-# (the paper's RMSProp at 2.5e-4, batch 8)
+# --lr and --batch-size when not given: the flagship recipe's, V2V's (the
+# paper's RMSProp at 2.5e-4, batch 8) and A2J's (src/nyu.py: Adam at
+# 3.5e-4 with weight decay 1e-4, batch 64)
 RECIPE_DEFAULTS = {"lr": 0.001, "batch_size": 128}
 V2V_DEFAULTS = {"lr": 2.5e-4, "batch_size": 8}
+A2J_DEFAULTS = {"lr": 3.5e-4, "batch_size": 64, "weight_decay": 1e-4}
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -78,9 +83,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "JAX package's caches load here and back)")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=None,
-                   help="default 128; 8 with --model v2v")
+                   help="default 128; 8 with --model v2v, 64 with --model a2j")
     p.add_argument("--lr", type=float, default=None,
-                   help="default 0.001; 2.5e-4 with --model v2v")
+                   help="default 0.001; 2.5e-4 with --model v2v, 3.5e-4 with --model a2j")
     p.add_argument("--seed", type=int, default=23455)
     p.add_argument("--nmax", type=float, default=float("inf"),
                    help="cap on frames")
@@ -103,11 +108,13 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="bfloat16 compute (float32 parameters, optimizer "
                         "state, losses and metrics)")
     p.add_argument("--model", default="poseregnet",
-                   choices=["poseregnet", "resnet", "v2v"],
+                   choices=["poseregnet", "resnet", "v2v", "a2j"],
                    help="regressor family: PoseRegNet, ResNet-47 (the "
-                        "reference's best results and realtime demo), or "
+                        "reference's best results and realtime demo), "
                         "V2V-PoseNet (3D heatmaps from voxelized crops; "
-                        "RMSProp; serve_http --model v2v serves its checkpoint)")
+                        "RMSProp; serve_http --model v2v serves its checkpoint), "
+                        "or A2J (anchor-to-joint regression on 176x176 crops; "
+                        "Adam with weight decay; not served yet)")
     p.add_argument("--resnet-type", type=int, default=2,
                    help="reference ResNet head type 0-4 (resnet.py:119-195); "
                         "2 = dropout head (default), 1 = plain head (pair "
@@ -173,18 +180,23 @@ def main_device(args) -> torch.device:
     return device
 
 
-def make_trainer(model, cfg, camera, prior=None, dp=None, tp=1, sp=1, device=None):
+def make_trainer(model, cfg, camera, prior=None, dp=None, tp=1, sp=1, device=None,
+                 weight_decay=0.0):
     """A ``Trainer`` on one rank, or a ``DistributedTrainer`` over the
     ('dp', 'sp', 'tp') mesh of the process group (counterpart of the JAX
     ``make_trainer``).  Nothing falls back quietly: dp, sp or tp above 1
     without a process group, or a group whose world is not dp x sp x tp,
-    raises and names the launcher."""
+    raises and names the launcher; so does ``weight_decay`` (Adam's, for
+    A2J, which trains on one device) over a mesh."""
     from deepprior_tpu_torch.train.trainer import Trainer
 
     if not check_world(dp, tp, sp):
-        return Trainer(model, cfg, camera, prior=prior, device=device)
+        return Trainer(model, cfg, camera, prior=prior, device=device,
+                       weight_decay=weight_decay)
     from deepprior_tpu_torch.parallel import DistributedTrainer, make_mesh
 
+    if weight_decay:
+        raise ValueError("weight_decay trains on one device only; leave out --dp, --tp, --sp")
     return DistributedTrainer(model, cfg, camera,
                               make_mesh(dp=dp, tp=tp or 1, sp=sp or 1),
                               prior=prior, device=device)
@@ -229,8 +241,8 @@ def serving_state_dict(trainer, state):
 
 
 def load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs, num_joints,
-                       docom=False):
-    """(train ImageSequence, [test ImageSequences]).
+                       docom=False, dsize=(128, 128)):
+    """(train ImageSequence, [test ImageSequences]), cropped to ``dsize``.
 
     With --data: ``importer_cls(args.data, cache_dir=, device=)`` loads the
     train sequence shuffled by ``RandomState(args.seed)`` and the test
@@ -247,16 +259,16 @@ def load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs, num_joi
 
         n_train = 256 if np.isinf(args.nmax) else int(args.nmax)
         train = make_sequence(camera, n_train, num_joints=num_joints, seed=args.seed,
-                              name=train_seq, docom=docom)
+                              name=train_seq, docom=docom, dsize=dsize)
         tests = [
             make_sequence(camera, max(32, n_train // 8), num_joints=num_joints,
-                          seed=args.seed + 1 + i, name=name, docom=docom)
+                          seed=args.seed + 1 + i, name=name, docom=docom, dsize=dsize)
             for i, name in enumerate(test_seqs)
         ]
         return train, tests
     imp = importer_cls(args.data, cache_dir=args.cache_dir or os.path.join(args.out, "cache"),
                        device=args.device)
-    kw = dict(Nmax=args.nmax, docom=docom)
+    kw = dict(Nmax=args.nmax, docom=docom, dsize=dsize)
     train = imp.loadSequence(train_seq, shuffle=True, rng=np.random.RandomState(args.seed),
                              **kw)
     tests = [imp.loadSequence(s, **kw) for s in test_seqs]
@@ -447,7 +459,7 @@ def recipe_value(args, key: str, defaults=RECIPE_DEFAULTS):
 
 def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_joints,
                           eval_cls=None, n_pca: int = 30, baseline_spec=None,
-                          accept_mm: float = 10.0, log=print, v2v=None):
+                          accept_mm: float = 10.0, log=print, v2v=None, a2j=None):
     """The flagship recipe.
 
     baseline_spec ({"label", "relpath", "kind": "mat" or "txt"}) and
@@ -458,21 +470,26 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     dropout or --weightreg > 0 asks for it.  ``--model v2v`` trains
     V2V-PoseNet (its published grid, or ``v2v``'s ``V2VConfig`` fields)
     with RMSProp and no PCA prior into <out>/<train_seq>_V2V; its test
-    joints are its heatmaps decoded to mm.  The PCA prior samples
+    joints are its heatmaps decoded to mm.  ``--model a2j`` trains A2J (its
+    published 176x176 crops, or ``a2j``'s ``A2JConfig`` fields), the
+    importers and the trainer at its crop size, with Adam and weight decay
+    and no PCA prior into <out>/<train_seq>_A2J; its test joints are its
+    anchors' votes decoded to mm.  The PCA prior samples
     ``PRIOR_POSES`` poses from imported data, ``PRIOR_POSES_SYNTHETIC``
     from synthetic.  Returns (state, {seq name: evaluation}, training
     history) and writes
     <out>/<prefix>/network_prior.ckpt (the trained weights, a ResNet's
     BatchNorm statistics and the PCA prior, fingerprinted with the
     TrainConfig and the family, V2V-PoseNet's with its joints, grid,
-    cube_voxels and sigma; ``load_serving_net`` reads it),
+    cube_voxels and sigma, A2J's with its joints and crop size;
+    ``load_serving_net`` reads it),
     <out>/<prefix>/net_last.ckpt (the rolling snapshot),
     <out>/<prefix>/results.json with the JAX main's metrics (and with
     --accept its acceptance record; a miss then raises SystemExit after the
     file is written) and the plots."""
     from deepprior_tpu_torch.eval.metrics import HandposeEvaluation
-    from deepprior_tpu_torch.models import (PoseRegNet, PoseRegNetConfig, ResNet,
-                                            ResNetConfig, V2VConfig, V2VPoseNet)
+    from deepprior_tpu_torch.models import (A2J, A2JConfig, PoseRegNet, PoseRegNetConfig,
+                                            ResNet, ResNetConfig, V2VConfig, V2VPoseNet)
     from deepprior_tpu_torch.prior import fit_pose_prior
     from deepprior_tpu_torch.train.checkpoint import save_checkpoint
     from deepprior_tpu_torch.parallel.multihost import is_writer
@@ -482,8 +499,15 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     device = main_device(args)
     check_world(args.dp, args.tp, args.sp)
     log = rank_log(log)
-    voxel = args.model == "v2v"
-    prefix = args.eval_prefix or (f"{train_seq}_V2V" if voxel else f"{train_seq}_EMB_PCA{n_pca}")
+    voxel, anchored = args.model == "v2v", args.model == "a2j"
+    if anchored and args.weightreg > 0.0:
+        raise ValueError("--weightreg does not go with --model a2j: A2J's decay is its "
+                         "recipe's, Adam's coupled weight decay of 1e-4")
+    dtype = _model_dtype(args)
+    a2j_cfg = A2JConfig(num_joints=num_joints, dtype=dtype, **(a2j or {})) if anchored else None
+    dsize = (a2j_cfg.input_hw,) * 2 if anchored else (128, 128)
+    tag = {"v2v": "V2V", "a2j": "A2J"}.get(args.model, f"EMB_PCA{n_pca}")
+    prefix = args.eval_prefix or f"{train_seq}_{tag}"
     outdir = os.path.join(args.out, prefix)
     os.makedirs(outdir, exist_ok=True)
 
@@ -492,12 +516,12 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
 
     stamp(f"device={device} loading data...")
     train, tests = load_or_synthesize(args, importer_cls, camera, train_seq, test_seqs,
-                                      num_joints)
+                                      num_joints, dsize=dsize)
     data = TrainData.from_sequence(train)
     val = TrainData.from_sequence(tests[0]) if tests else None
 
     prior = None
-    if not voxel:
+    if not (voxel or anchored):
         stamp(f"{data.n} train frames; fitting pose prior...")
         prior = fit_pose_prior(
             camera, np.random.default_rng(args.seed), data.gt3d_crop, data.com, data.cube,
@@ -507,11 +531,16 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
         )
         stamp("prior ready; training...")
 
-    dtype = _model_dtype(args)
     has_dropout = True
+    recipe = RECIPE_DEFAULTS
     if voxel:
         has_dropout = False
+        recipe = V2V_DEFAULTS
         model = V2VPoseNet(V2VConfig(num_joints=num_joints, dtype=dtype, **(v2v or {})))
+    elif anchored:
+        has_dropout = False
+        recipe = A2J_DEFAULTS
+        model = A2J(a2j_cfg)
     elif args.model == "resnet":
         has_dropout = args.resnet_type in (2, 3, 4)
         model = ResNet(ResNetConfig(num_joints=1, n_dims=n_pca, dropout=has_dropout,
@@ -519,7 +548,6 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     else:
         model = PoseRegNet(PoseRegNetConfig(num_joints=1, n_dims=n_pca, dtype=dtype))
     wr = args.weightreg
-    recipe = V2V_DEFAULTS if voxel else RECIPE_DEFAULTS
     cfg = TrainConfig(
         batch_size=recipe_value(args, "batch_size", recipe),
         learning_rate=recipe_value(args, "lr", recipe),
@@ -530,7 +558,8 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
         aug_fuse_norm=args.aug_fuse_norm, aug_resize=args.aug_resize,
     )
     trainer = make_trainer(model, cfg, camera, prior=prior, dp=args.dp, tp=args.tp,
-                           sp=args.sp, device=device)
+                           sp=args.sp, device=device,
+                           weight_decay=recipe.get("weight_decay", 0.0))
     trainer.sharded_snapshots = args.sharded_snapshots
     state, hist = _train(args, trainer, trainer.init_state(), data, val, outdir, log)
     if is_writer():
@@ -545,6 +574,9 @@ def run_posereg_embedding(args, importer_cls, camera, train_seq, test_seqs, num_
     elif voxel:  # what load_serving_net builds the network from
         family.update(num_joints=num_joints, grid=model.cfg.grid,
                       cube_voxels=model.cfg.cube_voxels, sigma=model.cfg.sigma)
+    elif anchored:
+        family.update(num_joints=num_joints, input_hw=model.cfg.input_hw,
+                      weight_decay=trainer.weight_decay)
     params = serving_state_dict(trainer, state)
     if is_writer():
         tree = {"params": params}
@@ -759,6 +791,9 @@ def load_serving_net(model_name="poseregnet", ref_pickle=None, checkpoint=None,
                 "the network_prior.pkl form the reference main saved (decode "
                 "appended), or a --checkpoint that carries the prior")
         return model.to(device), None  # the appended decode layer decodes
+    if model_name == "a2j":
+        raise ValueError("A2J is not served yet: serving takes poseregnet, resnet and v2v; "
+                         "train it with main_nyu_posereg_embedding --model a2j")
     if model_name not in ("poseregnet", "resnet", "v2v"):
         raise ValueError(f"unknown model {model_name!r}")
     stored = None

@@ -6,16 +6,21 @@
   family's counters (0-d tensors on the device, added to with no host
   sync);
 - ``mirror_dim``: the input's axis a right hand is mirrored along;
-- ``targets(labels_norm, step=None)``, ``loss(out, y)``: training;
-- ``joints(out, batch)``: the joints (B, J, 3) in mm about the CoM;
-- ``rows(out, y, batch)``: evaluation's per-sample statistics;
+- ``targets(labels_norm, step=None, batch=None, camera=None)``,
+  ``loss(out, y)``: training; ``batch`` is the (augmented) batch the
+  labels belong to and ``camera`` the trainer's, for a family whose targets
+  lie in the crop (A2J);
+- ``joints(out, batch, camera=None)``: the joints (B, J, 3) in mm about the
+  CoM;
+- ``rows(out, y, batch, camera=None)``: evaluation's per-sample statistics;
 - ``extras(x, out)``: what the serving estimator (realtime/fused.py) returns
   after the joints, the CoM and the crops;
 - ``freezes``: whether a serving artifact (realtime/export.py) may freeze
   the estimator's pipeline.
 
 ``family_of(model, prior)`` is the model itself where it brings these
-(models/v2v.py::V2VPoseNet: an occupancy grid in, 3D heatmaps out), else
+(models/v2v.py::V2VPoseNet: an occupancy grid in, 3D heatmaps out;
+models/a2j.py::A2J: the crop in, anchors' votes out), else
 ``CropRegression`` (PoseRegNet, ResNet, ScaleNet: the crops in, the PCA
 embedding or the normalized joints out).
 """
@@ -56,7 +61,7 @@ class CropRegression:
     def inputs(self, batch, camera, step=None, stats=None):
         return batch["crops"][:, None]
 
-    def targets(self, labels_norm, step=None):
+    def targets(self, labels_norm, step=None, batch=None, camera=None):
         if self.prior is not None:
             return self.prior.transform(labels_norm.reshape(labels_norm.shape[0], -1))
         return labels_norm
@@ -64,7 +69,7 @@ class CropRegression:
     def loss(self, out, y):
         return _loss_from_targets(out, y)
 
-    def joints(self, out, batch):
+    def joints(self, out, batch, camera=None):
         """The joints (B, J, 3) in mm about the CoM."""
         d3 = self.prior.inverse_transform(out) if self.prior is not None else out
         return d3.reshape(out.shape[0], -1, 3) * (batch["cube"][:, 2] / 2.0)[:, None, None]
@@ -72,7 +77,7 @@ class CropRegression:
     def extras(self, x, out):
         return ()
 
-    def rows(self, out, y, batch):
+    def rows(self, out, y, batch, camera=None):
         """(cost, normalized error, joint distances in mm) of each sample
         (poseregnettrainer.py:122-126)."""
         if y.dim() == 2:

@@ -232,7 +232,7 @@ class V2VPoseNet(nn.Module):
                 _count(stats, "voxels_seen", vox.numel(), vox.device)
         return vox[:, None]
 
-    def targets(self, labels_norm, step=None):
+    def targets(self, labels_norm, step=None, batch=None, camera=None):
         """The heatmaps (B, J, G/2, G/2, G/2) of the cube-normalized labels;
         in a train step under ``train.targets``."""
         cfg = self.cfg
@@ -242,7 +242,7 @@ class V2VPoseNet(nn.Module):
     def loss(self, out, y):
         return heatmap_loss(out, y)
 
-    def joints(self, out, batch):
+    def joints(self, out, batch, camera=None):
         """The joints (B, J, 3) in mm about the CoM at the argmax voxels."""
         cube = batch["cube"]
         return decode_heatmaps(out, torch.zeros_like(cube), cube, self.cfg.cube_voxels)
@@ -252,7 +252,7 @@ class V2VPoseNet(nn.Module):
         heatmaps."""
         return x[:, 0], out
 
-    def rows(self, out, y, batch):
+    def rows(self, out, y, batch, camera=None):
         """(cost, normalized error, joint distances in mm) of each sample:
         the summed squared error, and the mean distance over cube_z / 2."""
         gt3d, half = batch["gt3d_crop"], batch["cube"][:, 2] / 2.0

@@ -92,7 +92,7 @@ class ShardedTrainData:
 class DistributedTrainer(Trainer):
     """``Trainer`` over ``mesh`` (parallel/mesh.py::make_mesh), one rank per
     device: ``device`` defaults to the model's.  A model of a family that
-    runs on one device only (``one_device_only``: V2V-PoseNet) is refused
+    runs on one device only (``one_device_only``: V2V-PoseNet, A2J) is refused
     with ValueError."""
 
     def __init__(

@@ -83,7 +83,8 @@ class FusedEstimator:
     ``model`` is an ``nn.Module`` that holds its weights: a crop regressor
     mapping (B, 1, dh, dw) crops to (B, out) embeddings or poses, or a
     model that brings its family's choices (V2V-PoseNet: grids to heatmaps;
-    models/family.py).  Either runs in eval mode.  ``device``
+    models/family.py).  Either runs in eval mode; a model that is not
+    served yet (``serves`` False: A2J) raises ValueError.  ``device``
     defaults to the model's; the model and prior move to it.  A float32
     model computes in float32 on the card too, whatever the process's TF32
     switches say (``float32_compute``: no TF32 convs), and so does a graph
@@ -126,6 +127,9 @@ class FusedEstimator:
             raise ValueError(f"unknown resize method {resize!r}")
         if crop_method not in _CROP_METHODS:
             raise ValueError(f"unknown crop method {crop_method!r}")
+        if not getattr(model, "serves", True):
+            raise ValueError(f"{type(model).__name__} is not served yet: the estimator "
+                             "takes PoseRegNet, ResNet-47 and V2V-PoseNet")
         if device is None:
             device = next(model.parameters()).device
         self.device = torch.device(device)
@@ -215,7 +219,7 @@ class FusedEstimator:
         net_in = torch.where(flipped, x.flip(family.mirror_dim), x)
         with float32_compute():  # a float32 model: no TF32 convs on the card
             out = self.model(net_in)
-        rel = family.joints(out, batch)  # mm about the CoM
+        rel = family.joints(out, batch, camera=cam)  # mm about the CoM
         # relative-pose sign flips, in the reference's order and indices
         flip = torch.ones((rel.shape[0], 3), dtype=torch.float32, device=rel.device)
         if invx:  # reference invX flips index 1 (realtimehandpose:355-358)

@@ -13,6 +13,10 @@ Counterpart of deepprior_tpu/train/optimizer.py:
 
 Each optimizer computes the reference's direction u and applies
 p + (-lr * u), as the JAX trainer applies ``tx.update`` scaled by -lr.
+Adam's ``weight_decay`` (A2J's recipe; 0 by default) adds the coupled L2
+term g + weight_decay * p to every gradient before the direction, as
+``torch.optim.Adam``'s ``weight_decay`` does; at 0 the step launches nothing
+more and its bits are unchanged.
 The arithmetic is float32 on the parameters' device, with the per-step
 scalars (Adam's count and bias corrections) kept there as 0-d tensors so
 that a step never waits for the device; the per-parameter updates run as
@@ -79,6 +83,8 @@ class _DirectionOptimizer(torch.optim.Optimizer):
             if not params:
                 continue
             grads = [p.grad for p in params]
+            if group.get("weight_decay", 0.0):
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
             updates = self._direction(group, params, grads)
             torch._foreach_mul_(updates, -group["lr"])
             torch._foreach_add_(params, updates)
@@ -98,9 +104,9 @@ class ReferenceAdam(_DirectionOptimizer):
 
     def __init__(self, params, lr: float = 0.001, beta1: float = 0.9,
                  beta2: float = 0.999, eps: float = 1e-8,
-                 gamma: float = 1.0 - 1e-8):
+                 gamma: float = 1.0 - 1e-8, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, beta1=beta1, beta2=beta2,
-                                      eps=eps, gamma=gamma))
+                                      eps=eps, gamma=gamma, weight_decay=weight_decay))
 
     SLOTS = ("mu", "nu")
     COUNTED = True
@@ -164,12 +170,14 @@ class SGDMomentum(_DirectionOptimizer):
         return [t.clone() for t in traces]
 
 
-def make_optimizer(kind: str, params, lr: float = 0.0,
-                   momentum: float = 0.9) -> _DirectionOptimizer:
+def make_optimizer(kind: str, params, lr: float = 0.0, momentum: float = 0.9,
+                   weight_decay: float = 0.0) -> _DirectionOptimizer:
     """Optimizer by the JAX package's name; the trainer sets ``lr`` per
-    epoch from ``lr_of_ep``."""
+    epoch from ``lr_of_ep``.  Weight decay is Adam's only."""
     if kind == "adam":
-        return ReferenceAdam(params, lr=lr)
+        return ReferenceAdam(params, lr=lr, weight_decay=weight_decay)
+    if weight_decay:
+        raise ValueError(f"weight_decay is Adam's only, not {kind!r}'s")
     if kind == "rmsprop":
         return ReferenceRMSProp(params, lr=lr)
     if kind == "sgd_momentum":

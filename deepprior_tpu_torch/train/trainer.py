@@ -19,11 +19,14 @@ plus optional L2 weight decay iff the model has no dropout
 The model family's choices come from ``family`` (models/family.py::
 family_of, the seam the serving estimator takes too): the model itself
 where it brings them (models/v2v.py::V2VPoseNet: an occupancy grid in, 3D
-heatmaps out), else ``CropRegression`` (PoseRegNet, ResNet, ScaleNet: the
-crops in as one-channel maps, the PCA embedding or the normalized joints
-out).  A family's ``inputs`` may count into ``stats`` (V2V-PoseNet's
-``voxels_set`` and ``voxels_seen``): 0-d tensors on the device, added to
-once a step with no host sync; read them after the steps.
+heatmaps out; models/a2j.py::A2J: the crop in, anchors' votes out, its
+targets in crop pixels through the augmented batch's crop transform and
+the camera, which the step hands ``targets``), else ``CropRegression``
+(PoseRegNet, ResNet, ScaleNet: the crops in as one-channel maps, the PCA
+embedding or the normalized joints out).  A family's ``inputs`` may count
+into ``stats`` (V2V-PoseNet's ``voxels_set`` and ``voxels_seen``): 0-d
+tensors on the device, added to once a step with no host sync; read them
+after the steps.
 
 Random draws: the epoch order from ``np.random.default_rng(cfg.seed)``
 (one permutation an epoch), and one ``torch.Generator`` on the device for
@@ -195,7 +198,10 @@ def _l2_penalty(model: nn.Module):
 class Trainer:
     """Drives one model over device-resident TrainData on ``device``
     (default: the model's).  A float32 model computes in float32 within the
-    trainer's steps, evaluation and prediction (``float32_compute``)."""
+    trainer's steps, evaluation and prediction (``float32_compute``).
+    ``weight_decay`` is Adam's coupled L2 (g + weight_decay * p before its
+    moments; A2J's recipe), 0 by default; not a TrainConfig field, which is
+    the JAX package's field for field."""
 
     def __init__(
         self,
@@ -204,6 +210,7 @@ class Trainer:
         camera: Camera,
         prior: Optional[PCAPrior] = None,
         device=None,
+        weight_decay: float = 0.0,
     ):
         if cfg.aug_resize not in ("nearest", "linear"):
             raise ValueError(f"unknown aug_resize {cfg.aug_resize!r}")
@@ -231,6 +238,7 @@ class Trainer:
         # True, a sharded directory (train/checkpoint_sharded.py)
         self.sharded_snapshots = False
         self._sharded_ckptr = None
+        self.weight_decay = weight_decay
 
     # ------------------------------------------------------------------
     def init_state(self, example_crops=None, state_dict=None) -> TrainState:
@@ -245,7 +253,8 @@ class Trainer:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device)
         opt = make_optimizer(self.cfg.optimizer, self.model.parameters(),
-                             lr=self.cfg.learning_rate, momentum=self.cfg.momentum)
+                             lr=self.cfg.learning_rate, momentum=self.cfg.momentum,
+                             weight_decay=self.weight_decay)
         return TrainState(self.model, opt, 0)
 
     # ------------------------------------------------------------------
@@ -279,9 +288,9 @@ class Trainer:
                     )
                 else:
                     labels_norm = gt3d / (cube[:, 2] / 2.0)[:, None, None]
-                x = self.family.inputs({"crops": crops, "com": com, "cube": cube, "m": m},
-                                       self.camera, step, self.stats)
-                y = self.family.targets(labels_norm, step)
+                aug_batch = {"crops": crops, "com": com, "cube": cube, "m": m}
+                x = self.family.inputs(aug_batch, self.camera, step, self.stats)
+                y = self.family.targets(labels_norm, step, batch=aug_batch, camera=self.camera)
 
             model, opt = state.model, state.optimizer
             with span("train.forward", id=step):
@@ -365,8 +374,9 @@ class Trainer:
         def per_sample(batch):
             """(cost, normalized error, joint distances) of each sample."""
             gt3d, half = batch["gt3d_crop"], batch["cube"][:, 2] / 2.0
-            y = self.family.targets(gt3d / half[:, None, None])
-            return self.family.rows(model(self.family.inputs(batch, self.camera)), y, batch)
+            y = self.family.targets(gt3d / half[:, None, None], batch=batch, camera=self.camera)
+            return self.family.rows(model(self.family.inputs(batch, self.camera)), y, batch,
+                                    camera=self.camera)
 
         with self._precision(), torch.no_grad():
             for s in range(n_steps):
@@ -424,7 +434,8 @@ class Trainer:
                 batch = data.take(idx[s:s + b])
                 out = self._forward_rows(model, self.family.inputs(batch, self.camera))
                 com3d = self.camera.img_to_3d(batch["com"])
-                outs.append(self.family.joints(out, batch) + com3d[:, None, :])
+                outs.append(self.family.joints(out, batch, camera=self.camera)
+                            + com3d[:, None, :])
         return torch.cat(outs)[:n].cpu().numpy()
 
     def predict_with_intermediates(self, state: TrainState, crops):
